@@ -1,0 +1,534 @@
+// Fused flat scan for Hopper: bf16 distances + exact per-split top-K,
+// without ever writing the [B, N] score matrix.
+//
+// Replaces longbow_tpu/ops/pallas_scan.py::_scan_kernel as launched by
+// fused_flat_search (the pallas_call at pallas_scan.py:386). The Python
+// wrapper is longbow_tpu_torch/ops/scan.py::fused_flat_search.
+//
+// What it computes, for queries q [B, D] (bf16), corpus [N, D] (bf16),
+// qn [B] (f32, |q|^2 of the bf16 queries for l2, 0 for ip) and
+// vn [N] (f32; |v|^2 (l2) or 0 (ip) for valid rows, MASKED otherwise):
+//     l2:  s[b, n] = qn[b] - 2 q[b].v[n] + vn[n]
+//     ip:  s[b, n] = vn[n] - q[b].v[n]
+// and, for each query b and corpus split `split`, the K smallest s with
+// their row ids, ascending, into out_d/out_i [B, S, K]. Unfilled slots
+// are (MASKED, -1); rows whose score is at or above MASKED_GUARD (masked
+// rows) never enter. The wrapper selects the final k from the S*K
+// candidates with one torch.topk.
+//
+// What bounds it on an H100. Small B: reading the corpus, N*D*2 bytes
+// (256 MiB at 1M x 128) over 3.35 TB/s. Large B: the 2*B*N*D bf16
+// multiply-adds over the tensor cores. What this simple design does:
+//   - bytes: the grid is (ceil(B/QB), S), with S chosen from the
+//     occupancy so that the blocks fill every SM in one wave (at B=1 two
+//     blocks per SM); each block streams its split through a ring of
+//     STAGES shared-memory stages filled by 16-byte cp.async copies, so
+//     the next tile (rows and their norms) is in flight while one is
+//     multiplied, with one barrier per tile;
+//   - operations: scores come from mma.sync m16n8k16 (bf16 in, f32
+//     accumulate) with the block's query fragments held in registers
+//     across the whole scan (D <= 128) and corpus fragments read by
+//     ldmatrix from padded shared memory without bank conflicts. wgmma
+//     and TMA are left for later work.
+// Selection is a threshold filter: a score below the query's current
+// K-th best is appended to a shared-memory buffer of CAP >= K + TN
+// slots (CAP >= 2K + TN where shared memory allows, so that a sort
+// retires at least K appends); when the next tile could overflow it,
+// one warp bitonic-sorts the buffer in registers, keeps K and tightens
+// the threshold. The block waits for that sort at its next barrier, so
+// the sort is kept short.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr float kMasked = 3.0e38f;     // longbow_tpu_torch.ops.distance.MASKED
+constexpr float kGuard = 1.0e37f;      // ... MASKED_GUARD
+constexpr int kChunk = 128;            // dims per corpus chunk in shared memory
+constexpr int kCStride = kChunk + 8;   // +16 bytes: conflict-free fragment loads
+
+__host__ __device__ constexpr int next_pow2(int x) {
+  int p = 1;
+  while (p < x) p <<= 1;
+  return p;
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 16 bytes from global to shared; bytes past `src_bytes` are zero-filled
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  const uint32_t saddr = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(saddr), "l"(src),
+               "r"(src_bytes));
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// A fragments (16 queries x 128 dims of chunk c) for this lane.
+__device__ __forceinline__ void load_a(uint32_t (&afr)[8][4], const __nv_bfloat16* q_s,
+                                       int qstride, int row, int c, int tig) {
+  const __nv_bfloat16* base = q_s + row * qstride + c * kChunk + tig * 2;
+#pragma unroll
+  for (int ks = 0; ks < 8; ++ks) {
+    afr[ks][0] = *reinterpret_cast<const uint32_t*>(base + ks * 16);
+    afr[ks][1] = *reinterpret_cast<const uint32_t*>(base + 8 * qstride + ks * 16);
+    afr[ks][2] = *reinterpret_cast<const uint32_t*>(base + ks * 16 + 8);
+    afr[ks][3] = *reinterpret_cast<const uint32_t*>(base + 8 * qstride + ks * 16 + 8);
+  }
+}
+
+// 8x8 b16 matrices from shared memory: lanes 8m..8m+7 give the row
+// addresses of matrix m, and register m holds this lane's part of it.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+// Bitonic sort, ascending, of 32*E (value, id) pairs held in registers:
+// element r * 32 + lane is (v[r], id[r]). Partners closer than 32 are
+// exchanged with shuffles, farther ones between this lane's registers.
+template <int E>
+__device__ __forceinline__ void bitonic_regs(float (&v)[E], int (&id)[E], int lane) {
+#pragma unroll
+  for (int kk = 2; kk <= 32 * E; kk <<= 1) {
+#pragma unroll
+    for (int j = kk >> 1; j > 0; j >>= 1) {
+      if (j >= 32) {
+        const int jr = j >> 5;
+#pragma unroll
+        for (int r = 0; r < E; ++r) {
+          if ((r & jr) == 0) {
+            const int r2 = r | jr;
+            const bool asc = ((r * 32) & kk) == 0;
+            if ((v[r] > v[r2]) == asc) {
+              const float tv = v[r];
+              v[r] = v[r2];
+              v[r2] = tv;
+              const int ti = id[r];
+              id[r] = id[r2];
+              id[r2] = ti;
+            }
+          }
+        }
+      } else {
+        const bool lower = (lane & j) == 0;
+#pragma unroll
+        for (int r = 0; r < E; ++r) {
+          const bool asc = ((r * 32 + lane) & kk) == 0;
+          const float ov = __shfl_xor_sync(0xffffffffu, v[r], j);
+          const int oi = __shfl_xor_sync(0xffffffffu, id[r], j);
+          // the lower index of a pair keeps the smaller value when the
+          // run is ascending
+          if (lower == asc ? ov < v[r] : ov > v[r]) {
+            v[r] = ov;
+            id[r] = oi;
+          }
+        }
+      }
+    }
+  }
+}
+
+template <int E>
+__device__ void sort_in_regs(float* d, int* ix, int n, int lane) {
+  const float inf = __int_as_float(0x7f800000);
+  float v[E];
+  int id[E];
+#pragma unroll
+  for (int r = 0; r < E; ++r) {
+    const int i = r * 32 + lane;
+    v[r] = i < n ? d[i] : inf;
+    id[r] = i < n ? ix[i] : -1;
+  }
+  bitonic_regs<E>(v, id, lane);
+#pragma unroll
+  for (int r = 0; r < E; ++r) {
+    const int i = r * 32 + lane;
+    if (i < n) {
+      d[i] = v[r];
+      ix[i] = id[r];
+    }
+  }
+  __syncwarp();
+}
+
+// One warp sorts the first n entries of a query's buffer ascending: in
+// registers up to 32 * MAXE entries (a tiling instantiates only the
+// sizes its CAP needs), else bitonic in shared memory over the next power
+// of two (the padding sorts last).
+template <int MAXE>
+__device__ void warp_sort(float* d, int* ix, int n, int lane) {
+  if (n <= 32) return sort_in_regs<1>(d, ix, n, lane);
+  if (n <= 64) return sort_in_regs<2>(d, ix, n, lane);
+  if (n <= 128) return sort_in_regs<4>(d, ix, n, lane);
+  if (n <= 256) return sort_in_regs<(MAXE < 8 ? MAXE : 8)>(d, ix, n, lane);
+  if (MAXE >= 16 && n <= 512) return sort_in_regs<(MAXE < 16 ? MAXE : 16)>(d, ix, n, lane);
+  if (MAXE >= 32 && n <= 1024) return sort_in_regs<(MAXE < 32 ? MAXE : 32)>(d, ix, n, lane);
+  const int m = next_pow2(n);
+  const float inf = __int_as_float(0x7f800000);
+  for (int i = n + lane; i < m; i += 32) {
+    d[i] = inf;
+    ix[i] = -1;
+  }
+  __syncwarp();
+  for (int kk = 2; kk <= m; kk <<= 1) {
+    for (int j = kk >> 1; j > 0; j >>= 1) {
+      for (int i = lane; i < m; i += 32) {
+        const int p = i ^ j;
+        if (p > i) {
+          const float a = d[i], b = d[p];
+          const bool asc = (i & kk) == 0;
+          if ((a > b) == asc) {
+            d[i] = b;
+            d[p] = a;
+            const int t = ix[i];
+            ix[i] = ix[p];
+            ix[p] = t;
+          }
+        }
+      }
+      __syncwarp();
+    }
+  }
+}
+
+template <int WM, int WN, int NT, int STAGES, int MAXE>
+struct Cfg {
+  static constexpr int QB = 16 * WM;          // queries per block
+  static constexpr int TN = 8 * NT * WN;      // corpus rows per tile
+  static constexpr int THREADS = 32 * WM * WN;
+  static constexpr int STAGES_ = STAGES;     // depth of the cp.async ring
+  static constexpr int MAXCAP = 32 * MAXE;   // largest candidate buffer
+};
+
+inline int smem_bytes(int qb, int tn, int stages, int nchunks, int cap) {
+  return stages * tn * kCStride * 2            // corpus ring
+         + stages * tn * 4                     // norm-row ring
+         + qb * (nchunks * kChunk + 8) * 2     // the block's queries
+         + qb * cap * 8                        // candidate buffers (d, idx)
+         + qb * 12;                            // qn, threshold, count
+}
+
+template <int WM, int WN, int NT, int STAGES, int MAXE>
+__global__ void __launch_bounds__(Cfg<WM, WN, NT, STAGES, MAXE>::THREADS, 1)
+fused_scan_kernel(const __nv_bfloat16* __restrict__ q, const float* __restrict__ qn,
+                  const __nv_bfloat16* __restrict__ corpus, const float* __restrict__ vn,
+                  int B, int N, int D, int K, int cap, int rows_per_split, int l2,
+                  int vec16, float* __restrict__ out_d, int* __restrict__ out_i) {
+  using C = Cfg<WM, WN, NT, STAGES, MAXE>;
+  static_assert(NT % 2 == 0, "ldmatrix.x4 loads two 8-row groups");
+  constexpr int QB = C::QB, TN = C::TN, THREADS = C::THREADS;
+  constexpr int NWARPS = THREADS / 32;
+  const int nchunks = (D + kChunk - 1) / kChunk;
+  const int qstride = nchunks * kChunk + 8;
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* c_s = reinterpret_cast<__nv_bfloat16*>(smem);
+  float* vn_s = reinterpret_cast<float*>(c_s + STAGES * TN * kCStride);
+  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(vn_s + STAGES * TN);
+  float* buf_d = reinterpret_cast<float*>(q_s + QB * qstride);
+  int* buf_i = reinterpret_cast<int*>(buf_d + QB * cap);
+  float* qn_s = reinterpret_cast<float*>(buf_i + QB * cap);
+  float* thr_s = qn_s + QB;
+  int* cnt_s = reinterpret_cast<int*>(thr_s + QB);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp / WN, wn = warp % WN;
+  const int g = lane >> 2, tig = lane & 3;
+  const int q0 = blockIdx.x * QB;
+  const int S = gridDim.y, split = blockIdx.y;
+  const int row_begin = split * rows_per_split;
+  const int row_end = min(N, row_begin + rows_per_split);
+
+  const int qcols = nchunks * kChunk;
+  for (int idx = tid; idx < QB * qcols; idx += THREADS) {
+    const int r = idx / qcols, col = idx % qcols;
+    __nv_bfloat16 v = __float2bfloat16(0.0f);
+    if (q0 + r < B && col < D) v = q[(size_t)(q0 + r) * D + col];
+    q_s[r * qstride + col] = v;
+  }
+  for (int r = tid; r < QB; r += THREADS) {
+    qn_s[r] = (q0 + r < B) ? qn[q0 + r] : 0.0f;
+    thr_s[r] = kGuard;
+    cnt_s[r] = 0;
+  }
+
+  const int ntiles = row_end > row_begin ? (row_end - row_begin + TN - 1) / TN : 0;
+  const int total = ntiles * nchunks;
+
+  // Start the copies of (tile, chunk) number `it` of this split into ring
+  // stage `stage`, and with a tile's last chunk its TN norms; rows past
+  // the split and dims past D are zero-filled. The caller commits.
+  auto fetch = [&](int it, int stage) {
+    const int t = it / nchunks, c = it % nchunks;
+    const int row0 = row_begin + t * TN;
+    __nv_bfloat16* dst = c_s + stage * TN * kCStride;
+    if (vec16) {
+      for (int idx = tid; idx < TN * (kChunk / 8); idx += THREADS) {
+        const int r = idx >> 4, v = idx & 15;
+        const int row = row0 + r, dim = c * kChunk + v * 8;
+        const bool ok = row < row_end && dim < D;
+        cp_async16(dst + r * kCStride + v * 8, ok ? corpus + (size_t)row * D + dim : corpus,
+                   ok ? 16 : 0);
+      }
+    } else {
+      for (int idx = tid; idx < TN * kChunk; idx += THREADS) {
+        const int r = idx / kChunk, col = idx % kChunk;
+        const int row = row0 + r, dim = c * kChunk + col;
+        dst[r * kCStride + col] = (row < row_end && dim < D)
+                                      ? corpus[(size_t)row * D + dim]
+                                      : __float2bfloat16(0.0f);
+      }
+    }
+    if (c == nchunks - 1) {
+      for (int idx = tid; idx < TN / 4; idx += THREADS) {
+        const int row = row0 + idx * 4;
+        const int left = N - row;  // rows of the norm array from `row` on
+        const int bytes = left >= 4 ? 16 : max(0, left * 4);
+        cp_async16(vn_s + stage * TN + idx * 4, bytes > 0 ? vn + row : vn, bytes);
+      }
+    }
+  };
+
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < total) fetch(s, s);
+    asm volatile("cp.async.commit_group;\n" ::);
+  }
+  __syncthreads();  // queries, qn, thresholds and counts are in place
+
+  uint32_t afr[8][4];
+  if (nchunks == 1) load_a(afr, q_s, qstride, wm * 16 + g, 0, tig);
+  const float alpha = l2 ? -2.0f : -1.0f;   // score = qn + alpha q.v + vn
+  const int qa = wm * 16 + g, qb = qa + 8;  // this lane's two queries
+  const bool qa_ok = q0 + qa < B, qb_ok = q0 + qb < B;
+  const int lr0 = wn * NT * 8 + tig * 2;     // this lane's first row in a tile
+  // this lane's ldmatrix row: row (lane & 7) of matrix (lane >> 3)
+  const int ld_off = (wn * NT * 8 + ((lane >> 4) << 3) + (lane & 7)) * kCStride +
+                     ((lane >> 3) & 1) * 8;
+
+  for (int t = 0; t < ntiles; ++t) {
+    float acc[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[nt][e] = 0.0f;
+
+    for (int c = 0; c < nchunks; ++c) {
+      const int it = t * nchunks + c;
+      // chunk `it` has landed, and every thread is done with the stage
+      // the next fetch refills (it was read in iteration it - 1)
+      cp_async_wait<STAGES - 2>();
+      __syncthreads();
+      if (it + STAGES - 1 < total) fetch(it + STAGES - 1, (it + STAGES - 1) % STAGES);
+      asm volatile("cp.async.commit_group;\n" ::);
+      if (nchunks > 1) load_a(afr, q_s, qstride, qa, c, tig);
+      // B fragments of two 8-row groups per ldmatrix: matrices (rows,
+      // dims) = (8 nt, ks*16 + 0..7), (8 nt, +8..15), (8 (nt+1), ..)
+      const __nv_bfloat16* cs = c_s + (it % STAGES) * TN * kCStride + ld_off;
+#pragma unroll
+      for (int ks = 0; ks < 8; ++ks) {
+#pragma unroll
+        for (int np = 0; np < NT / 2; ++np) {
+          uint32_t b[4];
+          ldmatrix_x4(b, cs + np * 16 * kCStride + ks * 16);
+          mma_bf16(acc[2 * np], afr[ks], b[0], b[1]);
+          mma_bf16(acc[2 * np + 1], afr[ks], b[2], b[3]);
+        }
+      }
+    }
+
+    // epilogue: scores below the query's threshold join its buffer. The
+    // tile's norms sit in the stage of its last chunk, which is refilled
+    // only after the next iteration's barrier. Scores replace the
+    // products in place (qn is 0 in ip mode), and the lane's smallest
+    // score per query decides whether any of them is looked at again:
+    // once the thresholds settle, almost no tile is.
+    const float* vt = vn_s + ((t * nchunks + nchunks - 1) % STAGES) * TN;
+    const float qn_a = qn_s[qa], qn_b = qn_s[qb];
+    const float th_a = thr_s[qa], th_b = thr_s[qb];
+    const int rbase = row_begin + t * TN;
+    float mn_a = kMasked, mn_b = kMasked;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float sc = fmaf(alpha, acc[nt][e], e >= 2 ? qn_b : qn_a) + vt[lr0 + nt * 8 + (e & 1)];
+        acc[nt][e] = sc;
+        if (e >= 2)
+          mn_b = fminf(mn_b, sc);
+        else
+          mn_a = fminf(mn_a, sc);
+      }
+    }
+    if ((qa_ok && mn_a < th_a) || (qb_ok && mn_b < th_b)) {
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool hi = e >= 2;
+          const int row = rbase + lr0 + nt * 8 + (e & 1);
+          const float sc = acc[nt][e];
+          if ((hi ? qb_ok : qa_ok) && row < row_end && sc < (hi ? th_b : th_a)) {
+            const int ql = hi ? qb : qa;
+            const int pos = atomicAdd(&cnt_s[ql], 1);
+            buf_d[ql * cap + pos] = sc;
+            buf_i[ql * cap + pos] = row;
+          }
+        }
+      }
+    }
+    __syncthreads();
+    // a buffer the next tile could overflow is sorted and cut to K; the
+    // next tile's first barrier orders this before its epilogue
+    for (int ql = warp; ql < QB; ql += NWARPS) {
+      const int n = cnt_s[ql];
+      if (q0 + ql >= B || n <= cap - TN) continue;
+      warp_sort<MAXE>(buf_d + ql * cap, buf_i + ql * cap, n, lane);
+      if (lane == 0) {
+        const int kept = min(n, K);
+        cnt_s[ql] = kept;
+        if (kept == K) thr_s[ql] = buf_d[ql * cap + K - 1];
+      }
+      __syncwarp();
+    }
+  }
+
+  // each warp finishes the queries it maintained
+  for (int ql = warp; ql < QB; ql += NWARPS) {
+    if (q0 + ql >= B) continue;
+    const int n = cnt_s[ql];
+    float* d = buf_d + ql * cap;
+    int* ix = buf_i + ql * cap;
+    warp_sort<MAXE>(d, ix, n, lane);
+    const int kept = min(n, K);
+    const size_t base = ((size_t)(q0 + ql) * S + split) * K;
+    for (int j = lane; j < K; j += 32) {
+      out_d[base + j] = j < kept ? d[j] : kMasked;
+      out_i[base + j] = j < kept ? ix[j] : -1;
+    }
+  }
+}
+
+// Two tilings: "wide" (64 queries x 128 rows, 16 warps, 2 stages) for
+// batches, and "narrow" (16 queries x 128 rows, 4 warps, 2 stages) for
+// small batches, large K or wide rows, whose candidate buffers would not
+// fit the wide one. Both are latency-bound at one or two blocks per SM:
+// on an H100 the 16-warp wide tiling measured faster than 8-warp ones
+// with 64 rows or 32 queries per tile and 2 to 4 stages.
+using Wide = Cfg<4, 4, 4, 2, 8>;
+using Narrow = Cfg<1, 4, 4, 2, 32>;
+
+// Launch tiling C (passed as a tag) on `stream`.
+template <int WM, int WN, int NT, int ST, int ME>
+cudaError_t launch(Cfg<WM, WN, NT, ST, ME>, const void* q, const void* qn, const void* corpus,
+                   const void* vn, int B, int N, int D, int K, int l2, int S,
+                   int rows_per_split, int cap, int smem, void* out_d, void* out_i,
+                   cudaStream_t stream) {
+  using C = Cfg<WM, WN, NT, ST, ME>;
+  auto kern = fused_scan_kernel<WM, WN, NT, ST, ME>;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  const int vec16 = (D % 8 == 0) && (reinterpret_cast<uintptr_t>(corpus) % 16 == 0);
+  dim3 grid((B + C::QB - 1) / C::QB, S);
+  kern<<<grid, C::THREADS, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const float*>(qn),
+      static_cast<const __nv_bfloat16*>(corpus), static_cast<const float*>(vn), B, N, D, K, cap,
+      rows_per_split, l2, vec16, static_cast<float*>(out_d), static_cast<int*>(out_i));
+  return cudaGetLastError();
+}
+
+// Blocks of tiling C that fit on one SM with `smem` bytes (0 if none).
+template <int WM, int WN, int NT, int ST, int ME>
+cudaError_t blocks_per_sm(Cfg<WM, WN, NT, ST, ME>, int smem, int* nb) {
+  auto kern = fused_scan_kernel<WM, WN, NT, ST, ME>;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(nb, kern, Cfg<WM, WN, NT, ST, ME>::THREADS,
+                                                       smem);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Choose the tiling and the corpus split for one call. plan[0..4] =
+// tiling (0 wide, 1 narrow), S, rows per split, CAP, shared-memory
+// bytes. Returns a cudaError_t, or -1 when no tiling fits the shared
+// memory of the device.
+int longbow_fused_scan_plan(int device, int B, int N, int D, int K, int* plan) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return e;
+  int sms = 0, max_smem = 0;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (e != cudaSuccess) return e;
+  e = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (e != cudaSuccess) return e;
+  const int nchunks = (D + kChunk - 1) / kChunk;
+  const int wide_first = B > Narrow::QB && K <= 64;
+  for (int o = 0; o < 2; ++o) {
+    const int cfg = (o == 0) == wide_first ? 0 : 1;
+    const int qb = cfg == 0 ? Wide::QB : Narrow::QB;
+    const int tn = cfg == 0 ? Wide::TN : Narrow::TN;
+    const int stages = cfg == 0 ? Wide::STAGES_ : Narrow::STAGES_;
+    for (int roomy = 1; roomy >= 0; --roomy) {
+      const int cap = next_pow2((roomy ? 2 * K : K) + tn);
+      const int maxcap = cfg == 0 ? Wide::MAXCAP : Narrow::MAXCAP;
+      const int smem = smem_bytes(qb, tn, stages, nchunks, cap);
+      if (cap > maxcap || smem > max_smem) continue;
+      int nb = 0;
+      e = cfg == 0 ? blocks_per_sm(Wide{}, smem, &nb) : blocks_per_sm(Narrow{}, smem, &nb);
+      if (e != cudaSuccess) return e;
+      if (nb < 1) continue;
+      // one wave: as many splits as the resident block slots allow
+      const int slots = nb * sms;
+      const int qblocks = (B + qb - 1) / qb;
+      const int ntiles = (N + tn - 1) / tn;
+      int S = qblocks < slots ? slots / qblocks : 1;
+      if (S > ntiles) S = ntiles;
+      if (S < 1) S = 1;
+      const int tiles_per_split = ntiles > 0 ? (ntiles + S - 1) / S : 1;
+      S = ntiles > 0 ? (ntiles + tiles_per_split - 1) / tiles_per_split : 1;
+      plan[0] = cfg;
+      plan[1] = S;
+      plan[2] = tiles_per_split * tn;
+      plan[3] = cap;
+      plan[4] = smem;
+      return 0;
+    }
+  }
+  return -1;
+}
+
+// Launch on `stream` with a plan from longbow_fused_scan_plan. Pointers
+// are device pointers to contiguous q [B, D] bf16, qn [B] f32,
+// corpus [N, D] bf16, vn [N] f32 (16-byte aligned), out_d [B, S, K] f32
+// and out_i [B, S, K] int32. Returns cudaGetLastError() after the launch.
+int longbow_fused_scan(int device, const void* q, const void* qn, const void* corpus,
+                       const void* vn, int B, int N, int D, int K, int l2, int cfg, int S,
+                       int rows_per_split, int cap, int smem, void* out_d, void* out_i,
+                       void* stream) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return e;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (cfg == 0)
+    return launch(Wide{}, q, qn, corpus, vn, B, N, D, K, l2, S, rows_per_split, cap, smem, out_d,
+                  out_i, st);
+  return launch(Narrow{}, q, qn, corpus, vn, B, N, D, K, l2, S, rows_per_split, cap, smem,
+                out_d, out_i, st);
+}
+
+}  // extern "C"

@@ -1,0 +1,322 @@
+"""Dataset: one collection of vectors + metadata + its index.
+
+Counterpart of longbow_tpu/store/dataset.py: records, tombstones, the
+primary user-id index, the vector index, the metric (schema metadata
+`longbow.metric`), and filter masks with caching. A `text` column is
+kept as a plain metadata column (BM25 is not ported yet).
+"""
+from __future__ import annotations
+
+import threading
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from longbow_tpu_torch.device import resolve_device
+from longbow_tpu_torch.index.factory import make_index
+from longbow_tpu_torch.ops.distance import MASKED_GUARD, Metric
+from longbow_tpu_torch.query.filters import ColumnStore, FilterCache
+from longbow_tpu_torch.query.parser import Filter
+
+# schema metadata key + value aliases (reference: dataset.go:176-189)
+METRIC_METADATA_KEY = "longbow.metric"
+_METRIC_ALIASES = {
+    "euclidean": Metric.L2,
+    "l2": Metric.L2,
+    "cosine": Metric.COSINE,
+    "dot_product": Metric.DOT,
+    "dot": Metric.DOT,
+}
+
+
+class Dataset:
+    def __init__(
+        self,
+        name: str,
+        dim: int,
+        metric: str = Metric.L2,
+        *,
+        dtype=torch.float32,
+        index_kind: str = "adaptive",
+        index_params: Optional[dict] = None,
+        device=None,
+    ):
+        self.name = name
+        self.dim = dim
+        self.metric = _METRIC_ALIASES.get(metric.lower(), None) or Metric.validate(metric)
+        self.device = resolve_device(device)
+        self.dtype = dtype
+        self.index_kind = (index_kind or "adaptive").lower()
+        self.index_params = dict(index_params or {})
+        self.index = make_index(
+            self.index_kind, dim, self.metric, dtype=dtype, device=self.device,
+            **self.index_params,
+        )
+        self.columns = ColumnStore(self.index.capacity, device=self.device)
+        self.filter_cache = FilterCache()
+        # primary index: user id -> internal row
+        self._id_to_row: dict = {}
+        self._row_to_id: list = []
+        self._row_ids_np: Optional[np.ndarray] = None  # lazy cache
+        # LWW timestamps for conflict resolution (reference: lww.go:8)
+        self._lww: dict = {}
+        self._lock = threading.RLock()
+        self.created_at = time.time()
+        self.last_access = time.time()
+
+    def touch(self) -> None:
+        self.last_access = time.time()
+
+    # ------------------------------------------------------------------
+
+    def __len__(self) -> int:
+        return len(self._id_to_row)
+
+    @property
+    def live_count(self) -> int:
+        return len(self._id_to_row)
+
+    def put(
+        self,
+        ids,
+        vectors,
+        columns: Optional[dict] = None,
+        timestamp=None,
+    ) -> None:
+        """Upsert rows by user id. Duplicate ids tombstone the old row and
+        write a new one, last-writer-wins by timestamp (reference:
+        lww.go, store_actions.go:813). timestamp: scalar, per-row array,
+        or None (now). In-batch duplicate ids dedupe to the newest
+        occurrence before the append.
+
+        vectors: a numpy array, a list of numpy blocks, or a tensor (a
+        device tensor goes straight to the index, no host round trip)."""
+        ids = np.asarray(ids)
+        self.touch()
+        device_input = isinstance(vectors, torch.Tensor)
+        blocks: Optional[list] = None
+        if isinstance(vectors, list):
+            if not getattr(self.index, "accepts_blocks", False):
+                vectors = np.concatenate(vectors)
+            else:
+                blocks = vectors
+        if not device_input:
+
+            def _canon(v):
+                # f16/i8/u8 keep their dtype to the index (which converts
+                # exactly); everything else becomes f32 here
+                if v.dtype in (np.float16, np.int8, np.uint8):
+                    return np.ascontiguousarray(v)
+                return np.ascontiguousarray(v, dtype=np.float32)
+
+            if blocks is not None:
+                blocks = [_canon(b) for b in blocks]
+                vectors = blocks
+            else:
+                vectors = _canon(np.asarray(vectors))
+        n = len(ids)
+        n_vec = (
+            sum(b.shape[0] for b in blocks) if blocks is not None else vectors.shape[0]
+        )
+        if n_vec != n:
+            raise ValueError("ids/vectors length mismatch")
+        keys = ids.tolist()
+        ts_list = None
+        if isinstance(timestamp, np.ndarray):
+            ts_list = timestamp.tolist()
+            ts = ts_list[-1] if ts_list else time.time()
+        else:
+            ts = timestamp if timestamp is not None else time.time()
+
+        with self._lock:
+            lww = self._lww
+            idr = self._id_to_row
+            # LWW stale-drop + in-batch dedupe (newest occurrence wins)
+            keep = np.ones(n, dtype=bool)
+            seen: dict = {}
+            dropped = False
+            for j, k in enumerate(keys):
+                tj = ts_list[j] if ts_list is not None else ts
+                old_ts = lww.get(k)
+                if old_ts is not None and old_ts > tj:
+                    keep[j] = False
+                    dropped = True
+                    continue
+                prev = seen.get(k)
+                if prev is not None:
+                    if ts_list is not None and ts_list[prev] > tj:
+                        keep[j] = False
+                        dropped = True
+                        continue
+                    keep[prev] = False
+                    dropped = True
+                seen[k] = j
+            if dropped:
+                sel = np.nonzero(keep)[0]
+                if blocks is not None:  # rare path: pay the merge here
+                    vectors = np.concatenate(blocks)
+                    blocks = None
+                if device_input:
+                    vectors = vectors[torch.as_tensor(sel, device=vectors.device)]
+                else:
+                    vectors = vectors[sel]
+                ids = ids[sel]
+                sl = sel.tolist()
+                keys = [keys[j] for j in sl]
+                if ts_list is not None:
+                    ts_list = [ts_list[j] for j in sl]
+                if columns:
+                    columns = {k: np.asarray(v)[sel] for k, v in columns.items()}
+                n = len(keys)
+            if n == 0:
+                return
+
+            # schema evolution is additive-only: reject type flips BEFORE
+            # any mutation
+            self.columns.check_types(columns or {})
+
+            # tombstone overwritten rows and clear their slot in the
+            # row -> id map
+            stale_rows = [idr[k] for k in keys if k in idr]
+            if stale_rows:
+                self.index.delete_rows(np.asarray(stale_rows))
+                for r in stale_rows:
+                    if r < len(self._row_to_id):
+                        self._row_to_id[r] = None
+                self._row_ids_np = None
+
+            rows = self.index.add(vectors)
+            self.columns.append(columns or {}, n, self.index.capacity, rows=rows)
+            rows_list = rows.tolist()
+            if ts_list is None:
+                for k, r in zip(keys, rows_list):
+                    idr[k] = r
+                    lww[k] = ts
+            else:
+                for k, r, tj in zip(keys, rows_list, ts_list):
+                    idr[k] = r
+                    lww[k] = tj
+            need = max(rows_list) + 1 - len(self._row_to_id)
+            if need > 0:
+                self._row_to_id.extend([None] * need)
+            r2i = self._row_to_id
+            for r, k in zip(rows_list, keys):
+                r2i[r] = k
+            self._row_ids_np = None
+            self.filter_cache.invalidate()
+
+    @staticmethod
+    def _key(uid):
+        return uid.item() if hasattr(uid, "item") else uid
+
+    def delete(self, ids) -> int:
+        """Delete by user id; returns the number removed
+        (reference: DoAction 'delete', store_actions.go:103)."""
+        with self._lock:
+            rows = []
+            for uid in np.asarray(ids):
+                key = self._key(uid)
+                row = self._id_to_row.pop(key, None)
+                if row is not None:
+                    rows.append(row)
+                    self._lww[key] = time.time()
+                    if row < len(self._row_to_id):
+                        self._row_to_id[row] = None
+            if rows:
+                self.index.delete_rows(np.asarray(rows))
+                self._row_ids_np = None
+                self.filter_cache.invalidate()
+            return len(rows)
+
+    # ------------------------------------------------------------------
+
+    def filter_mask(
+        self, filters: list[Filter], *, _columns=None, _index=None
+    ) -> Optional[torch.Tensor]:
+        """Predicate filters -> device row mask [index capacity], cached.
+        _columns/_index: the snapshot a search took under the lock."""
+        cols = _columns if _columns is not None else self.columns
+        idx = _index if _index is not None else self.index
+        mask = self.filter_cache.get_or_eval(cols, filters)
+        if mask is None:
+            return None
+        cap = idx.capacity
+        if mask.shape[0] < cap:
+            pad = torch.zeros(cap - mask.shape[0], dtype=torch.bool, device=mask.device)
+            mask = torch.cat([mask, pad])
+        elif mask.shape[0] > cap:
+            mask = mask[:cap]
+        return mask
+
+    def warm(self) -> None:
+        """Build the search kernel and run one search off the query path."""
+        self.index.warm()
+
+    def search(
+        self,
+        queries,
+        k: int,
+        *,
+        filters: Optional[list] = None,
+        ef_search: Optional[int] = None,
+        exact: bool = False,
+    ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Batched search -> (ids [B, k] object, scores [B, k] f32,
+        ok [B, k] bool). Scores follow the reference's semantics:
+        distance for l2/cosine, raw inner product for dot."""
+        self.touch()
+        with self._lock:
+            idx = self.index
+            r2i = self._row_to_id
+            cols = self.columns
+        mask = self.filter_mask(filters or [], _columns=cols, _index=idx)
+        if not isinstance(queries, torch.Tensor):
+            queries = np.atleast_2d(np.asarray(queries, dtype=np.float32))
+        d, r = idx.search(
+            queries, k, filter_mask=mask, ef_search=ef_search, exact=exact
+        )
+        ok = (d < float(MASKED_GUARD)) & (r >= 0) & (r < len(r2i))
+        scores = -d if self.metric == Metric.DOT else d
+        ids = np.empty(r.shape, dtype=object)
+        hit_b, hit_j = np.nonzero(ok)
+        found = [r2i[x] for x in r[hit_b, hit_j].tolist()]
+        vals = np.empty(len(found), dtype=object)
+        vals[:] = found
+        ids[hit_b, hit_j] = vals
+        dead = np.array([v is None for v in found], dtype=bool)
+        if dead.any():  # rows whose id was deleted meanwhile
+            ok[hit_b[dead], hit_j[dead]] = False
+        return ids, scores, ok
+
+    def row_ids_array(self) -> np.ndarray:
+        """row -> user id as an object ndarray (None = dead row), cached
+        until the next mutation."""
+        if self._row_ids_np is None or len(self._row_ids_np) != len(self._row_to_id):
+            self._row_ids_np = np.asarray(self._row_to_id, dtype=object)
+        return self._row_ids_np
+
+    def device_bytes(self) -> int:
+        """Device-memory footprint of the index block (after the pending
+        flush) and the metadata columns."""
+        flat = self.index._flat
+        itemsize = torch.empty((), dtype=flat.dtype).element_size()
+        total = flat.capacity * (flat.dim * itemsize + 4 + 1)
+        for col in (*self.columns._numeric.values(), *self.columns._str_codes.values()):
+            total += col.numel() * col.element_size()
+        return total
+
+    def stats(self) -> dict:
+        return {
+            "name": self.name,
+            "dim": self.dim,
+            "metric": self.metric,
+            "live_rows": self.live_count,
+            "tombstones": len(self.index) - self.live_count,
+            "index_kind": self.index.kind,
+            "index_rows": len(self.index),
+            "capacity": self.index.capacity,
+            "device_bytes": self.device_bytes(),
+            "fields": self.columns.fields(),
+        }

@@ -1,0 +1,157 @@
+"""longbow_tpu_torch's VectorStore against longbow_tpu's on the CPU, on one
+put / delete / filtered-search sequence, and the port's import rules.
+
+Both stores keep bf16 rows and rank them exactly in f32, so ids and ok
+masks agree and scores within rtol 1e-5 / atol 1e-4.
+"""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from longbow_tpu.query.parser import Filter as JaxFilter
+from longbow_tpu.query.parser import parse_ticket as jax_parse_ticket
+from longbow_tpu.store.vector_store import VectorStore as JaxStore
+from longbow_tpu_torch.index.factory import INDEX_KINDS, import_index, make_index
+from longbow_tpu_torch.query.parser import Filter, parse_ticket
+from longbow_tpu_torch.store.vector_store import VectorStore
+
+REPO = Path(__file__).resolve().parent.parent
+D = 32
+
+
+def _sequence(store, filt, ids_of, metric):
+    """Puts (with an in-batch duplicate and an overwrite), deletes and
+    searches; returns every search result."""
+    rng = np.random.default_rng(7)
+    v1 = rng.standard_normal((1200, D), dtype=np.float32)
+    v2 = rng.standard_normal((400, D), dtype=np.float32)
+    q = rng.standard_normal((5, D), dtype=np.float32)
+    n1 = np.arange(1200)
+    ids1 = ids_of(n1)
+    ids1[10] = ids1[11]  # in-batch duplicate: the later row wins
+    color = np.array(["red", "green", "blue"])[n1 % 3]
+    store.put("ds", ids1, v1, {"color": color, "n": n1 % 10}, metric=metric)
+    out = [store.search("ds", q, 10)]
+    n2 = np.arange(1000, 1400)  # 200 overwrites, 200 new
+    store.put("ds", ids_of(n2), v2,
+              {"color": np.array(["red", "blue"])[n2 % 2], "n": n2 % 10})
+    assert store.delete("ds", ids_of(np.arange(0, 300, 4))) == 75
+    out.append(store.search("ds", q, 10))
+    out.append(store.search("ds", v1[:5], 12, filters=[filt("color", "eq", "red")]))
+    out.append(store.search("ds", q, 10, filters=[filt("n", ">=", "7"),
+                                                  filt("color", "!=", "blue")]))
+    out.append(store.search("ds", q, 100))  # past the scan's pool: exact path
+    return out
+
+
+@pytest.mark.parametrize("metric", ["l2", "dot"])
+@pytest.mark.parametrize("id_kind", ["int", "str"])
+def test_store_matches_jax(id_kind, metric):
+    ids_of = (lambda n: n.astype(np.int64)) if id_kind == "int" else (
+        lambda n: np.array([f"doc-{x}" for x in n], dtype=object))
+    want = _sequence(JaxStore(dtype=jnp.bfloat16, default_index_kind="flat"),
+                     JaxFilter, ids_of, metric)
+    got = _sequence(VectorStore(device="cpu", dtype=torch.bfloat16,
+                                default_index_kind="flat"),
+                    Filter, ids_of, metric)
+    for (wi, ws, wok), (gi, gs, gok) in zip(want, got):
+        np.testing.assert_array_equal(gok, wok)
+        np.testing.assert_array_equal(np.where(gok, gi, None), np.where(wok, wi, None))
+        np.testing.assert_allclose(np.where(gok, gs, 0), np.where(wok, ws, 0),
+                                   rtol=1e-5, atol=1e-4)
+    # the filters held: red rows only, and n >= 7 and not blue
+    ids3, _, ok3 = got[2]
+    nums = [int(str(x).replace("doc-", "")) for x in ids3[ok3]]
+    assert all((x % 2 == 0) if x >= 1000 else (x % 3 == 0) for x in nums)
+
+
+def test_store_lifecycle_and_cache():
+    store = VectorStore(device="cpu", dtype=torch.bfloat16, default_index_kind="flat")
+    v = np.random.default_rng(0).standard_normal((50, 8), dtype=np.float32)
+    store.put("ns/a", np.arange(50), v)
+    assert store.list_datasets() == ["ns/a"] and store.list_namespaces() == ["ns"]
+    first = store.search("ns/a", v[:2], 3)
+    assert store.search("ns/a", v[:2], 3) is first  # cached
+    assert store.query_cache.hits == 1
+    store.put("ns/a", [50], v[:1])  # a mutation clears the cache
+    assert store.search("ns/a", v[:2], 3) is not first
+    store.put("ns/a", [3], v[3:4])  # an overwrite frees the old row
+    store.delete("ns/a", [7])
+    rows = store.get("ns/a").row_ids_array()
+    assert rows[3] is None and rows[7] is None and rows[51] == 3 and len(rows) == 52
+    with pytest.raises(ValueError):
+        store.put("ns/a", [1], np.ones((1, 9), np.float32))
+    assert store.readiness()["status"] == "READY"
+    stats = store.get("ns/a").stats()
+    assert (stats["live_rows"], stats["tombstones"]) == (50, 2)
+    assert store.drop("ns/a") and not store.drop("ns/a")
+    with pytest.raises(KeyError):
+        store.get("ns/a")
+
+
+def test_factory_ports_flat_only():
+    idx = make_index("flat", 8, "l2", dtype=torch.bfloat16, device="cpu")
+    idx.add(np.eye(8, dtype=np.float32))
+    again = import_index(idx.export_state(), device="cpu")
+    assert len(again) == 8 and again.kind == "flat"
+    for kind in INDEX_KINDS:
+        if kind != "flat":
+            with pytest.raises(NotImplementedError, match=kind):
+                make_index(kind, 8, "l2", dtype=torch.bfloat16, device="cpu")
+    with pytest.raises(ValueError):
+        make_index("nope", 8, "l2", dtype=torch.bfloat16, device="cpu")
+
+
+def test_parse_ticket_matches_jax():
+    ticket = (b'{"name": "ds", "limit": 5, "search": {"vector": [1.0, 2.5], "k": 7,'
+              b' "filters": [{"field": "n", "op": ">=", "value": 3},'
+              b' {"field": "c", "operator": "in", "value": ["a", "b"], "logic": "or"}],'
+              b' "consistency": "quorum"}}')
+    want, got = jax_parse_ticket(ticket), parse_ticket(ticket)
+    assert (got.name, got.limit) == (want.name, want.limit)
+    ws, gs = want.search, got.search
+    assert (gs.dataset, gs.k, gs.consistency) == (ws.dataset, ws.k, ws.consistency)
+    np.testing.assert_array_equal(np.asarray(gs.query_vectors(), np.float32),
+                                  np.asarray(ws.query_vectors(), np.float32))
+    assert [(f.field, f.operator, f.value, f.logic) for f in gs.filters] == [
+        (f.field, f.operator, f.value, f.logic) for f in ws.filters]
+    for bad in (b"[1]", b"{", b'{"search": {"k": 0}}'):
+        with pytest.raises(ValueError):
+            parse_ticket(bad)
+
+
+def test_port_imports_no_jax_pyarrow_or_reference_package():
+    modules = sorted(
+        ".".join(p.relative_to(REPO).with_suffix("").parts)
+        for p in (REPO / "longbow_tpu_torch").rglob("*.py")
+    )
+    code = (
+        "import sys, importlib\n"
+        f"for m in {modules!r}: importlib.import_module(m.removesuffix('.__init__'))\n"
+        "import chip_smoke\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'pyarrow', 'longbow_tpu')]\n"
+        "print(len(sys.modules)); sys.exit(1 if bad else 0)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert len(modules) >= 15
+
+
+def test_port_sources_name_no_forbidden_import():
+    forbidden = ("import jax", "from jax", "import pyarrow", "from pyarrow",
+                 "import longbow_tpu\n", "import longbow_tpu.", "from longbow_tpu.",
+                 "from longbow_tpu import")
+    files = [*(REPO / "longbow_tpu_torch").rglob("*.py"), REPO / "chip_smoke.py"]
+    for path in files:
+        text = path.read_text()
+        for bad in forbidden:
+            assert bad not in text, f"{path}: {bad.strip()}"
