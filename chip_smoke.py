@@ -17,7 +17,28 @@ Phases, each of which passes or ends the run with a non-zero exit:
                clustered rows in bf16 (a flat index), recall@10 against the f32
                exact_search oracle, a filtered search, deletes, and 100,000-row
                cosine and dot datasets; the kernels' launch counts are set to 0
-               just before this phase and read just after it.
+               just before this phase and read just after it;
+  5. codes   - kernel K2 (the fused int8-codes scan, csrc/fused_codes_scan.cu)
+               against its plain PyTorch version at N = 10,240,000 x D = 96 int8
+               codes with 1% tombstones: no group term at B in {1, 128, 1000} x
+               k in {10, 64}, a bf16 group term at B in {1, 1000} (B = 1000,
+               k = 64 is the served shape), an f32 group term, the dot fold, an
+               extra mask, fewer valid rows than k, all masked, k = 512,
+               D = 100 with N = 1,000,003, and at D = 128 (1,048,576 rows,
+               the 1M x 128 stores' shape) a bf16 group term and the dot
+               fold at B = 1000, k = 64; times the kernel, the plain version and
+               torch.addmm + torch.topk over the same scores (a two-call
+               yardstick, without the group term);
+  6. quantized store - the slice's path: VectorStore with an sq8r dataset at
+               Deep-10M's shape (10,000,000 x 96 clustered rows), recall@10
+               against exact search over the dequantized rows (gate 0.99) and
+               against the f32 rows, a filtered search, deletes in both
+               regions; sq8r and sq8 on the 1,000,000 x 128 rows of phase 4
+               (sq8r gate 0.95 against the f32 rows, sq8 gate 0.99 against its
+               dequantized rows); 100,000-row sq8r cosine, sq8 dot, sq8r dot and
+               int8-vector datasets (gate 0.99 each); launch counts are set to 0
+               just before this phase and read just after it, then the sq8r
+               search at 10M is timed stage by stage.
 The last line of standard output is {"ok": true, "device": {...}}.
 
 Imports torch, numpy and longbow_tpu_torch only.
@@ -38,6 +59,11 @@ N_STORE, D_STORE, N_QUERIES = 1_000_000, 128, 1_000
 N_SMALL = 100_000
 PUT_BATCH = 65_536
 RECALL_GATE = 0.95
+N_CODES, D_CODES = 10_240_000, 96   # the sq8r main region of phase 6
+N_DEEP, D_DEEP = 10_000_000, 96     # Deep-10M's shape
+TRAIN_ROWS = 131_072                # SQ8ResidualIndex.TRAIN_SAMPLE
+FINAL_ROWS = 20_000                 # left in the sq8r delta region
+QUANT_RECALL_GATE = 0.99            # against exact search over dequantized rows
 TIMED_LAUNCHES = 20
 DEVICE = "cuda"
 # kernel vs plain: f32 sums are taken in another order, so distances agree
@@ -334,10 +360,305 @@ def phase_store() -> dict:
 
     torch.cuda.synchronize()
     out["launches"] = {k.name: k.launches for k in _kernels.KERNELS}
-    for k in _kernels.KERNELS:
-        if k.launches == 0:
-            fail(f"kernel {k.name} was not launched on the main path")
+    if _kernels.FUSED_SCAN.launches == 0:
+        fail("kernel fused_scan was not launched on the flat path")
     emit({"store": out})
+    return out
+
+
+# -- 5. codes (kernel K2) ---------------------------------------------------
+
+def phase_codes_kernels(bw: float, flops: float, reps: int) -> dict:
+    from longbow_tpu_torch.ops.distance import MASKED
+    from longbow_tpu_torch.ops.scan import fused_codes_search, fused_codes_search_plain
+
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev).manual_seed(1)
+    # codes under the affine lo = -4, hi = 4 in every dim
+    scale = 8.0 / 255.0
+    lo_eff = -4.0 + 128.0 * scale
+
+    def codes_of(n, d):
+        """Random int8 codes and the |v|^2 of their dequantized rows."""
+        codes = torch.randint(-128, 128, (n, d), generator=g, device=dev, dtype=torch.int8)
+        norms = torch.empty(n, device=dev)
+        step = 1 << 20
+        for s in range(0, n, step):
+            deq = codes[s:s + step].float() * scale + lo_eff
+            norms[s:s + step] = (deq * deq).sum(dim=1)
+        return codes, norms
+
+    c96, n96 = codes_of(N_CODES, D_CODES)
+    rows = torch.arange(N_CODES, device=dev)
+    tomb = torch.rand((N_CODES,), generator=g, device=dev) > 0.01
+    centers = torch.randn((1024, D_KERNEL), generator=g, device=dev) * 4.0
+    gcid = torch.randint(0, 1024, (N_CODES // 128,), generator=g, device=dev)
+    base = dict(codes=c96, norms=n96, valid=tomb, gcid=gcid, extra=None, gt=None, fold="l2")
+    cases = [dict(base, b=b, k=k, tag="sq8_fold") for b in (1, 128, 1000) for k in (10, 64)]
+    cases += [dict(base, b=1, k=64, gt="bf16", tag="sq8r_gt_bf16"),
+              dict(base, b=1000, k=64, gt="bf16", tag="served_batch"),
+              dict(base, b=1000, k=64, gt="f32", tag="sq8r_gt_f32"),
+              dict(base, b=128, k=64, fold="dot", tag="dot_fold"),
+              dict(base, b=128, k=64, extra=rows % 10 == 3, tag="extra_mask"),
+              dict(base, b=128, k=64, valid=rows < 20, tag="fewer_valid_than_k"),
+              dict(base, b=1, k=10, valid=torch.zeros_like(tomb), tag="all_masked"),
+              dict(base, b=128, k=512, tag="k512")]
+    c100, n100 = codes_of(1_000_003, 100)
+    cases.append(dict(base, codes=c100, norms=n100, b=128, k=64,
+                      valid=torch.ones((1_000_003,), dtype=torch.bool, device=dev),
+                      tag="unaligned_d100_n1000003"))
+    # D = 128 runs all 8 k-steps: the 1M x 128 sq8r/sq8 stores' shape
+    c128, n128 = codes_of(N_KERNEL, D_KERNEL)
+    d128 = dict(base, codes=c128, norms=n128,
+                valid=torch.rand((N_KERNEL,), generator=g, device=dev) > 0.01,
+                gcid=torch.randint(0, 1024, (N_KERNEL // 128,), generator=g, device=dev))
+    cases += [dict(d128, b=1000, k=64, gt="bf16", tag="sq8r_gt_bf16_d128"),
+              dict(d128, b=1000, k=64, fold="dot", tag="dot_fold_d128")]
+
+    c16 = {}  # bf16 copies of the codes for the yardstick, made outside the timing
+    results = []
+    for cs in cases:
+        codes, b, k = cs["codes"], cs["b"], cs["k"]
+        n, d = codes.shape
+        q = torch.randn((b, d), generator=g, device=dev)
+        if cs["fold"] == "dot":  # sq8's dot fold: scores are -q.v_deq
+            qs, qn, vn, clamp = q * scale * 0.5, -lo_eff * q.sum(dim=1), torch.zeros_like(
+                cs["norms"]), False
+        else:
+            qs, qn, vn, clamp = (q * scale, (q * q).sum(dim=1) - 2.0 * lo_eff * q.sum(dim=1),
+                                 cs["norms"], True)
+        gt = None
+        if cs["gt"]:
+            gt = -2.0 * (q @ centers[:, :d].T)[:, cs["gcid"]]
+            gt = gt.to(torch.bfloat16) if cs["gt"] == "bf16" else gt
+        args = (qs, qn, codes, vn, cs["valid"], k)
+        kw = dict(group_term=gt, extra_mask=cs["extra"], clamp_zero=clamp, device=dev)
+        name = (f"{cs['tag']} {cs['fold']} gt={cs['gt']} B={b} k={k} N={n} D={d}")
+        dk, ik = fused_codes_search(*args, **kw)
+        dp, ip_ = fused_codes_search_plain(*args, **kw)
+        torch.cuda.synchronize()
+        err = compare(name, dk, ik, dp, ip_)
+        ms = time_ms(lambda: fused_codes_search(*args, **kw), reps)
+        plain_ms = time_ms(lambda: fused_codes_search_plain(*args, **kw), reps)
+        if id(codes) not in c16:
+            c16[id(codes)] = codes.to(torch.bfloat16)
+        valid = cs["valid"] if cs["extra"] is None else cs["valid"] & cs["extra"]
+        bias16 = torch.where(valid, vn, torch.full_like(vn, MASKED)).to(torch.bfloat16)[None, :]
+        qs16, codes16 = qs.to(torch.bfloat16), c16[id(codes)]
+        yard_ms = time_ms(lambda: torch.topk(
+            torch.addmm(bias16, qs16, codes16.T, alpha=-2.0), k, dim=1, largest=False), reps)
+        del bias16
+        gt_bytes = 0 if gt is None else gt.numel() * gt.element_size()
+        moved = n * d + n * 4 + n + gt_bytes + b * d * 4 + b * 4 + b * k * 8
+        bound_by = "bytes" if moved / bw >= 2 * b * n * d / flops else "operations"
+        bound_ms = 1e3 * max(moved / bw, 2 * b * n * d / flops)
+        row = dict(case=name, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                   addmm_topk_ms=yard_ms, bound_ms=bound_ms, bound_by=bound_by,
+                   b=b, k=k, n=n, d=d, fold=cs["fold"], gt=cs["gt"], tag=cs["tag"])
+        results.append(row)
+        emit({"codes_kernel_case": row})
+    return {"cases": results}
+
+
+# -- 6. quantized store (the slice's path) -----------------------------------
+
+def put_batches(store, name, ids, vecs, category, first=TRAIN_ROWS, last=0) -> None:
+    """The first `first` rows in one put (a training sample), the rest in
+    PUT_BATCH-row puts, and the final `last` rows in one put."""
+    n = len(ids)
+    bounds = [0, first, *range(first + PUT_BATCH, n - last, PUT_BATCH), n - last, n]
+    bounds = sorted(set(min(x, n) for x in bounds))
+    for s, e in zip(bounds[:-1], bounds[1:]):
+        cols = None if category is None else {"category": category[s:e]}
+        store.put(name, ids[s:e], vecs[s:e], cols)
+
+
+def dequantized_truth(index, queries, n, k, metric, normalize=False):
+    """Exact top-k over the index's own dequantized rows (get_vectors),
+    uploaded to the card a million rows at a time."""
+    from longbow_tpu_torch.ops.distance import exact_search
+
+    step = 1 << 20
+    rows = torch.cat([
+        torch.from_numpy(index.get_vectors(np.arange(s, min(s + step, n)))).to(DEVICE)
+        for s in range(0, n, step)
+    ])
+    _, truth = exact_search(queries, rows, k, metric, normalize=normalize, device=DEVICE)
+    return truth.cpu().numpy()
+
+
+def timed(fn, reps):
+    """Median host seconds of fn() over reps calls."""
+    out = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        out.append(time.perf_counter() - t)
+    return statistics.median(out)
+
+
+def phase_quantized_store():
+    """-> (results, the 10M sq8r index, its queries): the index is timed
+    stage by stage after the launch counts are read."""
+    from longbow_tpu_torch.ops import _kernels
+    from longbow_tpu_torch.ops.distance import Metric, exact_search
+    from longbow_tpu_torch.query.parser import Filter
+    from longbow_tpu_torch.store.vector_store import VectorStore
+
+    out: dict = {}
+    _kernels.reset_launch_counts()
+
+    # 6.1 sq8r at Deep-10M's shape
+    allv = make_corpus(N_DEEP + N_QUERIES, D_DEEP, seed=0)
+    corpus, queries = allv[:N_DEEP], allv[N_DEEP:]
+    del allv
+    ids = np.arange(N_DEEP, dtype=np.int64)
+    store = VectorStore(device=DEVICE, dtype=torch.bfloat16)
+    ds = store.get_or_create("deep", D_DEEP, index_kind="sq8r",
+                             index_params={"n_clusters": 1024})
+    t0 = time.perf_counter()
+    put_batches(store, "deep", ids, corpus, ids % 10, last=FINAL_ROWS)
+    torch.cuda.synchronize()
+    deep: dict = {"ingest_rows_per_s": N_DEEP / (time.perf_counter() - t0)}
+    inner = ds.index._inner
+    deep.update(main_capacity=inner.m_codes.shape[0], main_live=inner.m_live,
+                delta_rows=inner.d_count, n_clusters=inner.n_clusters,
+                device_bytes=ds.device_bytes())
+    if inner.d_count == 0:
+        fail("sq8r: the delta region is empty at search time")
+    ds.warm()
+    lat = []
+    for j in range(16):
+        t = time.perf_counter()
+        store.search("deep", queries[j:j + 1], 10)
+        lat.append(time.perf_counter() - t)
+    deep["p50_single_query_ms"] = 1e3 * statistics.median(lat)
+    served, _, _ = store.search("deep", queries, 10)
+    batch = timed(lambda: store.search("deep", queries, 10, use_cache=False), 5)
+    deep["batch_1000_ms"] = 1e3 * batch
+    deep["qps_batch_1000"] = N_QUERIES / batch
+    deep["index_search_1_ms"] = 1e3 * timed(lambda: ds.index.search(queries[:1], 10), 16)
+    deep["index_search_1000_ms"] = 1e3 * timed(lambda: ds.index.search(queries, 10), 5)
+    truth = dequantized_truth(ds.index, queries, N_DEEP, 10, Metric.L2)
+    deep["recall_at_10_vs_dequantized"] = r = recall_at(served, truth)
+    if r < QUANT_RECALL_GATE:
+        fail(f"sq8r 10M x 96: recall@10 {r} against the dequantized rows < {QUANT_RECALL_GATE}")
+    _, truth = exact_search(queries, corpus, 10, Metric.L2, device=DEVICE)
+    deep["recall_at_10_vs_f32"] = recall_at(served, truth.cpu().numpy())
+    fids, _, fok = store.search("deep", queries[:100], 10,
+                                filters=[Filter("category", "eq", "3")])
+    hits = fids[fok].tolist()
+    if not hits or any(x % 10 != 3 for x in hits):
+        fail("sq8r: filtered search returned a row outside category == 3")
+    deep["filtered_hits"] = len(hits)
+    rng = np.random.default_rng(2)
+    slot = inner._slot[:N_DEEP]
+    dead = np.concatenate([rng.choice(np.nonzero(slot >= 0)[0], 500, replace=False),
+                           rng.choice(np.nonzero(slot <= -2)[0], 500, replace=False)])
+    if store.delete("deep", dead) != 1000:
+        fail("sq8r: delete did not remove 1000 ids")
+    did, _, dok = store.search("deep", corpus[dead], 10)
+    if set(did[dok].tolist()) & set(dead.tolist()):
+        fail("sq8r: deleted ids came back")
+    deep["deleted_returned"] = 0
+    out["sq8r_10m_x_96"] = deep
+    emit({"quantized_store_10m": deep})
+    deep_queries = queries
+    del corpus
+
+    # 6.2 sq8r and sq8 on the 1,000,000 x 128 rows of phase 4
+    allv = make_corpus(N_STORE + N_QUERIES, D_STORE, seed=0)
+    corpus, queries = allv[:N_STORE], allv[N_STORE:]
+    ids = np.arange(N_STORE, dtype=np.int64)
+    _, truth = exact_search(queries, corpus, 10, Metric.L2, device=DEVICE)
+    truth_f32 = truth.cpu().numpy()
+    for kind in ("sq8r", "sq8"):
+        name = f"sift_{kind}"
+        sds = store.get_or_create(name, D_STORE, index_kind=kind)
+        put_batches(store, name, ids, corpus, None)
+        got, _, _ = store.search(name, queries, 10)
+        row = {"recall_at_10_vs_f32": recall_at(got, truth_f32),
+               "recall_at_10_vs_dequantized": recall_at(
+                   got, dequantized_truth(sds.index, queries, N_STORE, 10, Metric.L2)),
+               "batch_1000_ms": 1e3 * timed(
+                   lambda: store.search(name, queries, 10, use_cache=False), 5)}
+        out[f"{kind}_1m_x_128"] = row
+        emit({f"quantized_store_1m_{kind}": row})
+        if kind == "sq8r" and row["recall_at_10_vs_f32"] < RECALL_GATE:
+            fail(f"sq8r 1M x 128: recall@10 {row['recall_at_10_vs_f32']} < {RECALL_GATE}")
+        if kind == "sq8" and row["recall_at_10_vs_dequantized"] < QUANT_RECALL_GATE:
+            fail(f"sq8 1M x 128: recall@10 against the dequantized rows "
+                 f"{row['recall_at_10_vs_dequantized']} < {QUANT_RECALL_GATE}")
+        store.drop(name)
+
+    # 6.3 100,000 rows: cosine and dot, and int8 vectors into a default store
+    sub, ids = corpus[:N_SMALL], ids[:N_SMALL]
+    for kind, metric in (("sq8r", Metric.COSINE), ("sq8", Metric.DOT), ("sq8r", Metric.DOT)):
+        name = f"small_{kind}_{metric}"
+        sds = store.get_or_create(name, D_STORE, metric, index_kind=kind)
+        store.put(name, ids, sub)
+        got, _, _ = store.search(name, queries, 10)
+        want = dequantized_truth(sds.index, queries, N_SMALL, 10,
+                                 Metric.DOT if metric == Metric.DOT else Metric.L2,
+                                 normalize=metric == Metric.COSINE)
+        r = recall_at(got, want)
+        out[f"recall_at_10_{kind}_{metric}_vs_dequantized"] = r
+        if r < QUANT_RECALL_GATE:
+            fail(f"{kind} {metric}: recall@10 {r} against the dequantized rows "
+                 f"< {QUANT_RECALL_GATE}")
+    v8 = np.clip(np.round(sub * 8.0), -128, 127).astype(np.int8)
+    q8 = np.clip(np.round(queries * 8.0), -128, 127).astype(np.float32)
+    int8_store = VectorStore(device=DEVICE)  # default kind adaptive
+    int8_store.put("int8", ids, v8)
+    if int8_store.get("int8").index.kind != "sq8":
+        fail("int8 vectors in an adaptive store did not make an sq8 dataset")
+    got, _, _ = int8_store.search("int8", q8, 10)
+    _, want = exact_search(q8, v8.astype(np.float32), 10, Metric.L2, device=DEVICE)
+    out["recall_at_10_int8_vs_exact"] = r = recall_at(got, want.cpu().numpy())
+    if r < QUANT_RECALL_GATE:
+        fail(f"int8 sq8: recall@10 {r} < {QUANT_RECALL_GATE}")
+
+    torch.cuda.synchronize()
+    out["launches"] = {k.name: k.launches for k in _kernels.KERNELS}
+    if _kernels.FUSED_CODES_SCAN.launches == 0:
+        fail("kernel fused_codes_scan was not launched on the quantized path")
+    emit({"quantized_store": {k: v for k, v in out.items() if not k.startswith("sq8")}})
+    return out, inner, deep_queries
+
+
+def sq8r_stages(inner, queries, reps: int = 5) -> dict:
+    """Device time of the 10M sq8r index search of 1,000 queries, stage by
+    stage (CUDA events): the search as served, the same search with the
+    delta region's scan off (so the delta scan and its re-rank are the
+    difference), K2 alone on the arguments that search passed it, and
+    the group-term gather."""
+    from longbow_tpu_torch.index import sq8
+
+    total = time_ms(lambda: inner.search(queries, 10), reps)
+    main = time_ms(lambda: inner._search(queries, 10, None, has_delta=False), reps)
+    calls = []
+    real = sq8.fused_codes_search
+
+    def record(*args, **kw):
+        calls.append((args, kw))
+        return real(*args, **kw)
+
+    sq8.fused_codes_search = record
+    try:
+        inner.search(queries, 10)
+    finally:
+        sq8.fused_codes_search = real
+    if len(calls) != 1:
+        fail(f"sq8r search of {len(queries)} queries launched K2 {len(calls)} times, not once")
+    args, kw = calls[0]
+    k2 = time_ms(lambda: real(*args, **kw), reps)
+    qc = torch.from_numpy(queries).to(DEVICE) @ inner.centers.T
+    gather = time_ms(lambda: sq8.group_term(qc, inner.m_gcid), reps)
+    out = {"search_ms": total, "main_region_ms": main, "delta_scan_and_rerank_ms": total - main,
+           "k2_ms": k2, "gt_gather_ms": gather,
+           "main_rest_ms (upload, qc, folds, main re-rank, merge, copy out)":
+               main - k2 - gather}
+    emit({"sq8r_10m_stages": out})
     return out
 
 
@@ -349,8 +670,13 @@ def main() -> int:
     phase_build()
     kern = phase_kernels(bw, flops, TIMED_LAUNCHES)
     store = phase_store()
+    codes = phase_codes_kernels(bw, flops, TIMED_LAUNCHES)
+    torch.cuda.empty_cache()
+    quant, deep_index, deep_queries = phase_quantized_store()
+    sq8r_stages(deep_index, deep_queries)
 
     served = next(c for c in kern["cases"] if c["tag"] == "served_batch")
+    served2 = next(c for c in codes["cases"] if c["tag"] == "served_batch")
     emit({"kernels": [{
         "name": "fused_scan",
         "route": "cuda",
@@ -365,6 +691,20 @@ def main() -> int:
         "library_ms": None,
         "matmul_topk_ms": served["matmul_topk_ms"],
         "shape": served["case"],
+    }, {
+        "name": "fused_codes_scan",
+        "route": "cuda",
+        "source": "longbow_tpu_torch/csrc/fused_codes_scan.cu",
+        "replaces": "longbow_tpu/ops/pallas_scan.py:444",
+        "launches": quant["launches"]["fused_codes_scan"],
+        "max_abs_err": max(c["max_abs_err"] for c in codes["cases"]),
+        "ms": served2["ms"],
+        "plain_ms": served2["plain_ms"],
+        "bound_ms": served2["bound_ms"],
+        "bound_by": served2["bound_by"],
+        "library_ms": None,
+        "addmm_topk_ms": served2["addmm_topk_ms"],
+        "shape": served2["case"],
     }]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

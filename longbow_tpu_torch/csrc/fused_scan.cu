@@ -38,43 +38,11 @@
 // the threshold. The block waits for that sort at its next barrier, so
 // the sort is kept short.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "scan_common.cuh"
 
 namespace {
 
-constexpr float kMasked = 3.0e38f;     // longbow_tpu_torch.ops.distance.MASKED
-constexpr float kGuard = 1.0e37f;      // ... MASKED_GUARD
-constexpr int kChunk = 128;            // dims per corpus chunk in shared memory
 constexpr int kCStride = kChunk + 8;   // +16 bytes: conflict-free fragment loads
-
-__host__ __device__ constexpr int next_pow2(int x) {
-  int p = 1;
-  while (p < x) p <<= 1;
-  return p;
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// 16 bytes from global to shared; bytes past `src_bytes` are zero-filled
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  const uint32_t saddr = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(saddr), "l"(src),
-               "r"(src_bytes));
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 // A fragments (16 queries x 128 dims of chunk c) for this lane.
 __device__ __forceinline__ void load_a(uint32_t (&afr)[8][4], const __nv_bfloat16* q_s,
@@ -97,123 +65,6 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(a));
 }
-
-// Bitonic sort, ascending, of 32*E (value, id) pairs held in registers:
-// element r * 32 + lane is (v[r], id[r]). Partners closer than 32 are
-// exchanged with shuffles, farther ones between this lane's registers.
-template <int E>
-__device__ __forceinline__ void bitonic_regs(float (&v)[E], int (&id)[E], int lane) {
-#pragma unroll
-  for (int kk = 2; kk <= 32 * E; kk <<= 1) {
-#pragma unroll
-    for (int j = kk >> 1; j > 0; j >>= 1) {
-      if (j >= 32) {
-        const int jr = j >> 5;
-#pragma unroll
-        for (int r = 0; r < E; ++r) {
-          if ((r & jr) == 0) {
-            const int r2 = r | jr;
-            const bool asc = ((r * 32) & kk) == 0;
-            if ((v[r] > v[r2]) == asc) {
-              const float tv = v[r];
-              v[r] = v[r2];
-              v[r2] = tv;
-              const int ti = id[r];
-              id[r] = id[r2];
-              id[r2] = ti;
-            }
-          }
-        }
-      } else {
-        const bool lower = (lane & j) == 0;
-#pragma unroll
-        for (int r = 0; r < E; ++r) {
-          const bool asc = ((r * 32 + lane) & kk) == 0;
-          const float ov = __shfl_xor_sync(0xffffffffu, v[r], j);
-          const int oi = __shfl_xor_sync(0xffffffffu, id[r], j);
-          // the lower index of a pair keeps the smaller value when the
-          // run is ascending
-          if (lower == asc ? ov < v[r] : ov > v[r]) {
-            v[r] = ov;
-            id[r] = oi;
-          }
-        }
-      }
-    }
-  }
-}
-
-template <int E>
-__device__ void sort_in_regs(float* d, int* ix, int n, int lane) {
-  const float inf = __int_as_float(0x7f800000);
-  float v[E];
-  int id[E];
-#pragma unroll
-  for (int r = 0; r < E; ++r) {
-    const int i = r * 32 + lane;
-    v[r] = i < n ? d[i] : inf;
-    id[r] = i < n ? ix[i] : -1;
-  }
-  bitonic_regs<E>(v, id, lane);
-#pragma unroll
-  for (int r = 0; r < E; ++r) {
-    const int i = r * 32 + lane;
-    if (i < n) {
-      d[i] = v[r];
-      ix[i] = id[r];
-    }
-  }
-  __syncwarp();
-}
-
-// One warp sorts the first n entries of a query's buffer ascending: in
-// registers up to 32 * MAXE entries (a tiling instantiates only the
-// sizes its CAP needs), else bitonic in shared memory over the next power
-// of two (the padding sorts last).
-template <int MAXE>
-__device__ void warp_sort(float* d, int* ix, int n, int lane) {
-  if (n <= 32) return sort_in_regs<1>(d, ix, n, lane);
-  if (n <= 64) return sort_in_regs<2>(d, ix, n, lane);
-  if (n <= 128) return sort_in_regs<4>(d, ix, n, lane);
-  if (n <= 256) return sort_in_regs<(MAXE < 8 ? MAXE : 8)>(d, ix, n, lane);
-  if (MAXE >= 16 && n <= 512) return sort_in_regs<(MAXE < 16 ? MAXE : 16)>(d, ix, n, lane);
-  if (MAXE >= 32 && n <= 1024) return sort_in_regs<(MAXE < 32 ? MAXE : 32)>(d, ix, n, lane);
-  const int m = next_pow2(n);
-  const float inf = __int_as_float(0x7f800000);
-  for (int i = n + lane; i < m; i += 32) {
-    d[i] = inf;
-    ix[i] = -1;
-  }
-  __syncwarp();
-  for (int kk = 2; kk <= m; kk <<= 1) {
-    for (int j = kk >> 1; j > 0; j >>= 1) {
-      for (int i = lane; i < m; i += 32) {
-        const int p = i ^ j;
-        if (p > i) {
-          const float a = d[i], b = d[p];
-          const bool asc = (i & kk) == 0;
-          if ((a > b) == asc) {
-            d[i] = b;
-            d[p] = a;
-            const int t = ix[i];
-            ix[i] = ix[p];
-            ix[p] = t;
-          }
-        }
-      }
-      __syncwarp();
-    }
-  }
-}
-
-template <int WM, int WN, int NT, int STAGES, int MAXE>
-struct Cfg {
-  static constexpr int QB = 16 * WM;          // queries per block
-  static constexpr int TN = 8 * NT * WN;      // corpus rows per tile
-  static constexpr int THREADS = 32 * WM * WN;
-  static constexpr int STAGES_ = STAGES;     // depth of the cp.async ring
-  static constexpr int MAXCAP = 32 * MAXE;   // largest candidate buffer
-};
 
 inline int smem_bytes(int qb, int tn, int stages, int nchunks, int cap) {
   return stages * tn * kCStride * 2            // corpus ring
@@ -423,15 +274,6 @@ fused_scan_kernel(const __nv_bfloat16* __restrict__ q, const float* __restrict__
   }
 }
 
-// Two tilings: "wide" (64 queries x 128 rows, 16 warps, 2 stages) for
-// batches, and "narrow" (16 queries x 128 rows, 4 warps, 2 stages) for
-// small batches, large K or wide rows, whose candidate buffers would not
-// fit the wide one. Both are latency-bound at one or two blocks per SM:
-// on an H100 the 16-warp wide tiling measured faster than 8-warp ones
-// with 64 rows or 32 queries per tile and 2 to 4 stages.
-using Wide = Cfg<4, 4, 4, 2, 8>;
-using Narrow = Cfg<1, 4, 4, 2, 32>;
-
 // Launch tiling C (passed as a tag) on `stream`.
 template <int WM, int WN, int NT, int ST, int ME>
 cudaError_t launch(Cfg<WM, WN, NT, ST, ME>, const void* q, const void* qn, const void* corpus,
@@ -465,52 +307,19 @@ cudaError_t blocks_per_sm(Cfg<WM, WN, NT, ST, ME>, int smem, int* nb) {
 
 extern "C" {
 
-// Choose the tiling and the corpus split for one call. plan[0..4] =
-// tiling (0 wide, 1 narrow), S, rows per split, CAP, shared-memory
-// bytes. Returns a cudaError_t, or -1 when no tiling fits the shared
-// memory of the device.
+// Choose the tiling and the corpus split for one call (choose_plan in
+// scan_common.cuh). Returns a cudaError_t, or -1 when no tiling fits the
+// shared memory of the device.
 int longbow_fused_scan_plan(int device, int B, int N, int D, int K, int* plan) {
-  cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return e;
-  int sms = 0, max_smem = 0;
-  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (e != cudaSuccess) return e;
-  e = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  if (e != cudaSuccess) return e;
   const int nchunks = (D + kChunk - 1) / kChunk;
-  const int wide_first = B > Narrow::QB && K <= 64;
-  for (int o = 0; o < 2; ++o) {
-    const int cfg = (o == 0) == wide_first ? 0 : 1;
-    const int qb = cfg == 0 ? Wide::QB : Narrow::QB;
-    const int tn = cfg == 0 ? Wide::TN : Narrow::TN;
-    const int stages = cfg == 0 ? Wide::STAGES_ : Narrow::STAGES_;
-    for (int roomy = 1; roomy >= 0; --roomy) {
-      const int cap = next_pow2((roomy ? 2 * K : K) + tn);
-      const int maxcap = cfg == 0 ? Wide::MAXCAP : Narrow::MAXCAP;
-      const int smem = smem_bytes(qb, tn, stages, nchunks, cap);
-      if (cap > maxcap || smem > max_smem) continue;
-      int nb = 0;
-      e = cfg == 0 ? blocks_per_sm(Wide{}, smem, &nb) : blocks_per_sm(Narrow{}, smem, &nb);
-      if (e != cudaSuccess) return e;
-      if (nb < 1) continue;
-      // one wave: as many splits as the resident block slots allow
-      const int slots = nb * sms;
-      const int qblocks = (B + qb - 1) / qb;
-      const int ntiles = (N + tn - 1) / tn;
-      int S = qblocks < slots ? slots / qblocks : 1;
-      if (S > ntiles) S = ntiles;
-      if (S < 1) S = 1;
-      const int tiles_per_split = ntiles > 0 ? (ntiles + S - 1) / S : 1;
-      S = ntiles > 0 ? (ntiles + tiles_per_split - 1) / tiles_per_split : 1;
-      plan[0] = cfg;
-      plan[1] = S;
-      plan[2] = tiles_per_split * tn;
-      plan[3] = cap;
-      plan[4] = smem;
-      return 0;
-    }
-  }
-  return -1;
+  auto smem_of = [nchunks](int cfg, int cap) {
+    return cfg == 0 ? smem_bytes(Wide::QB, Wide::TN, Wide::STAGES_, nchunks, cap)
+                    : smem_bytes(Narrow::QB, Narrow::TN, Narrow::STAGES_, nchunks, cap);
+  };
+  auto occupancy = [](int cfg, int smem, int* nb) {
+    return cfg == 0 ? blocks_per_sm(Wide{}, smem, nb) : blocks_per_sm(Narrow{}, smem, nb);
+  };
+  return choose_plan(device, B, N, K, smem_of, occupancy, plan);
 }
 
 // Launch on `stream` with a plan from longbow_fused_scan_plan. Pointers

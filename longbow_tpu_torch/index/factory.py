@@ -1,15 +1,16 @@
 """Index construction behind one uniform surface.
 
-Counterpart of longbow_tpu/index/factory.py. Only the "flat" kind is
-ported; every other kind the reference knows raises NotImplementedError
-naming it, so a caller learns what is missing instead of getting a
-different index.
+Counterpart of longbow_tpu/index/factory.py. The "flat", "sq8" and
+"sq8r" kinds are ported; every other kind the reference knows raises
+NotImplementedError naming it, so a caller learns what is missing
+instead of getting a different index.
 """
 from __future__ import annotations
 
 import numpy as np
 
 from longbow_tpu_torch.index.flat import MIN_CAPACITY, FlatIndex
+from longbow_tpu_torch.index.sq8 import SQ8Index, SQ8ResidualIndex
 
 INDEX_KINDS = (
     "adaptive", "flat", "hnsw", "pq", "sq8", "sq8r", "bq", "disk",
@@ -18,10 +19,13 @@ INDEX_KINDS = (
 )
 
 
+PORTED_KINDS = ("flat", "sq8", "sq8r")
+
+
 def _not_ported(kind: str) -> NotImplementedError:
     return NotImplementedError(
         f"index kind {kind!r} is not yet ported to longbow_tpu_torch "
-        "(only 'flat' is)"
+        f"(only {', '.join(PORTED_KINDS)} are)"
     )
 
 
@@ -67,9 +71,60 @@ class _FlatAdapter:
     def export_state(self) -> dict:
         return self._flat.export_state()
 
+    def device_bytes(self) -> int:
+        return self._flat.device_bytes()
+
+
+class _QuantizedAdapter:
+    """The same surface over an SQ8Index or SQ8ResidualIndex. The scans
+    are exhaustive, so ef_search and exact do not apply."""
+
+    accepts_blocks = False
+
+    def __init__(self, inner, kind: str):
+        self._inner = inner
+        self.kind = kind
+        self.dim = inner.dim
+        self.metric = inner.metric
+
+    @property
+    def capacity(self) -> int:
+        return max(self._inner.capacity, self._inner.count, 1)
+
+    def __len__(self) -> int:
+        return self._inner.count
+
+    def add(self, vecs) -> np.ndarray:
+        return self._inner.add(vecs)
+
+    def delete_rows(self, rows) -> None:
+        self._inner.delete_rows(rows)
+
+    def flush(self) -> None:
+        """Rows are on the device once add returns."""
+
+    def search(self, queries, k, *, filter_mask=None, ef_search=None,
+               exact=False):
+        # each index fits the mask to its rows itself
+        return self._inner.search(queries, k, filter_mask=filter_mask)
+
+    def warm(self) -> None:
+        self._inner.warm()
+
+    def get_vectors(self, rows) -> np.ndarray:
+        return self._inner.get_vectors(rows)
+
+    def export_state(self) -> dict:
+        return self._inner.export_state()
+
+    def device_bytes(self) -> int:
+        return self._inner.device_bytes()
+
 
 def make_index(kind: str, dim: int, metric: str, *, dtype, device=None, **params):
-    """A new index of `kind`. params: capacity (rows to preallocate)."""
+    """A new index of `kind`. params: capacity (flat: rows to
+    preallocate), n_clusters (sq8r: k-means clusters, 0 for the
+    default)."""
     kind = (kind or "adaptive").lower()
     if kind == "flat":
         capacity = int(params.get("capacity", 0))
@@ -77,6 +132,13 @@ def make_index(kind: str, dim: int, metric: str, *, dtype, device=None, **params
             FlatIndex(dim, metric, dtype, capacity=max(capacity, 0) or MIN_CAPACITY,
                       device=device)
         )
+    if kind == "sq8":
+        return _QuantizedAdapter(SQ8Index(dim, metric, device=device), "sq8")
+    if kind == "sq8r":
+        inner = SQ8ResidualIndex(
+            dim, metric, n_clusters=int(params.get("n_clusters", 0)), device=device
+        )
+        return _QuantizedAdapter(inner, "sq8r")
     if kind in INDEX_KINDS:
         raise _not_ported(kind)
     raise ValueError(f"unknown index kind {kind!r}; want one of {INDEX_KINDS}")
@@ -88,6 +150,10 @@ def import_index(state: dict, *, device=None):
     kind = state["kind"]
     if kind == "flat":
         return _FlatAdapter(FlatIndex.import_state(state, device=device))
+    if kind == "sq8":
+        return _QuantizedAdapter(SQ8Index.import_state(state, device=device), kind)
+    if kind == "sq8r":
+        return _QuantizedAdapter(SQ8ResidualIndex.import_state(state, device=device), kind)
     if kind in INDEX_KINDS:
         raise _not_ported(kind)
     raise ValueError(f"cannot import index state of kind {kind!r}")

@@ -310,6 +310,12 @@ class FlatIndex:
             d = cosine_report(d)
         return d, i.cpu().numpy()
 
+    def device_bytes(self) -> int:
+        """Bytes of the device block (rows, norms, validity) after the
+        pending flush."""
+        itemsize = torch.empty((), dtype=self.dtype).element_size()
+        return self.capacity * (self.dim * itemsize + 4 + 1)
+
     def warm(self) -> None:
         """Build the scan kernel and run one search, off the query path."""
         self.search(np.zeros((1, self.dim), np.float32), 10)

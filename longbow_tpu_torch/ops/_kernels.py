@@ -3,8 +3,9 @@
 Each kernel source under `csrc/` is compiled with nvcc for sm_90a into a
 shared library with a plain C interface and loaded with ctypes. The
 build happens at first use and lands in `.cuda_build/<hash>/` beside the
-package, keyed by a hash of the source and the flags, so a changed
-source rebuilds and an unchanged one loads at once. Nothing here runs
+package, keyed by a hash of the source, every local header it includes
+and the flags, so a changed source or header rebuilds and an unchanged
+one loads at once. Nothing here runs
 at import time: importing this module needs neither nvcc nor a card.
 """
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -28,6 +30,23 @@ NVCC_FLAGS = (
     # ptxas reports each kernel's registers, shared memory and spills
     "-Xptxas=-v",
 )
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def source_closure(path: Path) -> list[Path]:
+    """`path` and every file it includes with `#include "..."`, found
+    beside the including file, transitively, each once, in first-seen
+    order."""
+    seen: list[Path] = []
+    todo = [path.resolve()]
+    while todo:
+        p = todo.pop(0)
+        if p in seen:
+            continue
+        seen.append(p)
+        for name in _INCLUDE.findall(p.read_bytes()):
+            todo.append((p.parent / name.decode()).resolve())
+    return seen
 
 
 def find_nvcc() -> str:
@@ -61,7 +80,10 @@ class Kernel:
         return _PKG / self.source
 
     def library_path(self) -> Path:
-        h = hashlib.sha256(self.path.read_bytes())
+        h = hashlib.sha256()
+        for p in source_closure(self.path):
+            h.update(p.name.encode())
+            h.update(p.read_bytes())
         h.update(" ".join(NVCC_FLAGS).encode())
         return BUILD_ROOT / h.hexdigest()[:16] / f"lib{self.name}.so"
 
@@ -116,9 +138,22 @@ def _bind_fused_scan(lib) -> None:
     lib.longbow_fused_scan.restype = i
 
 
-FUSED_SCAN = Kernel("fused_scan", "csrc/fused_scan.cu", _bind_fused_scan)
+def _bind_fused_codes_scan(lib) -> None:
+    i, p = ctypes.c_int, ctypes.c_void_p
+    lib.longbow_fused_codes_scan_plan.argtypes = [i, i, i, i, i, ctypes.POINTER(ctypes.c_int)]
+    lib.longbow_fused_codes_scan_plan.restype = i
+    lib.longbow_fused_codes_scan.argtypes = [
+        i, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, p, p, p,
+    ]
+    lib.longbow_fused_codes_scan.restype = i
 
-KERNELS = (FUSED_SCAN,)
+
+FUSED_SCAN = Kernel("fused_scan", "csrc/fused_scan.cu", _bind_fused_scan)
+FUSED_CODES_SCAN = Kernel(
+    "fused_codes_scan", "csrc/fused_codes_scan.cu", _bind_fused_codes_scan
+)
+
+KERNELS = (FUSED_SCAN, FUSED_CODES_SCAN)
 
 
 def build_all() -> None:

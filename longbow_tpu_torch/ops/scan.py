@@ -1,11 +1,14 @@
-"""Fused flat scan (kernel K1) and the exact re-rank of its pool.
+"""Fused flat scan (kernel K1), the exact re-rank of its pool, and the
+fused scan over int8 codes (kernel K2).
 
-Counterpart of longbow_tpu/ops/pallas_scan.py::fused_flat_search and
-::flat_search_rerank. On a CUDA tensor `fused_flat_search` launches the
-hand-written Hopper kernel `csrc/fused_scan.cu` (or raises: it never
-falls back); on a CPU tensor it runs `fused_flat_search_plain`, the plain
-PyTorch version of the same arithmetic that the tests compare with the
-JAX kernel and `chip_smoke.py` compares with the CUDA kernel.
+Counterpart of longbow_tpu/ops/pallas_scan.py::fused_flat_search,
+::flat_search_rerank and ::fused_codes_search. On a CUDA tensor
+`fused_flat_search` and `fused_codes_search` launch the hand-written
+Hopper kernels `csrc/fused_scan.cu` and `csrc/fused_codes_scan.cu` (or
+raise: they never fall back); on a CPU tensor they run
+`fused_flat_search_plain` and `fused_codes_search_plain`, the plain
+PyTorch versions of the same arithmetic that the tests compare with the
+JAX kernels and `chip_smoke.py` compares with the CUDA kernels.
 
 Metric modes: "l2" (dist = |q|^2 - 2 q.v + |v|^2) and "ip"
 (dist = -q.v, from Metric.DOT). Cosine is normalize=True + l2 at the
@@ -18,7 +21,7 @@ import ctypes
 import torch
 
 from longbow_tpu_torch.device import resolve_device
-from longbow_tpu_torch.ops._kernels import FUSED_SCAN
+from longbow_tpu_torch.ops._kernels import FUSED_CODES_SCAN, FUSED_SCAN
 from longbow_tpu_torch.ops.distance import (
     MASKED,
     MASKED_GUARD,
@@ -28,6 +31,7 @@ from longbow_tpu_torch.ops.distance import (
 )
 
 MAX_K = 512
+GROUP = 128  # rows per entry of K2's group term
 
 
 def _prepare(queries, corpus, corpus_norms_sq, valid, k, metric, extra_mask,
@@ -93,7 +97,12 @@ def fused_flat_search_plain(
     return _plain_scan(corpus, qc, qn, vn, k, l2, chunk_rows)
 
 
-def _plain_scan(corpus, qc, qn, vn, k, l2, chunk_rows=131072):
+def _plain_scan(corpus, qc, qn, vn, k, l2, chunk_rows=131072, group_term=None,
+                clamp_zero=None):
+    """Scores in f32 from the rounded queries, chunk by chunk, with a
+    running top-k. l2 picks the score form (qn - 2 q.v + vn, else
+    vn - q.v); group_term [B, N / GROUP] is added per row group; the
+    result is clamped at 0 when clamp_zero (by default: when l2)."""
     full_f32_matmul()
     qf = qc.float()
     n, b = corpus.shape[0], qf.shape[0]
@@ -103,6 +112,9 @@ def _plain_scan(corpus, qc, qn, vn, k, l2, chunk_rows=131072):
         end = min(start + chunk_rows, n)
         ip = qf @ corpus[start:end].float().T
         s = (qn[:, None] - 2.0 * ip if l2 else -ip) + vn[None, start:end]
+        if group_term is not None:
+            groups = torch.arange(start, end, device=qf.device) // GROUP
+            s = s + group_term[:, groups].float()
         d, i = torch.topk(s, min(k, end - start), dim=1, largest=False)
         d = torch.cat([best_d, d], dim=1)
         i = torch.cat([best_i, i + start], dim=1)
@@ -114,7 +126,7 @@ def _plain_scan(corpus, qc, qn, vn, k, l2, chunk_rows=131072):
         best_i = torch.cat(
             [best_i, torch.full((b, pad), -1, dtype=torch.int64, device=qf.device)], 1
         )
-    return _finish(best_d, best_i.int(), l2)
+    return _finish(best_d, best_i.int(), l2 if clamp_zero is None else clamp_zero)
 
 
 def _fused_flat_search_cuda(corpus, qc, qn, vn, k, l2):
@@ -185,6 +197,126 @@ def fused_flat_search(
     if corpus_t.device.type != "cpu":
         raise ValueError(f"fused_flat_search: unsupported device {corpus_t.device}")
     return _plain_scan(corpus_t, qc, qn, vn, k, l2)
+
+
+def _prepare_codes(qs, qn_eff, codes, vn_row, valid, k, group_term, extra_mask,
+                   device):
+    """Shared front of both K2 versions: validation, the mask fold into
+    the row term, and the query side rounded to bf16."""
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"fused_codes_search supports 1 <= k <= {MAX_K}, got {k}")
+    dev = resolve_device(device)
+    codes = torch.as_tensor(codes, device=dev)
+    if codes.dtype != torch.int8 or codes.ndim != 2:
+        raise ValueError("fused_codes_search: codes must be [N, D] int8 (stored u8 - 128)")
+    n = codes.shape[0]
+    qs = torch.as_tensor(qs, device=dev)
+    if qs.ndim == 1:
+        qs = qs[None, :]
+    if qs.shape[1] != codes.shape[1]:
+        raise ValueError(f"query dim {qs.shape[1]} != code dim {codes.shape[1]}")
+    b = qs.shape[0]
+    qn = torch.as_tensor(qn_eff, device=dev).float().reshape(b)
+    valid = torch.as_tensor(valid, device=dev).bool()
+    if extra_mask is not None:
+        valid = valid & torch.as_tensor(extra_mask, device=dev).bool()
+    base = torch.as_tensor(vn_row, device=dev).float()
+    vn = torch.where(valid, base, torch.full_like(base, MASKED))
+    gt = None
+    if group_term is not None:
+        gt = torch.as_tensor(group_term, device=dev)
+        if n % GROUP or tuple(gt.shape) != (b, n // GROUP):
+            raise ValueError(
+                f"group_term requires N % {GROUP} == 0 and shape [B, N // {GROUP}] "
+                f"(got N={n}, gt={tuple(gt.shape)})"
+            )
+        if gt.dtype not in (torch.float32, torch.bfloat16):
+            gt = gt.float()
+    return codes, qs.to(torch.bfloat16), qn, vn, gt
+
+
+def fused_codes_search_plain(
+    qs, qn_eff, codes, vn_row, valid, k, *, group_term=None, extra_mask=None,
+    neg_slack=0.0, clamp_zero=True, chunk_rows=131072, device=None,
+):
+    """Plain PyTorch version of K2: the bf16-rounded query side and the
+    codes upcast to f32 (their products are exact), a chunked matmul and
+    torch.topk, with the same masks, group term, clamp and ghost rules.
+    Returns (score [B, k] f32, row [B, k] int32)."""
+    codes, qs, qn, vn, gt = _prepare_codes(
+        qs, qn_eff, codes, vn_row, valid, k, group_term, extra_mask, device,
+    )
+    return _plain_scan(codes, qs, qn, vn, k, True, chunk_rows, gt, clamp_zero)
+
+
+def _fused_codes_search_cuda(codes, qs, qn, vn, gt, k, clamp_zero):
+    if not codes.is_contiguous():
+        raise ValueError("the CUDA codes scan needs contiguous [N, D] codes")
+    n, d = codes.shape
+    b = qs.shape[0]
+    if max(n, b) >= 2**30:  # row and split arithmetic is 32-bit in the kernel
+        raise ValueError("the CUDA codes scan takes fewer than 2**30 rows and queries")
+    qs, qn, vn = qs.contiguous(), qn.contiguous(), vn.contiguous()
+    if vn.data_ptr() % 16:  # the kernel copies the row term 16 bytes at a time
+        vn = vn.clone()
+    gt_kind, gt_ptr = 0, None
+    if gt is not None:
+        gt = gt.contiguous()
+        gt_kind, gt_ptr = (1 if gt.dtype == torch.float32 else 2), gt.data_ptr()
+    lib = FUSED_CODES_SCAN.lib()
+    dev = codes.device.index if codes.device.index is not None else torch.cuda.current_device()
+    plan = (ctypes.c_int * 5)()
+    err = lib.longbow_fused_codes_scan_plan(dev, b, n, d, k, plan)
+    if err != 0:
+        raise RuntimeError(
+            f"fused_codes_scan: no tiling fits shared memory for D={d}, k={k} (code {err})"
+        )
+    cfg, s, rows_per_split, cap, smem = list(plan)
+    out_d = torch.empty((b, s, k), dtype=torch.float32, device=codes.device)
+    out_i = torch.empty((b, s, k), dtype=torch.int32, device=codes.device)
+    stream = torch.cuda.current_stream(codes.device).cuda_stream
+    err = lib.longbow_fused_codes_scan(
+        dev, qs.data_ptr(), qn.data_ptr(), codes.data_ptr(), vn.data_ptr(),
+        gt_ptr, gt_kind, n // GROUP, b, n, d, k, cfg, s, rows_per_split, cap,
+        smem, out_d.data_ptr(), out_i.data_ptr(), stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"fused_codes_scan launch failed: cudaError {err}")
+    FUSED_CODES_SCAN.count_launch()
+    d_all, pos = torch.topk(out_d.view(b, s * k), k, dim=1, largest=False)
+    i_all = torch.gather(out_i.view(b, s * k), 1, pos)
+    return _finish(d_all, i_all, clamp_zero)
+
+
+def fused_codes_search(
+    qs, qn_eff, codes, vn_row, valid, k, *, group_term=None, extra_mask=None,
+    neg_slack=0.0, clamp_zero=True, device=None,
+):
+    """k-NN over int8 quantized codes through the fused codes scan.
+
+    The caller folds its dequantization into the query side; the scan
+    scores
+        score[b, n] = qn_eff[b] - 2 qs[b].codes[n] + vn_row[n]
+                      (+ group_term[b, n // 128] when given)
+    qs [B, D] (rounded to bf16), qn_eff [B] f32, codes [N, D] int8
+    (stored u8 - 128), vn_row [N] f32, valid [N] bool, extra_mask [N]
+    bool (folded into valid), group_term [B, N // 128] f32 or bf16
+    (N % 128 == 0). Returns (score [B, k] f32 including every term,
+    row [B, k] int32), ascending; masked or unfilled slots are exactly
+    (MASKED, -1); clamp_zero=True clamps the scores at 0 (the l2 folds).
+    k <= 512. neg_slack is accepted for the JAX signature and has no
+    effect: scores are compared as floats, with no positivity bias.
+    CUDA tensors run the kernel; CPU tensors run
+    fused_codes_search_plain.
+    """
+    codes_t, qs_t, qn, vn, gt = _prepare_codes(
+        qs, qn_eff, codes, vn_row, valid, k, group_term, extra_mask, device,
+    )
+    if codes_t.device.type == "cuda":
+        return _fused_codes_search_cuda(codes_t, qs_t, qn, vn, gt, k, clamp_zero)
+    if codes_t.device.type != "cpu":
+        raise ValueError(f"fused_codes_search: unsupported device {codes_t.device}")
+    return _plain_scan(codes_t, qs_t, qn, vn, k, True, group_term=gt, clamp_zero=clamp_zero)
 
 
 def flat_search_rerank(

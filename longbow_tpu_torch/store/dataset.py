@@ -298,11 +298,9 @@ class Dataset:
         return self._row_ids_np
 
     def device_bytes(self) -> int:
-        """Device-memory footprint of the index block (after the pending
-        flush) and the metadata columns."""
-        flat = self.index._flat
-        itemsize = torch.empty((), dtype=flat.dtype).element_size()
-        total = flat.capacity * (flat.dim * itemsize + 4 + 1)
+        """Device-memory footprint of the index (whatever its kind) and
+        the metadata columns."""
+        total = self.index.device_bytes()
         for col in (*self.columns._numeric.values(), *self.columns._str_codes.values()):
             total += col.numel() * col.element_size()
         return total

@@ -60,7 +60,18 @@ class VectorStore:
         *,
         index_kind: Optional[str] = None,
         index_params: Optional[dict] = None,
+        dtype_hint=None,
     ) -> Dataset:
+        # a dataset first seen with int8/uint8 vectors, in a store whose
+        # default kind is adaptive and with no kind asked for, stores the
+        # bytes 1:1 as identity-affine sq8 codes
+        if (
+            dtype_hint is not None
+            and index_kind is None
+            and self.default_index_kind in (None, "adaptive")
+            and np.dtype(dtype_hint) in (np.dtype(np.int8), np.dtype(np.uint8))
+        ):
+            index_kind = "sq8"
         with self._lock:
             ds = self._datasets.get(name)
             if ds is None:
@@ -122,12 +133,14 @@ class VectorStore:
         """Upsert rows (the DoPut path). vectors: a numpy array, a list
         of numpy blocks of one dim, or a tensor (kept on its device)."""
         if isinstance(vectors, list):
-            dim = vectors[0].shape[1]
+            dim, dtype_hint = vectors[0].shape[1], vectors[0].dtype
         else:
+            dtype_hint = None
             if not isinstance(vectors, torch.Tensor):
                 vectors = np.atleast_2d(np.asarray(vectors))
+                dtype_hint = vectors.dtype
             dim = vectors.shape[1]
-        ds = self.get_or_create(dataset, dim, metric)
+        ds = self.get_or_create(dataset, dim, metric, dtype_hint=dtype_hint)
         ds.put(np.asarray(ids), vectors, columns, timestamp=timestamp)
         self.query_cache.clear()
 

@@ -17,7 +17,12 @@ import torch
 from longbow_tpu.query.parser import Filter as JaxFilter
 from longbow_tpu.query.parser import parse_ticket as jax_parse_ticket
 from longbow_tpu.store.vector_store import VectorStore as JaxStore
-from longbow_tpu_torch.index.factory import INDEX_KINDS, import_index, make_index
+from longbow_tpu_torch.index.factory import (
+    INDEX_KINDS,
+    PORTED_KINDS,
+    import_index,
+    make_index,
+)
 from longbow_tpu_torch.query.parser import Filter, parse_ticket
 from longbow_tpu_torch.store.vector_store import VectorStore
 
@@ -96,12 +101,14 @@ def test_store_lifecycle_and_cache():
 
 
 def test_factory_ports_flat_only():
-    idx = make_index("flat", 8, "l2", dtype=torch.bfloat16, device="cpu")
-    idx.add(np.eye(8, dtype=np.float32))
-    again = import_index(idx.export_state(), device="cpu")
-    assert len(again) == 8 and again.kind == "flat"
+    """flat, sq8 and sq8r are ported; every other kind raises."""
+    for kind in PORTED_KINDS:
+        idx = make_index(kind, 8, "l2", dtype=torch.bfloat16, device="cpu")
+        idx.add(np.eye(8, dtype=np.float32))
+        again = import_index(idx.export_state(), device="cpu")
+        assert len(again) == 8 and again.kind == kind
     for kind in INDEX_KINDS:
-        if kind != "flat":
+        if kind not in PORTED_KINDS:
             with pytest.raises(NotImplementedError, match=kind):
                 make_index(kind, 8, "l2", dtype=torch.bfloat16, device="cpu")
     with pytest.raises(ValueError):
