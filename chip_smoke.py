@@ -10,9 +10,15 @@ Phases, each of which passes or ends the run with a non-zero exit:
                PyTorch version at N = 1,048,576 x D = 128 bf16, B in {1, 128, 2048},
                k in {10, 64, 512}, l2 and ip, with tombstones, an extra mask,
                fewer valid rows than k, and D = 100 with N not a multiple of the
-               tile; times the kernel, the plain version and torch.matmul +
-               torch.topk over the same scores (a two-call yardstick: no single
-               PyTorch call computes K1);
+               tile; and, aimed at the wgmma variant, a ragged last tile
+               (N - 77), B = 17, D = 64, and rows in adversarial order (sorted
+               by decreasing distance to the queries' centre, B = 128, k = 64)
+               beside the same rows in random order; times the kernel, the
+               plain version and torch.matmul + torch.topk over the same scores
+               (a two-call yardstick: no single PyTorch call computes K1); each
+               case names the variant that ran ("wgmma" or "mma"), a wgmma
+               case is also timed through the mma.sync variant ("prev_ms"),
+               and the served shape must run wgmma;
   4. store   - the main path: VectorStore.put / search / delete on 1,000,000 x 128
                clustered rows in bf16 (a flat index), recall@10 against the f32
                exact_search oracle, a filtered search, deletes, and 100,000-row
@@ -26,9 +32,11 @@ Phases, each of which passes or ends the run with a non-zero exit:
                extra mask, fewer valid rows than k, all masked, k = 512,
                D = 100 with N = 1,000,003, and at D = 128 (1,048,576 rows,
                the 1M x 128 stores' shape) a bf16 group term and the dot
-               fold at B = 1000, k = 64; times the kernel, the plain version and
-               torch.addmm + torch.topk over the same scores (a two-call
-               yardstick, without the group term);
+               fold at B = 1000, k = 64; a ragged last tile (N - 77), B = 17,
+               D = 64, and adversarial order as for K1; times the kernel, the
+               plain version and torch.addmm + torch.topk over the same scores
+               (a two-call yardstick, without the group term), with "variant"
+               and "prev_ms" as for K1;
   6. quantized store - the slice's path: VectorStore with an sq8r dataset at
                Deep-10M's shape (10,000,000 x 96 clustered rows), recall@10
                against exact search over the dequantized rows (gate 0.99) and
@@ -65,6 +73,7 @@ TRAIN_ROWS = 131_072                # SQ8ResidualIndex.TRAIN_SAMPLE
 FINAL_ROWS = 20_000                 # left in the sq8r delta region
 QUANT_RECALL_GATE = 0.99            # against exact search over dequantized rows
 TIMED_LAUNCHES = 20
+PLAIN_LAUNCHES = 5                  # the plain versions are slow and gate nothing
 DEVICE = "cuda"
 # kernel vs plain: f32 sums are taken in another order, so distances agree
 # to this tolerance and no better
@@ -190,7 +199,9 @@ def compare(name, dk, ik, dp, ip_) -> float:
 
 def phase_kernels(bw: float, flops: float, reps: int) -> dict:
     from longbow_tpu_torch.ops.distance import Metric
-    from longbow_tpu_torch.ops.scan import fused_flat_search, fused_flat_search_plain
+    from longbow_tpu_torch.ops.scan import (
+        fused_flat_search, fused_flat_search_plain, scan_variant,
+    )
 
     dev = torch.device(DEVICE)
     g = torch.Generator(device=dev).manual_seed(0)
@@ -230,20 +241,48 @@ def phase_kernels(bw: float, flops: float, reps: int) -> dict:
     cases.append(dict(metric=Metric.DOT, b=2048, k=10, corpus=c100,
                       norms=n100, valid=v100, extra=None,
                       tag="unaligned_d100_n1000003"))
+    # aimed at the wgmma variant
+    ragged = N_KERNEL - 77
+    cases.append(dict(metric=Metric.L2, b=1000, k=64, corpus=c128[:ragged],
+                      norms=n128[:ragged], valid=tomb[:ragged], extra=None,
+                      tag="ragged_last_tile"))
+    cases.append(dict(metric=Metric.L2, b=17, k=64, corpus=c128, norms=n128,
+                      valid=tomb, extra=None, force="wgmma", tag="b17"))
+    c64, n64 = corpus_of(N_KERNEL, 64)
+    cases.append(dict(metric=Metric.L2, b=1000, k=64, corpus=c64, norms=n64,
+                      valid=tomb, extra=None, tag="d64"))
+    # queries near the origin see the rows by decreasing norm: nearly every
+    # tile then holds a row better than all before it
+    worst_first = torch.argsort(n128, descending=True)
+    c_adv, n_adv = c128[worst_first].contiguous(), n128[worst_first].contiguous()
+    allv = torch.ones_like(tomb)
+    cases.append(dict(metric=Metric.L2, b=128, k=64, corpus=c_adv, norms=n_adv,
+                      valid=allv, extra=None, qscale=0.1, force="wgmma",
+                      tag="adversarial_order"))
+    cases.append(dict(metric=Metric.L2, b=128, k=64, corpus=c128, norms=n128,
+                      valid=allv, extra=None, qscale=0.1, force="wgmma",
+                      tag="adversarial_rows_in_random_order"))
 
     results = []
     for cs in cases:
         n, d = cs["corpus"].shape
-        q = torch.randn((cs["b"], d), generator=g, device=dev)
+        q = torch.randn((cs["b"], d), generator=g, device=dev) * cs.get("qscale", 1.0)
         args = (q, cs["corpus"], cs["norms"], cs["valid"], cs["k"], cs["metric"])
         kw = dict(extra_mask=cs["extra"], device=dev)
         name = f"{cs['tag']} {cs['metric']} B={cs['b']} k={cs['k']} N={n} D={d}"
-        dk, ik = fused_flat_search(*args, **kw)
+        # the wrapper's own choice, unless the case asks for a variant
+        variant = cs.get("force") or scan_variant(
+            cs["b"], n, d, cs["k"], cs["corpus"].data_ptr() % 16 == 0)
+        kernel_kw = dict(kw, variant=cs.get("force"))
+        dk, ik = fused_flat_search(*args, **kernel_kw)
         dp, ip_ = fused_flat_search_plain(*args, **kw)
         torch.cuda.synchronize()
         err = compare(name, dk, ik, dp, ip_)
-        ms = time_ms(lambda: fused_flat_search(*args, **kw), reps)
-        plain_ms = time_ms(lambda: fused_flat_search_plain(*args, **kw), reps)
+        ms = time_ms(lambda: fused_flat_search(*args, **kernel_kw), reps)
+        prev_ms = None  # the mma.sync variant on a shape that wgmma serves
+        if variant == "wgmma":
+            prev_ms = time_ms(lambda: fused_flat_search(*args, **dict(kw, variant="mma")), reps)
+        plain_ms = time_ms(lambda: fused_flat_search_plain(*args, **kw), PLAIN_LAUNCHES)
         qb = q.to(torch.bfloat16)
         corpus = cs["corpus"]
         mm_ms = time_ms(
@@ -253,12 +292,24 @@ def phase_kernels(bw: float, flops: float, reps: int) -> dict:
         moved = n * d * 2 + n * 4 + n + b * d * 4 + b * k * 8
         bound_by = "bytes" if moved / bw >= 2 * b * n * d / flops else "operations"
         bound_ms = 1e3 * max(moved / bw, 2 * b * n * d / flops)
-        row = dict(case=name, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                   matmul_topk_ms=mm_ms, bound_ms=bound_ms, bound_by=bound_by,
-                   b=b, k=k, n=n, d=d, metric=cs["metric"], tag=cs["tag"])
+        row = dict(case=name, variant=variant, max_abs_err=err, ms=ms, prev_ms=prev_ms,
+                   plain_ms=plain_ms, matmul_topk_ms=mm_ms, bound_ms=bound_ms,
+                   bound_by=bound_by, b=b, k=k, n=n, d=d, metric=cs["metric"],
+                   tag=cs["tag"])
         results.append(row)
         emit({"kernel_case": row})
+    check_variants("fused_scan", results)
     return {"cases": results}
+
+
+def check_variants(kernel: str, results: list) -> None:
+    """The served shape ran the wgmma variant, and both variants ran."""
+    served = next(r for r in results if r["tag"] == "served_batch")
+    if served["variant"] != "wgmma":
+        fail(f"{kernel}: the served shape ran the {served['variant']} variant")
+    ran = {r["variant"] for r in results}
+    if ran != {"wgmma", "mma"}:
+        fail(f"{kernel}: only the {sorted(ran)} variant ran")
 
 
 # -- 4. store (the main path) ---------------------------------------------
@@ -370,7 +421,9 @@ def phase_store() -> dict:
 
 def phase_codes_kernels(bw: float, flops: float, reps: int) -> dict:
     from longbow_tpu_torch.ops.distance import MASKED
-    from longbow_tpu_torch.ops.scan import fused_codes_search, fused_codes_search_plain
+    from longbow_tpu_torch.ops.scan import (
+        fused_codes_search, fused_codes_search_plain, scan_variant,
+    )
 
     dev = torch.device(DEVICE)
     g = torch.Generator(device=dev).manual_seed(1)
@@ -414,13 +467,30 @@ def phase_codes_kernels(bw: float, flops: float, reps: int) -> dict:
                 gcid=torch.randint(0, 1024, (N_KERNEL // 128,), generator=g, device=dev))
     cases += [dict(d128, b=1000, k=64, gt="bf16", tag="sq8r_gt_bf16_d128"),
               dict(d128, b=1000, k=64, fold="dot", tag="dot_fold_d128")]
+    # aimed at the wgmma variant
+    ragged = N_CODES - 77
+    cases += [dict(base, codes=c96[:ragged], norms=n96[:ragged], valid=tomb[:ragged],
+                   b=1000, k=64, tag="ragged_last_tile"),
+              dict(base, b=17, k=64, tag="b17")]
+    c64, n64 = codes_of(N_KERNEL, 64)
+    cases.append(dict(d128, codes=c64, norms=n64, b=1000, k=64, gt="bf16",
+                      tag="sq8r_gt_bf16_d64"))
+    # small queries see the rows by decreasing norm: nearly every tile then
+    # holds a row better than all before it
+    worst_first = torch.argsort(n128, descending=True)
+    allv = torch.ones((N_KERNEL,), dtype=torch.bool, device=dev)
+    cases += [dict(d128, codes=c128[worst_first].contiguous(),
+                   norms=n128[worst_first].contiguous(), valid=allv, b=128, k=64,
+                   qscale=0.05, force="wgmma", tag="adversarial_order"),
+              dict(d128, valid=allv, b=128, k=64, qscale=0.05, force="wgmma",
+                   tag="adversarial_rows_in_random_order")]
 
     c16 = {}  # bf16 copies of the codes for the yardstick, made outside the timing
     results = []
     for cs in cases:
         codes, b, k = cs["codes"], cs["b"], cs["k"]
         n, d = codes.shape
-        q = torch.randn((b, d), generator=g, device=dev)
+        q = torch.randn((b, d), generator=g, device=dev) * cs.get("qscale", 1.0)
         if cs["fold"] == "dot":  # sq8's dot fold: scores are -q.v_deq
             qs, qn, vn, clamp = q * scale * 0.5, -lo_eff * q.sum(dim=1), torch.zeros_like(
                 cs["norms"]), False
@@ -434,12 +504,18 @@ def phase_codes_kernels(bw: float, flops: float, reps: int) -> dict:
         args = (qs, qn, codes, vn, cs["valid"], k)
         kw = dict(group_term=gt, extra_mask=cs["extra"], clamp_zero=clamp, device=dev)
         name = (f"{cs['tag']} {cs['fold']} gt={cs['gt']} B={b} k={k} N={n} D={d}")
-        dk, ik = fused_codes_search(*args, **kw)
+        # the wrapper's own choice, unless the case asks for a variant
+        variant = cs.get("force") or scan_variant(b, n, d, k, codes.data_ptr() % 16 == 0)
+        kernel_kw = dict(kw, variant=cs.get("force"))
+        dk, ik = fused_codes_search(*args, **kernel_kw)
         dp, ip_ = fused_codes_search_plain(*args, **kw)
         torch.cuda.synchronize()
         err = compare(name, dk, ik, dp, ip_)
-        ms = time_ms(lambda: fused_codes_search(*args, **kw), reps)
-        plain_ms = time_ms(lambda: fused_codes_search_plain(*args, **kw), reps)
+        ms = time_ms(lambda: fused_codes_search(*args, **kernel_kw), reps)
+        prev_ms = None  # the mma.sync variant on a shape that wgmma serves
+        if variant == "wgmma":
+            prev_ms = time_ms(lambda: fused_codes_search(*args, **dict(kw, variant="mma")), reps)
+        plain_ms = time_ms(lambda: fused_codes_search_plain(*args, **kw), PLAIN_LAUNCHES)
         if id(codes) not in c16:
             c16[id(codes)] = codes.to(torch.bfloat16)
         valid = cs["valid"] if cs["extra"] is None else cs["valid"] & cs["extra"]
@@ -452,11 +528,13 @@ def phase_codes_kernels(bw: float, flops: float, reps: int) -> dict:
         moved = n * d + n * 4 + n + gt_bytes + b * d * 4 + b * 4 + b * k * 8
         bound_by = "bytes" if moved / bw >= 2 * b * n * d / flops else "operations"
         bound_ms = 1e3 * max(moved / bw, 2 * b * n * d / flops)
-        row = dict(case=name, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                   addmm_topk_ms=yard_ms, bound_ms=bound_ms, bound_by=bound_by,
-                   b=b, k=k, n=n, d=d, fold=cs["fold"], gt=cs["gt"], tag=cs["tag"])
+        row = dict(case=name, variant=variant, max_abs_err=err, ms=ms, prev_ms=prev_ms,
+                   plain_ms=plain_ms, addmm_topk_ms=yard_ms, bound_ms=bound_ms,
+                   bound_by=bound_by, b=b, k=k, n=n, d=d, fold=cs["fold"], gt=cs["gt"],
+                   tag=cs["tag"])
         results.append(row)
         emit({"codes_kernel_case": row})
+    check_variants("fused_codes_scan", results)
     return {"cases": results}
 
 
@@ -685,6 +763,8 @@ def main() -> int:
         "launches": store["launches"]["fused_scan"],
         "max_abs_err": max(c["max_abs_err"] for c in kern["cases"]),
         "ms": served["ms"],
+        "variant": served["variant"],
+        "prev_ms": served["prev_ms"],
         "plain_ms": served["plain_ms"],
         "bound_ms": served["bound_ms"],
         "bound_by": served["bound_by"],
@@ -699,6 +779,8 @@ def main() -> int:
         "launches": quant["launches"]["fused_codes_scan"],
         "max_abs_err": max(c["max_abs_err"] for c in codes["cases"]),
         "ms": served2["ms"],
+        "variant": served2["variant"],
+        "prev_ms": served2["prev_ms"],
         "plain_ms": served2["plain_ms"],
         "bound_ms": served2["bound_ms"],
         "bound_by": served2["bound_by"],

@@ -21,31 +21,47 @@
 //
 // What bounds it on an H100. Small B: reading the codes, N*D bytes
 // (983 MB at 10,240,000 x 96) over 3.35 TB/s. Large B: the 2*B*N*D
-// multiply-adds over the bf16 tensor cores. The design is K1's
-// (fused_scan.cu): a grid of (query blocks, corpus splits) sized to fill
-// the SMs in one wave, a cp.async ring of code tiles (16 codes per copy)
-// and their norm rows, query fragments held in registers for D <= 128,
-// and the shared threshold-filter selection (scan_common.cuh). What
-// differs:
-//   - ldmatrix moves 16-bit elements, so the B fragments of
-//     mma.sync m16n8k16 are read with one 32-bit shared load per lane
-//     (four codes of one row) and converted to bf16 in registers, where
-//     -128..127 is exact. The four codes are dims 4t..4t+3 of the
-//     k-step for lane group t, which is not the fragment's k order
-//     (2t, 2t+1, 2t+8, 2t+9); the query fragments are loaded in the same
-//     permuted order, so the dot product is unchanged;
-//   - k-steps past D are skipped (D = 96 runs 6 of 8);
-//   - a tile is 128 rows, one group, so the group term is one value per
-//     query and tile, read from device memory as f32 or bf16.
+// multiply-adds over the bf16 tensor cores, and before that the passes
+// over the codes, one per query block.
+//
+// Two variants; ops/scan.py::scan_variant picks one from the shape:
+//   - "wgmma" (scan_wgmma.cuh, longbow_fused_codes_scan_wgmma): B > 16,
+//     K <= 64, D of 64, 96 or 128, 16-byte aligned codes: the served
+//     batches. 128 queries per block (half the passes of the other
+//     variant), a ring of 128-row tiles filled by cp.async.bulk from one
+//     producer lane and handed over through mbarriers, the codes
+//     converted to bf16 once per warpgroup as the register operand of
+//     wgmma.mma_async m64n128k16, the group term read 8 tiles at a time
+//     by a warp of its own, and no block-wide barrier per tile;
+//   - "mma" (this file, longbow_fused_codes_scan): every other shape:
+//     single queries and small batches, K up to 512, any D, unaligned
+//     rows. A grid of (query blocks, corpus splits) sized to fill the SMs
+//     in one wave, a cp.async ring of two code tiles (16 codes per copy)
+//     and their norm rows, query fragments held in registers for
+//     D <= 128, mma.sync m16n8k16, one barrier per tile, and the shared
+//     threshold-filter selection (scan_common.cuh). In this variant:
+//       - ldmatrix moves 16-bit elements, so the B fragments are read
+//         with one 32-bit shared load per lane (four codes of one row)
+//         and converted to bf16 in registers, where -128..127 is exact.
+//         The four codes are dims 4t..4t+3 of the k-step for lane group
+//         t, which is not the fragment's k order (2t, 2t+1, 2t+8, 2t+9);
+//         the query fragments are loaded in the same permuted order, so
+//         the dot product is unchanged;
+//       - k-steps past D are skipped (D = 96 runs 6 of 8);
+//       - a tile is 128 rows, one group, so the group term is one value
+//         per query and tile, read from device memory as f32 or bf16.
+//     The LONGBOW_PROBE_* names compile stages of its loop out for
+//     tools/probe_scan_stages.py, which times what each stage costs.
 
 #include "scan_common.cuh"
+#include "scan_wgmma.cuh"
 
 namespace {
 
 constexpr int kRowBytes = kChunk + 16;  // +16 bytes: conflict-free fragment loads
 
 // A fragments (16 queries x 128 dims of chunk c) for this lane, in the
-// permuted k order that matches b_frags: registers 0/1 hold dims
+// permuted k order that matches bytes_to_bf16: registers 0/1 hold dims
 // 4t, 4t+1 of rows g / g+8, registers 2/3 dims 4t+2, 4t+3.
 __device__ __forceinline__ void load_a_perm(uint32_t (&afr)[8][4], const __nv_bfloat16* q_s,
                                             int qstride, int row, int c, int tig) {
@@ -57,21 +73,6 @@ __device__ __forceinline__ void load_a_perm(uint32_t (&afr)[8][4], const __nv_bf
     afr[ks][2] = *reinterpret_cast<const uint32_t*>(base + ks * 16 + 2);
     afr[ks][3] = *reinterpret_cast<const uint32_t*>(base + 8 * qstride + ks * 16 + 2);
   }
-}
-
-// Four signed bytes -> two packed bf16 pairs (bytes 0, 1 and 2, 3; the
-// lower byte in the lower half). 0x4B000000 | u is the float 2^23 + u,
-// so with u = s + 128 subtracting 2^23 + 128 gives s exactly.
-__device__ __forceinline__ void b_frags(uint32_t w, uint32_t& b0, uint32_t& b1) {
-  const uint32_t u = w ^ 0x80808080u;
-  const float f0 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440)) - 8388736.0f;
-  const float f1 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7441)) - 8388736.0f;
-  const float f2 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7442)) - 8388736.0f;
-  const float f3 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7443)) - 8388736.0f;
-  __nv_bfloat162 p0 = __floats2bfloat162_rn(f0, f1);
-  __nv_bfloat162 p1 = __floats2bfloat162_rn(f2, f3);
-  b0 = *reinterpret_cast<uint32_t*>(&p0);
-  b1 = *reinterpret_cast<uint32_t*>(&p1);
 }
 
 __device__ __forceinline__ float group_term(const void* gt, int gt_kind, size_t i) {
@@ -202,9 +203,12 @@ fused_codes_kernel(const __nv_bfloat16* __restrict__ qs, const float* __restrict
       // the next fetch refills (it was read in iteration it - 1)
       cp_async_wait<STAGES - 2>();
       __syncthreads();
+#ifndef LONGBOW_PROBE_NO_FETCH
       if (it + STAGES - 1 < total) fetch(it + STAGES - 1, (it + STAGES - 1) % STAGES);
+#endif
       asm volatile("cp.async.commit_group;\n" ::);
       if (nchunks > 1) load_a_perm(afr, q_s, qstride, qa, c, tig);
+#ifndef LONGBOW_PROBE_NO_MMA
       const int ks_end = min(8, (D - c * kChunk + 15) / 16);  // k-steps inside D
       const int8_t* cs = c_s + (it % STAGES) * TN * kRowBytes + b_off;
 #pragma unroll
@@ -213,14 +217,27 @@ fused_codes_kernel(const __nv_bfloat16* __restrict__ qs, const float* __restrict
 #pragma unroll
           for (int nt = 0; nt < NT; ++nt) {
             uint32_t b0, b1;
-            b_frags(*reinterpret_cast<const uint32_t*>(cs + nt * 8 * kRowBytes + ks * 16), b0,
-                    b1);
+            bytes_to_bf16(*reinterpret_cast<const uint32_t*>(cs + nt * 8 * kRowBytes + ks * 16),
+                          b0, b1);
             mma_bf16(acc[nt], afr[ks], b0, b1);
           }
         }
       }
+#endif
     }
 
+#ifdef LONGBOW_PROBE_NO_EPILOGUE
+    // timing probe: the products stay live, nothing is selected
+    float keep = 0.0f;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) keep += acc[nt][e];
+    if (keep == 1.2345e-30f) cnt_s[0] = gt_a + gt_b > 0.0f;
+#ifndef LONGBOW_PROBE_NO_BARRIER
+    __syncthreads();
+#endif
+#else
     // epilogue (K1's): scores below the query's threshold join its
     // buffer; the lane's smallest score per query decides whether any of
     // them is looked at again
@@ -272,6 +289,7 @@ fused_codes_kernel(const __nv_bfloat16* __restrict__ qs, const float* __restrict
       }
       __syncwarp();
     }
+#endif  // LONGBOW_PROBE_NO_EPILOGUE
   }
 
   // each warp finishes the queries it maintained
@@ -356,6 +374,26 @@ int longbow_fused_codes_scan(int device, const void* qs, const void* qn, const v
                   smem, out_d, out_i, st);
   return launch(Narrow{}, qs, qn, codes, vn, gt, gt_kind, G, B, N, D, K, S, rows_per_split, cap,
                 smem, out_d, out_i, st);
+}
+
+// The wgmma variant (scan_wgmma.cuh): D in {64, 96, 128}, K <= 64, codes
+// 16-byte aligned, vn padded to a multiple of 128 rows with MASKED,
+// qs with its columns in wgmma_k_order, rows_per_split a multiple of 128,
+// S = ceil(N / rows_per_split) and split_best [B, S] f32 filled with
+// MASKED_GUARD. Returns cudaGetLastError() after the
+// launch, -1 for a shape it does not take, -2 when shared memory is too
+// small.
+int longbow_fused_codes_scan_wgmma(int device, const void* qs, const void* qn, const void* codes,
+                                   const void* vn, const void* gt, int gt_kind, int G, int B,
+                                   int N, int D, int K, int S, int rows_per_split,
+                                   void* split_best, void* out_d, void* out_i, void* stream) {
+  WScanArgs a{};
+  a.q = qs, a.qn = static_cast<const float*>(qn), a.rows = codes;
+  a.vn = static_cast<const float*>(vn), a.gt = gt, a.gt_kind = gt_kind, a.G = G;
+  a.B = B, a.N = N, a.K = K, a.rows_per_split = rows_per_split, a.alpha = -2.0f;
+  a.split_best = static_cast<float*>(split_best);
+  a.out_d = static_cast<float*>(out_d), a.out_i = static_cast<int*>(out_i);
+  return wscan_dispatch<int8_t>(a, D, device, S, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

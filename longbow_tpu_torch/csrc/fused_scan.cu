@@ -18,27 +18,39 @@
 //
 // What bounds it on an H100. Small B: reading the corpus, N*D*2 bytes
 // (256 MiB at 1M x 128) over 3.35 TB/s. Large B: the 2*B*N*D bf16
-// multiply-adds over the tensor cores. What this simple design does:
-//   - bytes: the grid is (ceil(B/QB), S), with S chosen from the
-//     occupancy so that the blocks fill every SM in one wave (at B=1 two
-//     blocks per SM); each block streams its split through a ring of
-//     STAGES shared-memory stages filled by 16-byte cp.async copies, so
-//     the next tile (rows and their norms) is in flight while one is
-//     multiplied, with one barrier per tile;
-//   - operations: scores come from mma.sync m16n8k16 (bf16 in, f32
-//     accumulate) with the block's query fragments held in registers
-//     across the whole scan (D <= 128) and corpus fragments read by
-//     ldmatrix from padded shared memory without bank conflicts. wgmma
-//     and TMA are left for later work.
-// Selection is a threshold filter: a score below the query's current
-// K-th best is appended to a shared-memory buffer of CAP >= K + TN
-// slots (CAP >= 2K + TN where shared memory allows, so that a sort
-// retires at least K appends); when the next tile could overflow it,
-// one warp bitonic-sorts the buffer in registers, keeps K and tightens
-// the threshold. The block waits for that sort at its next barrier, so
-// the sort is kept short.
+// multiply-adds over the tensor cores, and before that the passes over
+// the corpus, one per query block.
+//
+// Two variants; ops/scan.py::scan_variant picks one from the shape:
+//   - "wgmma" (scan_wgmma.cuh, longbow_fused_scan_wgmma): B > 16,
+//     K <= 64, D of 64, 96 or 128, a 16-byte aligned corpus: the served
+//     batches. The main loop is K2's: 128 queries per block, a ring of
+//     128-row tiles filled by cp.async.bulk and handed over through
+//     mbarriers, the rows as the register operand of wgmma.mma_async
+//     m64n128k16 (read from the stage 16 bytes per lane, so no tensor map
+//     and no swizzled corpus layout is needed), no block-wide barrier per
+//     tile;
+//   - "mma" (this file, longbow_fused_scan): every other shape: single
+//     queries and small batches, K up to 512, any D, unaligned rows.
+//       - bytes: the grid is (ceil(B/QB), S), with S chosen from the
+//         occupancy so that the blocks fill every SM in one wave (at B=1
+//         two blocks per SM); each block streams its split through a ring
+//         of two shared-memory stages filled by 16-byte cp.async copies,
+//         with one barrier per tile;
+//       - operations: scores come from mma.sync m16n8k16 (bf16 in, f32
+//         accumulate) with the block's query fragments held in registers
+//         across the whole scan (D <= 128) and corpus fragments read by
+//         ldmatrix from padded shared memory without bank conflicts.
+//     Selection there is a threshold filter: a score below the query's
+//     current K-th best is appended to a shared-memory buffer of
+//     CAP >= K + TN slots (CAP >= 2K + TN where shared memory allows, so
+//     that a sort retires at least K appends); when the next tile could
+//     overflow it, one warp bitonic-sorts the buffer in registers, keeps
+//     K and tightens the threshold. The block waits for that sort at its
+//     next barrier, so the sort is kept short.
 
 #include "scan_common.cuh"
+#include "scan_wgmma.cuh"
 
 namespace {
 
@@ -338,6 +350,26 @@ int longbow_fused_scan(int device, const void* q, const void* qn, const void* co
                   out_i, st);
   return launch(Narrow{}, q, qn, corpus, vn, B, N, D, K, l2, S, rows_per_split, cap, smem,
                 out_d, out_i, st);
+}
+
+// The wgmma variant (scan_wgmma.cuh): D in {64, 96, 128}, K <= 64, corpus
+// 16-byte aligned, vn padded to a multiple of 128 rows with MASKED, q
+// with its columns in wgmma_k_order, rows_per_split a multiple of 128,
+// S = ceil(N / rows_per_split) and split_best [B, S] f32 filled with
+// MASKED_GUARD. Returns cudaGetLastError() after the
+// launch, -1 for a shape it does not take, -2 when shared memory is too
+// small.
+int longbow_fused_scan_wgmma(int device, const void* q, const void* qn, const void* corpus,
+                             const void* vn, int B, int N, int D, int K, int l2, int S,
+                             int rows_per_split, void* split_best, void* out_d, void* out_i,
+                             void* stream) {
+  WScanArgs a{};
+  a.q = q, a.qn = static_cast<const float*>(qn), a.rows = corpus;
+  a.vn = static_cast<const float*>(vn), a.gt = nullptr, a.gt_kind = 0, a.G = 0;
+  a.B = B, a.N = N, a.K = K, a.rows_per_split = rows_per_split, a.alpha = l2 ? -2.0f : -1.0f;
+  a.split_best = static_cast<float*>(split_best);
+  a.out_d = static_cast<float*>(out_d), a.out_i = static_cast<int*>(out_i);
+  return wscan_dispatch<__nv_bfloat16>(a, D, device, S, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -1,11 +1,14 @@
-// Device helpers and the launch plan shared by the fused scans:
-// K1 (fused_scan.cu, bf16 rows) and K2 (fused_codes_scan.cu, int8 codes).
+// Device helpers shared by the fused scans, K1 (fused_scan.cu, bf16 rows;
+// replaces longbow_tpu/ops/pallas_scan.py::fused_flat_search) and K2
+// (fused_codes_scan.cu, int8 codes; replaces ::fused_codes_search), and
+// the launch plan of their mma.sync variants. The wgmma variants' main
+// loop is scan_wgmma.cuh.
 //
-// Both kernels keep, for each query block and corpus split, an exact
+// Every variant keeps, for each query block and corpus split, an exact
 // top-K of the split: scores below the query's threshold are appended to
-// a shared-memory buffer, and a buffer the next tile could overflow is
-// sorted by one warp (bitonic, in registers up to 1,024 entries) and cut
-// to K. The wrappers merge the S*K per-split candidates with one
+// a shared-memory buffer, and a full buffer is sorted by one warp
+// (bitonic, in registers up to 1,024 entries) and cut to K, which lowers
+// the threshold. The wrappers merge the S*K per-split candidates with one
 // torch.topk.
 #pragma once
 
@@ -32,6 +35,25 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four signed bytes -> two packed bf16 pairs (bytes 0, 1 and 2, 3; the
+// lower byte in the lower half). 0x4B000000 | u is the float 2^23 + u,
+// so with u = s + 128 subtracting 2^23 + 128 gives s exactly.
+__device__ __forceinline__ void bytes_to_bf16(uint32_t w, uint32_t& lo, uint32_t& hi) {
+#ifdef LONGBOW_PROBE_NO_CONVERT  // timing probe: wrong values, no conversion
+  lo = w, hi = w ^ 0x01010101u;
+  return;
+#endif
+  const uint32_t u = w ^ 0x80808080u;
+  const float f0 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440)) - 8388736.0f;
+  const float f1 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7441)) - 8388736.0f;
+  const float f2 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7442)) - 8388736.0f;
+  const float f3 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7443)) - 8388736.0f;
+  __nv_bfloat162 p0 = __floats2bfloat162_rn(f0, f1);
+  __nv_bfloat162 p1 = __floats2bfloat162_rn(f2, f3);
+  lo = *reinterpret_cast<uint32_t*>(&p0);
+  hi = *reinterpret_cast<uint32_t*>(&p1);
 }
 
 // 16 bytes from global to shared; bytes past `src_bytes` are zero-filled

@@ -65,10 +65,13 @@ class Kernel:
     count. `launches` goes up by one each time a wrapper launches the
     kernel, and nowhere else."""
 
-    def __init__(self, name: str, source: str, bind):
+    def __init__(self, name: str, source: str, bind, defines: tuple[str, ...] = ()):
         self.name = name
         self.source = source  # relative to the package
         self._bind = bind     # sets argtypes/restype on the loaded library
+        # preprocessor names set for this build (the timing probes of
+        # tools/probe_scan_stages.py); part of the library's hash
+        self.flags = NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
         self._lib = None
         self._mu = threading.Lock()
         self.launches = 0
@@ -84,7 +87,7 @@ class Kernel:
         for p in source_closure(self.path):
             h.update(p.name.encode())
             h.update(p.read_bytes())
-        h.update(" ".join(NVCC_FLAGS).encode())
+        h.update(" ".join(self.flags).encode())
         return BUILD_ROOT / h.hexdigest()[:16] / f"lib{self.name}.so"
 
     def build(self) -> Path:
@@ -97,7 +100,7 @@ class Kernel:
         os.close(fd)
         try:
             proc = subprocess.run(
-                [find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(self.path)],
+                [find_nvcc(), *self.flags, "-o", tmp, str(self.path)],
                 capture_output=True, text=True,
             )
             if proc.returncode != 0:
@@ -136,6 +139,10 @@ def _bind_fused_scan(lib) -> None:
         i, p, p, p, p, i, i, i, i, i, i, i, i, i, i, p, p, p,
     ]
     lib.longbow_fused_scan.restype = i
+    lib.longbow_fused_scan_wgmma.argtypes = [
+        i, p, p, p, p, i, i, i, i, i, i, i, p, p, p, p,
+    ]
+    lib.longbow_fused_scan_wgmma.restype = i
 
 
 def _bind_fused_codes_scan(lib) -> None:
@@ -146,6 +153,10 @@ def _bind_fused_codes_scan(lib) -> None:
         i, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, p, p, p,
     ]
     lib.longbow_fused_codes_scan.restype = i
+    lib.longbow_fused_codes_scan_wgmma.argtypes = [
+        i, p, p, p, p, p, i, i, i, i, i, i, i, i, p, p, p, p,
+    ]
+    lib.longbow_fused_codes_scan_wgmma.restype = i
 
 
 FUSED_SCAN = Kernel("fused_scan", "csrc/fused_scan.cu", _bind_fused_scan)

@@ -32,6 +32,110 @@ from longbow_tpu_torch.ops.distance import (
 
 MAX_K = 512
 GROUP = 128  # rows per entry of K2's group term
+WGMMA_QUERIES = 128  # queries per block of the wgmma variants
+WGMMA_TILE = 128     # corpus rows per tile (and per padded row-term block)
+WGMMA_MAX_K = 64
+WGMMA_DIMS = (64, 96, 128)  # the widths the wgmma variants are built for
+
+
+WGMMA_MIN_WORK = 1 << 27     # B * N above which the wgmma variants win on an H100
+
+
+def wgmma_takes(b: int, d: int, k: int, aligned: bool) -> bool:
+    """Whether the wgmma variants can run a shape at all: more than 16
+    queries, K <= 64, D of 64, 96 or 128 and 16-byte aligned rows."""
+    return b > 16 and k <= WGMMA_MAX_K and d in WGMMA_DIMS and aligned
+
+
+def scan_variant(b: int, n: int, d: int, k: int, aligned: bool) -> str:
+    """Which variant of a fused scan serves a call: "wgmma" (the
+    producer/consumer ring of csrc/scan_wgmma.cuh, 128 queries per
+    block) for the batches it takes (wgmma_takes) when B * N is above
+    WGMMA_MIN_WORK, else "mma" (the mma.sync kernel, which takes every
+    shape: single queries, k up to 512, any D, unaligned rows, and wins
+    small scans, where the wgmma blocks' set-up and their one split per
+    SM cost more than the faster loop saves). A pure function of the
+    shape and the alignment."""
+    if wgmma_takes(b, d, k, aligned) and b * n > WGMMA_MIN_WORK:
+        return "wgmma"
+    return "mma"
+
+
+def wgmma_k_order(d: int, elem_bytes: int) -> list[int]:
+    """Column order of the query operand of the wgmma variants: position
+    j of the permuted queries holds dim order[j].
+
+    A lane of the kernel reads its rows 16 bytes at a time, which hold
+    L = 4 (int8) or 2 (bf16) k-steps' worth of its fragment: within a
+    segment of L k-steps starting at dim `base`, position
+    16 s + 8 half + 2 t + e of k-step s (t < 4 the lane, half and e < 2)
+    is dim base + 4 L t + 4 s + 2 half + e. The remainder of D / 16 runs
+    through shorter loads (L = 2, then 1). Queries and rows are permuted
+    alike, so every dot product is unchanged."""
+    if d % 16 or elem_bytes not in (1, 2):
+        raise ValueError("wgmma_k_order: D must be a multiple of 16, elements 1 or 2 bytes")
+    order: list[int] = []
+    base, left, seg = 0, d // 16, 4 // elem_bytes
+    while left:
+        while seg > left:
+            seg //= 2
+        for s_ in range(seg):
+            for pos in range(16):
+                half, t, e = pos // 8, (pos % 8) // 2, pos % 2
+                order.append(base + 4 * seg * t + 4 * s_ + 2 * half + e)
+        base += 16 * seg
+        left -= seg
+    return order
+
+
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def wgmma_plan(b: int, n: int, sms: int, tile_multiple: int = 1) -> tuple[int, int]:
+    """(S, rows_per_split) of a wgmma launch: query blocks x S splits
+    fill the card's `sms` SMs in one wave, one block per SM; a split is a
+    whole number of tiles, and a multiple of `tile_multiple` of them (8
+    with a group term, which the kernel then reads 16 bytes at a time)."""
+    qblocks = _ceil_div(b, WGMMA_QUERIES)
+    ntiles = max(1, _ceil_div(n, WGMMA_TILE))
+    s = max(1, min(sms // qblocks, ntiles))
+    tiles_per_split = _ceil_div(_ceil_div(ntiles, s), tile_multiple) * tile_multiple
+    return _ceil_div(ntiles, tiles_per_split), tiles_per_split * WGMMA_TILE
+
+
+def pad_row_term(vn: torch.Tensor) -> torch.Tensor:
+    """The row term padded with MASKED to a whole number of tiles, so
+    that the kernel copies 128 of them per tile and the rows of a ragged
+    last tile never enter."""
+    n = vn.shape[0]
+    out = torch.full((_ceil_div(n, WGMMA_TILE) * WGMMA_TILE,), MASKED, dtype=torch.float32,
+                     device=vn.device)
+    out[:n] = vn
+    return out
+
+
+def _merge_splits(out_d, out_i, k, clamp_zero):
+    """The S*k per-split candidates -> the k best (the JAX wrapper's
+    top_k over the kernel's candidate registers)."""
+    b = out_d.shape[0]
+    d_all, pos = torch.topk(out_d.view(b, -1), k, dim=1, largest=False)
+    i_all = torch.gather(out_i.view(b, -1), 1, pos)
+    return _finish(d_all, i_all, clamp_zero)
+
+
+_K_ORDER: dict = {}  # (D, element bytes, device) -> wgmma_k_order as a device tensor
+
+
+def _k_order_on(d: int, elem_bytes: int, device: torch.device) -> torch.Tensor:
+    key = (d, elem_bytes, device)
+    if key not in _K_ORDER:
+        _K_ORDER[key] = torch.tensor(wgmma_k_order(d, elem_bytes), device=device)
+    return _K_ORDER[key]
+
+
+def _device_index(t: torch.Tensor) -> int:
+    return t.device.index if t.device.index is not None else torch.cuda.current_device()
 
 
 def _prepare(queries, corpus, corpus_norms_sq, valid, k, metric, extra_mask,
@@ -129,25 +233,14 @@ def _plain_scan(corpus, qc, qn, vn, k, l2, chunk_rows=131072, group_term=None,
     return _finish(best_d, best_i.int(), l2 if clamp_zero is None else clamp_zero)
 
 
-def _fused_flat_search_cuda(corpus, qc, qn, vn, k, l2):
-    if corpus.dtype != torch.bfloat16:
-        raise ValueError(
-            "the CUDA fused scan takes a bfloat16 corpus (f32 storage is "
-            "served by exact_search)"
-        )
-    if corpus.ndim != 2 or not corpus.is_contiguous():
-        raise ValueError("the CUDA fused scan needs a contiguous [N, D] corpus")
+def launch_flat_mma(kernel, corpus, qc, qn, vn, k, l2):
+    """Launch the mma.sync variant of K1 from `kernel`'s library on
+    contiguous CUDA tensors. -> (out_d [B, S, k] f32, out_i [B, S, k]
+    int32). Counts nothing."""
     n, d = corpus.shape
     b = qc.shape[0]
-    if max(n, b) >= 2**30:  # row and split arithmetic is 32-bit in the kernel
-        raise ValueError("the CUDA fused scan takes fewer than 2**30 rows and queries")
-    if vn.shape != (n,):
-        raise ValueError(f"norms/valid must have shape [{n}], got {tuple(vn.shape)}")
-    qc, qn, vn = qc.contiguous(), qn.contiguous(), vn.contiguous()
-    if vn.data_ptr() % 16:  # the kernel copies the norm row 16 bytes at a time
-        vn = vn.clone()
-    lib = FUSED_SCAN.lib()
-    dev = corpus.device.index if corpus.device.index is not None else torch.cuda.current_device()
+    lib = kernel.lib()
+    dev = _device_index(corpus)
     plan = (ctypes.c_int * 5)()
     err = lib.longbow_fused_scan_plan(dev, b, n, d, k, plan)
     if err != 0:
@@ -165,17 +258,72 @@ def _fused_flat_search_cuda(corpus, qc, qn, vn, k, l2):
     )
     if err != 0:
         raise RuntimeError(f"fused_scan launch failed: cudaError {err}")
+    return out_d, out_i
+
+
+def launch_flat_wgmma(kernel, corpus, qc, qn, vn, k, l2):
+    """Launch the wgmma variant of K1: the queries' columns go into
+    wgmma_k_order, the row term is padded to whole tiles, the split plan
+    is wgmma_plan. Same returns as launch_flat_mma."""
+    n, d = corpus.shape
+    b = qc.shape[0]
+    qp = qc.index_select(1, _k_order_on(d, 2, qc.device))
+    vn = pad_row_term(vn)
+    sms = torch.cuda.get_device_properties(corpus.device).multi_processor_count
+    s, rows_per_split = wgmma_plan(b, n, sms)
+    out_d = torch.empty((b, s, k), dtype=torch.float32, device=corpus.device)
+    out_i = torch.empty((b, s, k), dtype=torch.int32, device=corpus.device)
+    # where the splits of a query tell each other how good their rows are
+    split_best = torch.full((b, s), MASKED_GUARD, dtype=torch.float32, device=corpus.device)
+    stream = torch.cuda.current_stream(corpus.device).cuda_stream
+    err = kernel.lib().longbow_fused_scan_wgmma(
+        _device_index(corpus), qp.data_ptr(), qn.data_ptr(), corpus.data_ptr(),
+        vn.data_ptr(), b, n, d, k, int(l2), s, rows_per_split,
+        split_best.data_ptr(), out_d.data_ptr(), out_i.data_ptr(), stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"fused_scan (wgmma) launch failed: code {err} for D={d}, k={k}")
+    return out_d, out_i
+
+
+def _pick_variant(variant, b, n, d, k, aligned):
+    chosen = scan_variant(b, n, d, k, aligned)
+    if variant is None:
+        return chosen
+    if variant not in ("mma", "wgmma"):
+        raise ValueError(f"variant must be 'mma', 'wgmma' or None, got {variant!r}")
+    if variant == "wgmma" and not wgmma_takes(b, d, k, aligned):
+        raise ValueError(f"the wgmma variant does not take B={b}, D={d}, k={k}, aligned={aligned}")
+    return variant
+
+
+def _fused_flat_search_cuda(corpus, qc, qn, vn, k, l2, variant=None):
+    if corpus.dtype != torch.bfloat16:
+        raise ValueError(
+            "the CUDA fused scan takes a bfloat16 corpus (f32 storage is "
+            "served by exact_search)"
+        )
+    if corpus.ndim != 2 or not corpus.is_contiguous():
+        raise ValueError("the CUDA fused scan needs a contiguous [N, D] corpus")
+    n, d = corpus.shape
+    b = qc.shape[0]
+    if max(n, b) >= 2**30:  # row and split arithmetic is 32-bit in the kernel
+        raise ValueError("the CUDA fused scan takes fewer than 2**30 rows and queries")
+    if vn.shape != (n,):
+        raise ValueError(f"norms/valid must have shape [{n}], got {tuple(vn.shape)}")
+    qc, qn, vn = qc.contiguous(), qn.contiguous(), vn.contiguous()
+    if vn.data_ptr() % 16:  # the kernel copies the norm row 16 bytes at a time
+        vn = vn.clone()
+    variant = _pick_variant(variant, b, n, d, k, corpus.data_ptr() % 16 == 0)
+    launch = launch_flat_wgmma if variant == "wgmma" else launch_flat_mma
+    out_d, out_i = launch(FUSED_SCAN, corpus, qc, qn, vn, k, l2)
     FUSED_SCAN.count_launch()
-    # the S*K per-split candidates -> the k best (the JAX wrapper's
-    # top_k over the kernel's candidate registers)
-    d_all, pos = torch.topk(out_d.view(b, s * k), k, dim=1, largest=False)
-    i_all = torch.gather(out_i.view(b, s * k), 1, pos)
-    return _finish(d_all, i_all, l2)
+    return _merge_splits(out_d, out_i, k, l2)
 
 
 def fused_flat_search(
     queries, corpus, corpus_norms_sq, valid, k, metric=Metric.L2, *,
-    extra_mask=None, normalize=False, device=None,
+    extra_mask=None, normalize=False, device=None, variant=None,
 ):
     """Flat k-NN through the fused scan.
 
@@ -185,15 +333,17 @@ def fused_flat_search(
     extra_mask [N] bool (a filter folded into valid).
     Returns (dist [B, k] f32, idx [B, k] int32), ascending; unfilled or
     masked slots are exactly (MASKED, -1); l2 distances are >= 0.
-    k <= 512. CUDA tensors run the kernel (bf16 corpus only); CPU
-    tensors run fused_flat_search_plain.
+    k <= 512. CUDA tensors run the kernel (bf16 corpus only), in the
+    variant scan_variant names for the shape; variant="mma" or "wgmma"
+    asks for one (wgmma raises on a shape it does not take). CPU tensors
+    run fused_flat_search_plain.
     """
     corpus_t, qc, qn, vn, l2 = _prepare(
         queries, corpus, corpus_norms_sq, valid, k, metric, extra_mask,
         normalize, device,
     )
     if corpus_t.device.type == "cuda":
-        return _fused_flat_search_cuda(corpus_t, qc, qn, vn, k, l2)
+        return _fused_flat_search_cuda(corpus_t, qc, qn, vn, k, l2, variant)
     if corpus_t.device.type != "cpu":
         raise ValueError(f"fused_flat_search: unsupported device {corpus_t.device}")
     return _plain_scan(corpus_t, qc, qn, vn, k, l2)
@@ -249,21 +399,16 @@ def fused_codes_search_plain(
     return _plain_scan(codes, qs, qn, vn, k, True, chunk_rows, gt, clamp_zero)
 
 
-def _fused_codes_search_cuda(codes, qs, qn, vn, gt, k, clamp_zero):
-    if not codes.is_contiguous():
-        raise ValueError("the CUDA codes scan needs contiguous [N, D] codes")
+def launch_codes_mma(kernel, codes, qs, qn, vn, gt, k):
+    """Launch the mma.sync variant of K2 from `kernel`'s library on
+    contiguous CUDA tensors. -> (out_d [B, S, k] f32, out_i [B, S, k]
+    int32). Counts nothing."""
     n, d = codes.shape
     b = qs.shape[0]
-    if max(n, b) >= 2**30:  # row and split arithmetic is 32-bit in the kernel
-        raise ValueError("the CUDA codes scan takes fewer than 2**30 rows and queries")
-    qs, qn, vn = qs.contiguous(), qn.contiguous(), vn.contiguous()
-    if vn.data_ptr() % 16:  # the kernel copies the row term 16 bytes at a time
-        vn = vn.clone()
     gt_kind, gt_ptr = 0, None
     if gt is not None:
-        gt = gt.contiguous()
         gt_kind, gt_ptr = (1 if gt.dtype == torch.float32 else 2), gt.data_ptr()
-    lib = FUSED_CODES_SCAN.lib()
+    lib = kernel.lib()
     dev = codes.device.index if codes.device.index is not None else torch.cuda.current_device()
     plan = (ctypes.c_int * 5)()
     err = lib.longbow_fused_codes_scan_plan(dev, b, n, d, k, plan)
@@ -282,15 +427,59 @@ def _fused_codes_search_cuda(codes, qs, qn, vn, gt, k, clamp_zero):
     )
     if err != 0:
         raise RuntimeError(f"fused_codes_scan launch failed: cudaError {err}")
+    return out_d, out_i
+
+
+def launch_codes_wgmma(kernel, codes, qs, qn, vn, gt, k):
+    """Launch the wgmma variant of K2: the query side's columns go into
+    wgmma_k_order, the row term is padded to whole tiles, the split plan
+    is wgmma_plan. Same returns as launch_codes_mma."""
+    n, d = codes.shape
+    b = qs.shape[0]
+    qp = qs.index_select(1, _k_order_on(d, 1, qs.device))
+    vn = pad_row_term(vn)
+    gt_kind, gt_ptr = 0, None
+    if gt is not None:
+        gt_kind, gt_ptr = (1 if gt.dtype == torch.float32 else 2), gt.data_ptr()
+    sms = torch.cuda.get_device_properties(codes.device).multi_processor_count
+    s, rows_per_split = wgmma_plan(b, n, sms, 8 if gt is not None else 1)
+    out_d = torch.empty((b, s, k), dtype=torch.float32, device=codes.device)
+    out_i = torch.empty((b, s, k), dtype=torch.int32, device=codes.device)
+    # where the splits of a query tell each other how good their rows are
+    split_best = torch.full((b, s), MASKED_GUARD, dtype=torch.float32, device=codes.device)
+    stream = torch.cuda.current_stream(codes.device).cuda_stream
+    err = kernel.lib().longbow_fused_codes_scan_wgmma(
+        _device_index(codes), qp.data_ptr(), qn.data_ptr(), codes.data_ptr(),
+        vn.data_ptr(), gt_ptr, gt_kind, n // GROUP, b, n, d, k, s, rows_per_split,
+        split_best.data_ptr(), out_d.data_ptr(), out_i.data_ptr(), stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"fused_codes_scan (wgmma) launch failed: code {err} for D={d}, k={k}")
+    return out_d, out_i
+
+
+def _fused_codes_search_cuda(codes, qs, qn, vn, gt, k, clamp_zero, variant=None):
+    if not codes.is_contiguous():
+        raise ValueError("the CUDA codes scan needs contiguous [N, D] codes")
+    n, d = codes.shape
+    b = qs.shape[0]
+    if max(n, b) >= 2**30:  # row and split arithmetic is 32-bit in the kernel
+        raise ValueError("the CUDA codes scan takes fewer than 2**30 rows and queries")
+    qs, qn, vn = qs.contiguous(), qn.contiguous(), vn.contiguous()
+    if vn.data_ptr() % 16:  # the kernel copies the row term 16 bytes at a time
+        vn = vn.clone()
+    if gt is not None:
+        gt = gt.contiguous()
+    variant = _pick_variant(variant, b, n, d, k, codes.data_ptr() % 16 == 0)
+    launch = launch_codes_wgmma if variant == "wgmma" else launch_codes_mma
+    out_d, out_i = launch(FUSED_CODES_SCAN, codes, qs, qn, vn, gt, k)
     FUSED_CODES_SCAN.count_launch()
-    d_all, pos = torch.topk(out_d.view(b, s * k), k, dim=1, largest=False)
-    i_all = torch.gather(out_i.view(b, s * k), 1, pos)
-    return _finish(d_all, i_all, clamp_zero)
+    return _merge_splits(out_d, out_i, k, clamp_zero)
 
 
 def fused_codes_search(
     qs, qn_eff, codes, vn_row, valid, k, *, group_term=None, extra_mask=None,
-    neg_slack=0.0, clamp_zero=True, device=None,
+    neg_slack=0.0, clamp_zero=True, device=None, variant=None,
 ):
     """k-NN over int8 quantized codes through the fused codes scan.
 
@@ -306,14 +495,15 @@ def fused_codes_search(
     (MASKED, -1); clamp_zero=True clamps the scores at 0 (the l2 folds).
     k <= 512. neg_slack is accepted for the JAX signature and has no
     effect: scores are compared as floats, with no positivity bias.
-    CUDA tensors run the kernel; CPU tensors run
-    fused_codes_search_plain.
+    CUDA tensors run the kernel, in the variant scan_variant names for
+    the shape; variant="mma" or "wgmma" asks for one (wgmma raises on a
+    shape it does not take). CPU tensors run fused_codes_search_plain.
     """
     codes_t, qs_t, qn, vn, gt = _prepare_codes(
         qs, qn_eff, codes, vn_row, valid, k, group_term, extra_mask, device,
     )
     if codes_t.device.type == "cuda":
-        return _fused_codes_search_cuda(codes_t, qs_t, qn, vn, gt, k, clamp_zero)
+        return _fused_codes_search_cuda(codes_t, qs_t, qn, vn, gt, k, clamp_zero, variant)
     if codes_t.device.type != "cpu":
         raise ValueError(f"fused_codes_search: unsupported device {codes_t.device}")
     return _plain_scan(codes_t, qs_t, qn, vn, k, True, group_term=gt, clamp_zero=clamp_zero)

@@ -211,7 +211,7 @@ def test_library_hash_covers_included_headers(tmp_path, monkeypatch):
     from longbow_tpu_torch.ops import _kernels
 
     assert [p.name for p in _kernels.source_closure(_kernels.FUSED_CODES_SCAN.path)] == [
-        "fused_codes_scan.cu", "scan_common.cuh",
+        "fused_codes_scan.cu", "scan_common.cuh", "scan_wgmma.cuh",
     ]
     (tmp_path / "csrc").mkdir()
     (tmp_path / "csrc" / "k.cu").write_text('#include "inner.cuh"\nint main() {}\n')
@@ -231,8 +231,11 @@ def test_cuda_kernel_matches_plain_on_card(gt_kind):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     g = torch.Generator(device="cuda").manual_seed(0)
+    from longbow_tpu_torch.ops.scan import wgmma_takes
+
+    ran = set()
     for n, d, b, k in ((5120, 96, 3, 10), (4096, 128, 70, 64), (3072, 64, 2, 512),
-                       (4096, 100, 17, 64)):
+                       (4096, 100, 17, 64), (40960, 96, 300, 64), (4096, 64, 17, 10)):
         codes = torch.randint(-128, 128, (n, d), generator=g, device="cuda",
                               dtype=torch.int8)
         vn = (codes.float() ** 2).sum(dim=1) * 1e-3
@@ -241,8 +244,13 @@ def test_cuda_kernel_matches_plain_on_card(gt_kind):
         qn = (qs * qs).sum(dim=1)
         gt = None if gt_kind is None else torch.randn(
             (b, n // 128), generator=g, device="cuda").to(gt_kind)
-        kd, ki = fused_codes_search(qs, qn, codes, vn, valid, k, group_term=gt)
         pd, pi = fused_codes_search_plain(qs, qn, codes, vn, valid, k, group_term=gt)
-        torch.cuda.synchronize()
-        torch.testing.assert_close(kd, pd, rtol=RTOL, atol=ATOL)
-        assert valid[ki[ki >= 0].long()].all()
+        can = wgmma_takes(b, d, k, codes.data_ptr() % 16 == 0)
+        for variant in (("mma", "wgmma") if can else ("mma",)):   # both variants where the shape has two
+            kd, ki = fused_codes_search(qs, qn, codes, vn, valid, k, group_term=gt,
+                                        variant=variant)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(kd, pd, rtol=RTOL, atol=ATOL)
+            assert valid[ki[ki >= 0].long()].all()
+            ran.add(variant)
+    assert ran == {"mma", "wgmma"}

@@ -165,16 +165,24 @@ def test_cuda_kernel_matches_plain_on_card(metric):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     g = torch.Generator(device="cuda").manual_seed(0)
-    for n, d, b, k in ((5000, 128, 3, 10), (4099, 100, 70, 64), (3000, 64, 2, 512)):
+    from longbow_tpu_torch.ops.scan import wgmma_takes
+
+    ran = set()
+    for n, d, b, k in ((5000, 128, 3, 10), (4099, 100, 70, 64), (3000, 64, 2, 512),
+                       (5043, 128, 70, 64), (40000, 96, 300, 10), (4096, 64, 17, 64)):
         c = torch.randn((n, d), generator=g, device="cuda").to(torch.bfloat16)
         norms = (c.float() ** 2).sum(dim=1)
         valid = torch.rand((n,), generator=g, device="cuda") > 0.1
         q = torch.randn((b, d), generator=g, device="cuda")
-        kd, ki = fused_flat_search(q, c, norms, valid, k, metric)
         pd, pi = fused_flat_search_plain(q, c, norms, valid, k, metric)
-        torch.cuda.synchronize()
-        torch.testing.assert_close(kd, pd, rtol=1e-3, atol=1e-2)
-        assert (ki >= 0).all()
-        assert valid[ki.long()].all()
+        can = wgmma_takes(b, d, k, c.data_ptr() % 16 == 0)
+        for variant in (("mma", "wgmma") if can else ("mma",)):   # both variants where the shape has two
+            kd, ki = fused_flat_search(q, c, norms, valid, k, metric, variant=variant)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(kd, pd, rtol=1e-3, atol=1e-2)
+            assert (ki >= 0).all()
+            assert valid[ki.long()].all()
+            ran.add(variant)
+    assert ran == {"mma", "wgmma"}
     with pytest.raises(ValueError):  # the kernel takes bf16 rows only
         fused_flat_search(q, c.float(), norms, valid, 10, metric)
