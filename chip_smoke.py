@@ -46,7 +46,31 @@ Phases, each of which passes or ends the run with a non-zero exit:
                dequantized rows); 100,000-row sq8r cosine, sq8 dot, sq8r dot and
                int8-vector datasets (gate 0.99 each); launch counts are set to 0
                just before this phase and read just after it, then the sq8r
-               search at 10M is timed stage by stage.
+               search at 10M is timed stage by stage;
+  7. graph tier - the default index kind: 7.1 a VectorStore with no kind named,
+               1,000,000 x 128 bf16 clustered rows put in 65,536-row batches with
+               a `category` column; the dataset migrates from the flat scan to the
+               graph in the background from 200,000 rows on (hardness probe, bulk
+               build, catch-up by insert_batch); the run fails unless the kind is
+               "hnsw" after wait_migration and the migration thread ended without an
+               error; recall@10 at ef_search 150 against the f32 exact_search
+               oracle (gate 0.95), a filter wide enough to stay on the graph and
+               one narrow enough to take the exact route (0 violations), deletes
+               (0 deleted ids returned), exact=True after migration; 7.2 the bulk
+               build alone, HNSWIndex(m 32, m_max 48) on the 1,000,000 x 128 device
+               tensor in one add (bulk_build_rp), stage times, recall@10 at ef 150
+               over 128 queries (gate 0.95), the fast profile; 7.3 a 100,000-row
+               dataset of kind "hnsw" (bulk_build_edges): kernel K1's launch count
+               rises by the self-kNN's launches and by nothing else, recall@10
+               gate 0.95; 7.4 100,000-row cosine, dot and storage="sq8" graphs
+               against exact search over the stored rows (gate 0.90); for each of
+               these four builds K1 is held against its plain version on the very
+               arguments the build's first self-kNN launch gave the wrapper (a
+               block of 4,096 corpus rows as queries, k + 1 = 33, N = the
+               capacity with its valid mask; the dot build at its augmented
+               width) and timed there beside its bound; and a uniform
+               Gaussian dataset that must stay flat (contrast below 2.0); launch
+               counts are set to 0 just before this phase and read just after it.
 The last line of standard output is {"ok": true, "device": {...}}.
 
 Imports torch, numpy and longbow_tpu_torch only.
@@ -72,6 +96,9 @@ N_DEEP, D_DEEP = 10_000_000, 96     # Deep-10M's shape
 TRAIN_ROWS = 131_072                # SQ8ResidualIndex.TRAIN_SAMPLE
 FINAL_ROWS = 20_000                 # left in the sq8r delta region
 QUANT_RECALL_GATE = 0.99            # against exact search over dequantized rows
+GRAPH_RECALL_GATE = 0.95            # graph search against the f32 oracle, ef 150
+SMALL_GRAPH_GATE = 0.90             # 100,000-row graphs against exact search on stored rows
+BULK_QUERIES = 128
 TIMED_LAUNCHES = 20
 PLAIN_LAUNCHES = 5                  # the plain versions are slow and gate nothing
 DEVICE = "cuda"
@@ -740,6 +767,282 @@ def sq8r_stages(inner, queries, reps: int = 5) -> dict:
     return out
 
 
+# -- 7. graph tier (this slice's path) ----------------------------------------
+
+def recorded_self_knn(build) -> tuple:
+    """Run `build` and keep the arguments of the first call its
+    self-kNN makes to K1's wrapper (the call itself goes through)."""
+    from longbow_tpu_torch.index import graph_build
+
+    calls = []
+    real = graph_build.fused_flat_search
+
+    def record(*args, **kw):
+        if not calls:
+            calls.append((args, kw))
+        return real(*args, **kw)
+
+    graph_build.fused_flat_search = record
+    try:
+        build()
+    finally:
+        graph_build.fused_flat_search = real
+    if not calls:
+        fail("the build did not call K1's wrapper")
+    return calls[0]
+
+
+def check_build_scan(label: str, call: tuple, bw: float, flops: float, reps: int) -> dict:
+    """K1 against its plain version on the very arguments a graph build
+    gave the wrapper: a block of corpus rows as queries, k + 1
+    neighbours, the whole capacity with its valid mask."""
+    from longbow_tpu_torch.ops.scan import (
+        fused_flat_search, fused_flat_search_plain, scan_variant,
+    )
+
+    from longbow_tpu_torch.ops._kernels import FUSED_SCAN
+
+    held = FUSED_SCAN.launches  # launches made to compare and to time do not count
+    args, kw = call
+    q, corpus, _, _, k = args
+    (b, d), n = q.shape, corpus.shape[0]
+    name = f"self_knn_{label} l2 B={b} k={k} N={n} D={d}"
+    variant = scan_variant(b, n, d, k, corpus.data_ptr() % 16 == 0)
+    dk, ik = fused_flat_search(*args, **kw)
+    dp, ip_ = fused_flat_search_plain(*args, **kw)
+    torch.cuda.synchronize()
+    err = compare(name, dk, ik, dp, ip_)
+    # the first block's queries are rows 0 .. B-1: the build masks each
+    # row's own slot, so every row must find itself
+    own = torch.arange(b, device=ik.device)[:, None]
+    if not torch.all((ik == own).any(dim=1)):
+        fail(f"{name}: a row did not find itself among its {k} nearest")
+    ms = time_ms(lambda: fused_flat_search(*args, **kw), reps)
+    plain_ms = time_ms(lambda: fused_flat_search_plain(*args, **kw), PLAIN_LAUNCHES)
+    moved = n * d * 2 + n * 4 + n + b * d * q.element_size() + b * k * 8
+    ops = 2 * b * n * d
+    row = dict(case=name, variant=variant, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+               bound_ms=1e3 * max(moved / bw, ops / flops),
+               bound_by="bytes" if moved / bw >= ops / flops else "operations",
+               b=b, k=k, n=n, d=d, tag=f"self_knn_{label}")
+    FUSED_SCAN.launches = held
+    emit({"kernel_case": row})
+    return row
+
+
+def phase_graph(bw: float, flops: float, reps: int) -> dict:
+    import os
+
+    from longbow_tpu_torch.index import graph_build
+    from longbow_tpu_torch.index.graph_build import PAD_ROWS, SELF_KNN_QUERIES
+    from longbow_tpu_torch.index.hnsw import HNSWConfig, HNSWIndex
+    from longbow_tpu_torch.ops import _kernels
+    from longbow_tpu_torch.ops.distance import Metric, exact_search
+    from longbow_tpu_torch.query.parser import Filter
+    from longbow_tpu_torch.store.vector_store import VectorStore
+
+    out: dict = {}
+    _kernels.reset_launch_counts()
+    allv = make_corpus(N_STORE + N_QUERIES, D_STORE, seed=0)
+    corpus, queries = allv[:N_STORE], allv[N_STORE:]
+    ids = np.arange(N_STORE, dtype=np.int64)
+    category = ids % 1000
+    _, truth = exact_search(queries, corpus, 10, Metric.L2, device=DEVICE)
+    truth = truth.cpu().numpy()
+
+    # 7.1 the default store: flat -> background migration -> graph
+    store = VectorStore(device=DEVICE)  # no kind named: "adaptive", bf16 rows
+    t0 = time.perf_counter()
+    for s in range(0, N_STORE, PUT_BATCH):
+        e = min(s + PUT_BATCH, N_STORE)
+        store.put("graph", ids[s:e], corpus[s:e], {"category": category[s:e]})
+    puts_s = time.perf_counter() - t0
+    ds = store.get("graph")
+    idx = ds.index
+    migrated = idx.wait_migration()
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t0
+    if idx.migration_error is not None:
+        fail(f"the migration thread failed: {idx.migration_error!r}")
+    if not migrated or idx.kind != "hnsw":
+        fail(f"after wait_migration the default dataset is of kind {idx.kind!r}, not 'hnsw'")
+    ms = idx.migration_stats
+    g = idx._graph
+    d1 = {"puts_s": puts_s, "ingest_s": ingest_s, "ingest_rows_per_s": N_STORE / ingest_s,
+          "relative_contrast": idx.last_contrast, "probe_s": ms["probe_s"],
+          "bulk_build_s": ms["bulk_s"], "bulk_build_rows": ms["bulk_rows"],
+          "catchup_rows": ms.get("catchup_rows", 0),
+          "catchup_rows_per_s": ms.get("catchup_rows", 0) / ms["catchup_s"]
+          if ms.get("catchup_s") else None,
+          "rows": len(idx), "capacity": idx.capacity, "graph_state_bytes": g.device_bytes()}
+    print(f"relative contrast {idx.last_contrast}", flush=True)
+    if len(idx) != N_STORE:
+        fail(f"the graph holds {len(idx)} rows, not {N_STORE}")
+    for ef in (100, 150):
+        served, _, _ = store.search("graph", queries, 10, ef_search=ef, use_cache=False)
+        d1[f"iters_ef{ef}"] = g.last_search_iters
+        d1[f"recall_at_10_ef{ef}"] = recall_at(served, truth)
+        sec = timed(lambda: store.search("graph", queries, 10, ef_search=ef, use_cache=False), 3)
+        d1[f"batch_1000_ef{ef}_ms"] = 1e3 * sec
+        d1[f"qps_batch_1000_ef{ef}"] = N_QUERIES / sec
+    if d1["recall_at_10_ef150"] < GRAPH_RECALL_GATE:
+        fail(f"default store 1M x 128: recall@10 at ef 150 {d1['recall_at_10_ef150']} "
+             f"< {GRAPH_RECALL_GATE}")
+    lat = []
+    for j in range(16):
+        t = time.perf_counter()
+        store.search("graph", queries[j:j + 1], 10)
+        lat.append(time.perf_counter() - t)
+    d1["p50_single_query_ms"] = 1e3 * statistics.median(lat)
+    d1["iters_single_query"] = g.last_search_iters
+
+    routes = []  # the `exact` each search reached the index with
+    inner_search = idx.search
+
+    def spy(q, k, **kw):
+        routes.append(kw["exact"])
+        return inner_search(q, k, **kw)
+
+    idx.search = spy
+    fids, _, fok = store.search("graph", queries[:100], 10, ef_search=150,
+                                filters=[Filter("category", "<", "500")])
+    wide = fids[fok].tolist()
+    if not wide or any(x % 1000 >= 500 for x in wide):
+        fail("a wide filter returned a row outside category < 500")
+    fids, _, fok = store.search("graph", queries[:100], 10,
+                                filters=[Filter("category", "eq", "3")])
+    narrow = fids[fok].tolist()
+    if not narrow or any(x % 1000 != 3 for x in narrow):
+        fail("a narrow filter returned a row outside category == 3")
+    del idx.search
+    if routes != [False, True]:
+        fail(f"filter routes {routes}: the wide filter must stay on the graph, the narrow "
+             "one take the exact path")
+    d1.update(wide_filter_hits=len(wide), narrow_filter_hits=len(narrow), filter_violations=0)
+
+    rng = np.random.default_rng(1)
+    dead = rng.choice(N_STORE, 1000, replace=False)
+    if store.delete("graph", dead) != 1000:
+        fail("delete did not remove 1000 ids")
+    did, _, dok = store.search("graph", corpus[dead], 10, ef_search=150)
+    if set(did[dok].tolist()) & set(dead.tolist()):
+        fail("deleted ids came back from the graph")
+    d1["deleted_returned"] = 0
+    eids, _, eok = store.search("graph", queries, 10, exact=True)
+    if set(eids[eok].tolist()) & set(dead.tolist()):
+        fail("deleted ids came back from the exact path")
+    d1["recall_at_10_exact_after_migration"] = r = recall_at(eids, truth)
+    if r < GRAPH_RECALL_GATE:
+        fail(f"exact=True after migration: recall@10 {r} < {GRAPH_RECALL_GATE}")
+    out["default_store_1m_x_128"] = d1
+    emit({"graph_default_store": d1})
+    store.drop("graph")
+    del store, ds, idx, g
+    torch.cuda.empty_cache()
+
+    # 7.2 the bulk build alone, on the device tensor
+    os.environ["LONGBOW_BUILD_DEBUG"] = "1"
+    graph_build.stage_log.clear()
+    rows_dev = torch.from_numpy(corpus).to(DEVICE).to(torch.bfloat16)
+    bulk = HNSWIndex(D_STORE, Metric.L2, HNSWConfig(m=32, m_max=48, ef_search=100),
+                     dtype=torch.bfloat16, edge_dtype=torch.bfloat16, capacity=N_STORE,
+                     device=DEVICE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bulk.add(rows_dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    os.environ.pop("LONGBOW_BUILD_DEBUG")
+    d2 = {"build_s": build_s, "rows_per_s": N_STORE / build_s,
+          "stages_s": {lab: s for tag, _, lab, s in graph_build.stage_log if tag == "rp-build"},
+          "graph_state_bytes": bulk.device_bytes()}
+    if not d2["stages_s"]:
+        fail("the 1M-row add did not go through bulk_build_rp")
+    q128, t128 = queries[:BULK_QUERIES], truth[:BULK_QUERIES]
+    for label, (mu, ex) in (("default", (0, 4)), ("fast", (32, 8))):
+        bulk.config.search_m_max, bulk.config.search_expand = mu, ex
+        _, rows = bulk.search(q128, 10, ef_search=150)
+        rec = float(np.mean([len(set(a.tolist()) & set(b.tolist())) / 10
+                             for a, b in zip(rows, t128)]))
+        sec = timed(lambda: bulk.search(queries, 10, ef_search=150), 3)
+        d2[label] = {"recall_at_10_ef150_128q": rec, "qps_batch_1000_ef150": N_QUERIES / sec,
+                     "iters": bulk.last_search_iters}
+    if d2["default"]["recall_at_10_ef150_128q"] < GRAPH_RECALL_GATE:
+        fail(f"bulk build 1M x 128: recall@10 {d2['default']['recall_at_10_ef150_128q']} "
+             f"< {GRAPH_RECALL_GATE}")
+    out["bulk_build_1m_x_128"] = d2
+    emit({"graph_bulk_build": d2})
+    del bulk, rows_dev
+    torch.cuda.empty_cache()
+
+    # 7.3 K1 inside the build: a 100,000-row dataset of kind "hnsw"
+    store = VectorStore(device=DEVICE)
+    sub, sub_ids = corpus[:N_SMALL], ids[:N_SMALL]
+    store.get_or_create("g100k", D_STORE, index_kind="hnsw")
+    before = _kernels.FUSED_SCAN.launches
+    call = recorded_self_knn(lambda: store.put("g100k", sub_ids, sub))
+    torch.cuda.synchronize()
+    built = _kernels.FUSED_SCAN.launches - before
+    # one launch per SELF_KNN_QUERIES rows of the padded row count
+    want_launches = -(-(-(-N_SMALL // PAD_ROWS) * PAD_ROWS) // SELF_KNN_QUERIES)
+    if store.get("g100k").index.kind != "hnsw":
+        fail("the 100,000-row dataset of kind hnsw did not build its graph")
+    if built != want_launches:
+        fail(f"the 100,000-row build launched K1 {built} times, the self-kNN alone "
+             f"needs {want_launches}")
+    got, _, _ = store.search("g100k", queries, 10, ef_search=100)
+    if _kernels.FUSED_SCAN.launches - before != built:
+        fail("a graph search launched K1")
+    _, t100 = exact_search(queries, sub, 10, Metric.L2, device=DEVICE)
+    d3 = {"k1_launches_in_build": built, "recall_at_10_ef100": recall_at(got, t100.cpu().numpy())}
+    scans = [check_build_scan("l2", call, bw, flops, reps)]
+    del call
+    if d3["recall_at_10_ef100"] < GRAPH_RECALL_GATE:
+        fail(f"100k hnsw dataset: recall@10 {d3['recall_at_10_ef100']} < {GRAPH_RECALL_GATE}")
+    out["k1_in_build_100k"] = d3
+
+    # 7.4 small graphs: cosine, dot, sq8 storage; uniform rows stay flat
+    d4: dict = {}
+    for name, metric, params in (("cosine", Metric.COSINE, None), ("dot", Metric.DOT, None),
+                                 ("sq8", Metric.L2, {"storage": "sq8"})):
+        sds = store.get_or_create(f"g_{name}", D_STORE, metric, index_kind="hnsw",
+                                  index_params=params)
+        call = recorded_self_knn(lambda: store.put(f"g_{name}", sub_ids, sub))
+        if sds.index.kind != "hnsw":
+            fail(f"{name}: the dataset of kind hnsw did not build its graph")
+        scans.append(check_build_scan(name, call, bw, flops, reps))
+        del call
+        got, _, _ = store.search(f"g_{name}", queries, 10, ef_search=100)
+        want, _, _ = store.search(f"g_{name}", queries, 10, exact=True)
+        d4[f"recall_at_10_{name}_vs_exact"] = r = recall_at(got, want)
+        if r < SMALL_GRAPH_GATE:
+            fail(f"{name} graph: recall@10 {r} against exact search < {SMALL_GRAPH_GATE}")
+    uniform = np.random.default_rng(2).standard_normal((N_SMALL, D_STORE)).astype(np.float32)
+    ustore = VectorStore(device=DEVICE, migration_threshold=50_000)
+    for s in range(0, N_SMALL, PUT_BATCH):
+        ustore.put("uniform", sub_ids[s:s + PUT_BATCH], uniform[s:s + PUT_BATCH])
+    uidx = ustore.get("uniform").index
+    if uidx.wait_migration() or uidx.kind != "flat" or uidx.migration_error is not None:
+        fail("uniform Gaussian rows left the flat tier")
+    if uidx.last_contrast is None or not uidx.last_contrast < 2.0:
+        fail(f"uniform Gaussian rows: relative contrast {uidx.last_contrast}, expected < 2.0")
+    got, _, _ = ustore.search("uniform", uniform[:100], 1)
+    if got[:, 0].tolist() != list(range(100)):
+        fail("the flat tier of the uniform dataset does not return its own rows")
+    d4["uniform_relative_contrast"] = uidx.last_contrast
+    out["small_graphs_100k"] = d4
+    out["self_knn_cases"] = scans
+
+    torch.cuda.synchronize()
+    out["launches"] = {k.name: k.launches for k in _kernels.KERNELS}
+    if _kernels.FUSED_SCAN.launches == 0:
+        fail("kernel fused_scan was not launched on the graph tier's path")
+    emit({"graph_tier": {k: v for k, v in out.items()
+                         if k not in ("default_store_1m_x_128", "bulk_build_1m_x_128",
+                                      "self_knn_cases")}})
+    return out
+
+
 def main() -> int:
     card, bw, flops = phase_device()
     import longbow_tpu_torch  # noqa: F401  (fails outside the repo)
@@ -752,6 +1055,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     quant, deep_index, deep_queries = phase_quantized_store()
     sq8r_stages(deep_index, deep_queries)
+    del deep_index
+    torch.cuda.empty_cache()
+    graph = phase_graph(bw, flops, TIMED_LAUNCHES)
+    knn = graph["self_knn_cases"][0]  # the l2 build's first launch
 
     served = next(c for c in kern["cases"] if c["tag"] == "served_batch")
     served2 = next(c for c in codes["cases"] if c["tag"] == "served_batch")
@@ -761,7 +1068,14 @@ def main() -> int:
         "source": "longbow_tpu_torch/csrc/fused_scan.cu",
         "replaces": "longbow_tpu/ops/pallas_scan.py:256",
         "launches": store["launches"]["fused_scan"],
-        "max_abs_err": max(c["max_abs_err"] for c in kern["cases"]),
+        "launches_graph_tier": graph["launches"]["fused_scan"],
+        "max_abs_err": max(c["max_abs_err"] for c in kern["cases"] + graph["self_knn_cases"]),
+        "graph_tier_shape": knn["case"],
+        "graph_tier_variant": knn["variant"],
+        "graph_tier_ms": knn["ms"],
+        "graph_tier_plain_ms": knn["plain_ms"],
+        "graph_tier_bound_ms": knn["bound_ms"],
+        "graph_tier_bound_by": knn["bound_by"],
         "ms": served["ms"],
         "variant": served["variant"],
         "prev_ms": served["prev_ms"],
@@ -777,6 +1091,7 @@ def main() -> int:
         "source": "longbow_tpu_torch/csrc/fused_codes_scan.cu",
         "replaces": "longbow_tpu/ops/pallas_scan.py:444",
         "launches": quant["launches"]["fused_codes_scan"],
+        "launches_graph_tier": graph["launches"]["fused_codes_scan"],
         "max_abs_err": max(c["max_abs_err"] for c in codes["cases"]),
         "ms": served2["ms"],
         "variant": served2["variant"],

@@ -1,15 +1,20 @@
 """Index construction behind one uniform surface.
 
-Counterpart of longbow_tpu/index/factory.py. The "flat", "sq8" and
-"sq8r" kinds are ported; every other kind the reference knows raises
-NotImplementedError naming it, so a caller learns what is missing
-instead of getting a different index.
+Counterpart of longbow_tpu/index/factory.py. The "adaptive", "flat",
+"hnsw", "sq8" and "sq8r" kinds are ported ("adaptive" and "hnsw" with
+storage "dense" or "sq8"); every other kind the reference knows, and
+storage="pq", raises NotImplementedError naming it, so a caller learns
+what is missing instead of getting a different index.
 """
 from __future__ import annotations
 
+import os
+
 import numpy as np
 
+from longbow_tpu_torch.index.adaptive import DEFAULT_MIGRATION_THRESHOLD, AdaptiveIndex
 from longbow_tpu_torch.index.flat import MIN_CAPACITY, FlatIndex
+from longbow_tpu_torch.index.hardness import DEFAULT_MIN_CONTRAST
 from longbow_tpu_torch.index.sq8 import SQ8Index, SQ8ResidualIndex
 
 INDEX_KINDS = (
@@ -19,7 +24,7 @@ INDEX_KINDS = (
 )
 
 
-PORTED_KINDS = ("flat", "sq8", "sq8r")
+PORTED_KINDS = ("adaptive", "flat", "hnsw", "sq8", "sq8r")
 
 
 def _not_ported(kind: str) -> NotImplementedError:
@@ -121,11 +126,38 @@ class _QuantizedAdapter:
         return self._inner.device_bytes()
 
 
-def make_index(kind: str, dim: int, metric: str, *, dtype, device=None, **params):
-    """A new index of `kind`. params: capacity (flat: rows to
-    preallocate), n_clusters (sq8r: k-means clusters, 0 for the
+def make_index(
+    kind: str, dim: int, metric: str, *, dtype, device=None,
+    migration_threshold: int = DEFAULT_MIGRATION_THRESHOLD, hnsw_config=None,
+    **params,
+):
+    """A new index of `kind`.
+
+    "adaptive" is flat until `migration_threshold` rows and a graph
+    after; "hnsw" is the same class migrating on its first add; both take
+    hnsw_config (an HNSWConfig) and the params storage ("dense" or
+    "sq8"), min_contrast (default: LONGBOW_ADAPTIVE_MIN_CONTRAST, else
+    2.0; "adaptive" only) and capacity. Other params: capacity (flat:
+    rows to preallocate), n_clusters (sq8r: k-means clusters, 0 for the
     default)."""
     kind = (kind or "adaptive").lower()
+    if kind in ("adaptive", "hnsw"):
+        common = dict(
+            dtype=dtype, hnsw_config=hnsw_config,
+            storage=str(params.get("storage", "dense")).lower(),
+            pq_m=int(params.get("pq_m", 0)) or None,
+            capacity=int(params.get("capacity", 0)), device=device,
+        )
+        if kind == "hnsw":  # migrate on the first add
+            return AdaptiveIndex(dim, metric, migration_threshold=0, **common)
+        min_contrast = float(params.get(
+            "min_contrast",
+            os.environ.get("LONGBOW_ADAPTIVE_MIN_CONTRAST", DEFAULT_MIN_CONTRAST),
+        ))
+        return AdaptiveIndex(
+            dim, metric, migration_threshold=migration_threshold,
+            min_contrast=min_contrast, **common,
+        )
     if kind == "flat":
         capacity = int(params.get("capacity", 0))
         return _FlatAdapter(
@@ -148,6 +180,8 @@ def import_index(state: dict, *, device=None):
     """Rebuild an index from export_state() output (this package's or
     longbow_tpu's)."""
     kind = state["kind"]
+    if kind == "hnsw" or (kind == "flat" and "migration_threshold" in state):
+        return AdaptiveIndex.import_state(state, device=device)
     if kind == "flat":
         return _FlatAdapter(FlatIndex.import_state(state, device=device))
     if kind == "sq8":

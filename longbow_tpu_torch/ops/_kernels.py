@@ -33,6 +33,10 @@ NVCC_FLAGS = (
 _INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
 
 
+class KernelError(RuntimeError):
+    """A hand-written kernel could not be built, loaded or launched."""
+
+
 def source_closure(path: Path) -> list[Path]:
     """`path` and every file it includes with `#include "..."`, found
     beside the including file, transitively, each once, in first-seen
@@ -57,7 +61,7 @@ def find_nvcc() -> str:
     for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
         if root and os.path.exists(os.path.join(root, "bin", "nvcc")):
             return os.path.join(root, "bin", "nvcc")
-    raise RuntimeError("nvcc not found (PATH, CUDA_HOME, /usr/local/cuda)")
+    raise KernelError("nvcc not found (PATH, CUDA_HOME, /usr/local/cuda)")
 
 
 class Kernel:
@@ -104,7 +108,7 @@ class Kernel:
                 capture_output=True, text=True,
             )
             if proc.returncode != 0:
-                raise RuntimeError(
+                raise KernelError(
                     f"nvcc failed for {self.source}:\n{proc.stdout}{proc.stderr}"
                 )
             self.build_log = proc.stdout + proc.stderr

@@ -21,7 +21,7 @@ import ctypes
 import torch
 
 from longbow_tpu_torch.device import resolve_device
-from longbow_tpu_torch.ops._kernels import FUSED_CODES_SCAN, FUSED_SCAN
+from longbow_tpu_torch.ops._kernels import FUSED_CODES_SCAN, FUSED_SCAN, KernelError
 from longbow_tpu_torch.ops.distance import (
     MASKED,
     MASKED_GUARD,
@@ -244,7 +244,7 @@ def launch_flat_mma(kernel, corpus, qc, qn, vn, k, l2):
     plan = (ctypes.c_int * 5)()
     err = lib.longbow_fused_scan_plan(dev, b, n, d, k, plan)
     if err != 0:
-        raise RuntimeError(
+        raise KernelError(
             f"fused_scan: no tiling fits shared memory for D={d}, k={k} (code {err})"
         )
     cfg, s, rows_per_split, cap, smem = list(plan)
@@ -257,7 +257,7 @@ def launch_flat_mma(kernel, corpus, qc, qn, vn, k, l2):
         out_d.data_ptr(), out_i.data_ptr(), stream,
     )
     if err != 0:
-        raise RuntimeError(f"fused_scan launch failed: cudaError {err}")
+        raise KernelError(f"fused_scan launch failed: cudaError {err}")
     return out_d, out_i
 
 
@@ -282,7 +282,7 @@ def launch_flat_wgmma(kernel, corpus, qc, qn, vn, k, l2):
         split_best.data_ptr(), out_d.data_ptr(), out_i.data_ptr(), stream,
     )
     if err != 0:
-        raise RuntimeError(f"fused_scan (wgmma) launch failed: code {err} for D={d}, k={k}")
+        raise KernelError(f"fused_scan (wgmma) launch failed: code {err} for D={d}, k={k}")
     return out_d, out_i
 
 
@@ -413,7 +413,7 @@ def launch_codes_mma(kernel, codes, qs, qn, vn, gt, k):
     plan = (ctypes.c_int * 5)()
     err = lib.longbow_fused_codes_scan_plan(dev, b, n, d, k, plan)
     if err != 0:
-        raise RuntimeError(
+        raise KernelError(
             f"fused_codes_scan: no tiling fits shared memory for D={d}, k={k} (code {err})"
         )
     cfg, s, rows_per_split, cap, smem = list(plan)
@@ -426,7 +426,7 @@ def launch_codes_mma(kernel, codes, qs, qn, vn, gt, k):
         smem, out_d.data_ptr(), out_i.data_ptr(), stream,
     )
     if err != 0:
-        raise RuntimeError(f"fused_codes_scan launch failed: cudaError {err}")
+        raise KernelError(f"fused_codes_scan launch failed: cudaError {err}")
     return out_d, out_i
 
 
@@ -454,7 +454,7 @@ def launch_codes_wgmma(kernel, codes, qs, qn, vn, gt, k):
         split_best.data_ptr(), out_d.data_ptr(), out_i.data_ptr(), stream,
     )
     if err != 0:
-        raise RuntimeError(f"fused_codes_scan (wgmma) launch failed: code {err} for D={d}, k={k}")
+        raise KernelError(f"fused_codes_scan (wgmma) launch failed: code {err} for D={d}, k={k}")
     return out_d, out_i
 
 

@@ -55,3 +55,46 @@ def sort_by_distance(
     """Sort (dist, idx) pairs ascending by distance along the last axis."""
     order = torch.argsort(dist, dim=-1, stable=True)
     return torch.gather(dist, -1, order), torch.gather(idx, -1, order)
+
+
+# widths up to this are selected by one stable sort; wider rows by a
+# threshold pass (see stable_topk)
+_SORT_WIDTH = 2048
+
+
+def stable_topk(dist: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Smallest-k along the last axis, ascending, with ties in index
+    order (the lower column first) - what jax.lax.top_k gives on the
+    negated input, and what torch.topk does not promise. The graph code
+    depends on it: MASKED padding and repeated ids tie all the time.
+
+    Narrow rows: one stable sort. Wide rows: the k-th value from
+    torch.topk (values are unambiguous, indices are not), then every
+    column below it plus the first columns equal to it, and a stable
+    sort of those k. -> (dist [..., k], idx [..., k] int64)."""
+    w = dist.shape[-1]
+    if k > w:
+        raise ValueError(f"stable_topk: k={k} exceeds the width {w}")
+    if w <= _SORT_WIDTH:
+        vals, idx = torch.sort(dist, dim=-1, stable=True)
+        return vals[..., :k], idx[..., :k]
+    lead = dist.shape[:-1]
+    x = dist.reshape(-1, w)
+    kth = torch.topk(x, k, dim=1, largest=False).values[:, -1:]
+    below = x < kth
+    equal = x == kth
+    need = k - below.sum(dim=1, keepdim=True)
+    keep = below | (equal & (equal.cumsum(dim=1, dtype=torch.int32) <= need))
+    cols = keep.nonzero()[:, 1].view(x.shape[0], k)  # ascending per row
+    vals, order = torch.sort(x.gather(1, cols), dim=1, stable=True)
+    return vals.view(*lead, k), cols.gather(1, order).view(*lead, k)
+
+
+def later_duplicate(ids: torch.Tensor) -> torch.Tensor:
+    """[R, W] ids -> bool [R, W]: True where the same id stands in an
+    earlier column of the row (every occurrence but the first). A stable
+    sort and a compare of neighbours instead of the W x W compare."""
+    s, order = torch.sort(ids, dim=1, stable=True)
+    rep = torch.zeros_like(s, dtype=torch.bool)
+    rep[:, 1:] = s[:, 1:] == s[:, :-1]
+    return torch.zeros_like(rep).scatter_(1, order, rep)

@@ -240,6 +240,7 @@ class FilterCache:
     def __init__(self, max_entries: int = 100):
         self.max_entries = max_entries
         self._d: OrderedDict[tuple, torch.Tensor] = OrderedDict()
+        self._counts: OrderedDict[tuple, int] = OrderedDict()
         self._version = 0  # bumped on every append/delete
         self._lock = threading.Lock()
 
@@ -247,28 +248,56 @@ class FilterCache:
         with self._lock:
             self._version += 1
             self._d.clear()
+            self._counts.clear()
 
-    def get_or_eval(
+    @staticmethod
+    def _key(version: int, filters: list[Filter]) -> tuple:
+        # structured key: joining raw strings with unescaped separators
+        # let distinct filter lists collide
+        return (
+            version,
+            json.dumps([[f.field, f.operator, f.value, f.logic] for f in filters]),
+        )
+
+    def get_or_eval_versioned(
         self, store: ColumnStore, filters: list[Filter]
-    ) -> Optional[torch.Tensor]:
+    ) -> tuple[Optional[torch.Tensor], int]:
+        """-> (mask, the store version it was evaluated under)."""
         if not filters:
-            return None
+            return None, self._version
         with self._lock:
             ver = self._version
-            # structured key: joining raw strings with unescaped
-            # separators let distinct filter lists collide
-            key = (
-                ver,
-                json.dumps([[f.field, f.operator, f.value, f.logic] for f in filters]),
-            )
+            key = self._key(ver, filters)
             hit = self._d.get(key)
             if hit is not None:
                 self._d.move_to_end(key)
-                return hit
+                return hit, ver
         mask = store.evaluate(filters)
         with self._lock:
             if self._version == ver:  # don't store a stale snapshot
                 self._d[key] = mask
                 if len(self._d) > self.max_entries:
                     self._d.popitem(last=False)
-        return mask
+        return mask, ver
+
+    def selectivity_count(
+        self, filters: list[Filter], mask: torch.Tensor, version: int
+    ) -> int:
+        """Eligible-row count of `mask`, which was evaluated under store
+        `version` (get_or_eval_versioned's second value). Computed once
+        per filter list and version - the reduction is a host read - and
+        cached under THAT version: a write that lands between the mask's
+        evaluation and this call bumps the version, and the count of the
+        now stale mask is returned to its one caller and not kept."""
+        key = self._key(version, filters)
+        with self._lock:
+            hit = self._counts.get(key)
+            if hit is not None:
+                return hit
+        cnt = int(mask.sum())
+        with self._lock:
+            if self._version == version:
+                self._counts[key] = cnt
+                if len(self._counts) > self.max_entries:
+                    self._counts.popitem(last=False)
+        return cnt

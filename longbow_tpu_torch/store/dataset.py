@@ -39,6 +39,8 @@ class Dataset:
         metric: str = Metric.L2,
         *,
         dtype=torch.float32,
+        hnsw_config=None,
+        migration_threshold: int = 200_000,
         index_kind: str = "adaptive",
         index_params: Optional[dict] = None,
         device=None,
@@ -48,10 +50,13 @@ class Dataset:
         self.metric = _METRIC_ALIASES.get(metric.lower(), None) or Metric.validate(metric)
         self.device = resolve_device(device)
         self.dtype = dtype
+        self.hnsw_config = hnsw_config
+        self.migration_threshold = migration_threshold
         self.index_kind = (index_kind or "adaptive").lower()
         self.index_params = dict(index_params or {})
         self.index = make_index(
             self.index_kind, dim, self.metric, dtype=dtype, device=self.device,
+            migration_threshold=migration_threshold, hnsw_config=hnsw_config,
             **self.index_params,
         )
         self.columns = ColumnStore(self.index.capacity, device=self.device)
@@ -239,7 +244,11 @@ class Dataset:
         _columns/_index: the snapshot a search took under the lock."""
         cols = _columns if _columns is not None else self.columns
         idx = _index if _index is not None else self.index
-        mask = self.filter_cache.get_or_eval(cols, filters)
+        return self._fit(self.filter_cache.get_or_eval_versioned(cols, filters)[0], idx)
+
+    @staticmethod
+    def _fit(mask: Optional[torch.Tensor], idx) -> Optional[torch.Tensor]:
+        """A mask cut or padded (False) to the index's capacity."""
         if mask is None:
             return None
         cap = idx.capacity
@@ -271,7 +280,18 @@ class Dataset:
             idx = self.index
             r2i = self._row_to_id
             cols = self.columns
-        mask = self.filter_mask(filters or [], _columns=cols, _index=idx)
+        mask, version = self.filter_cache.get_or_eval_versioned(cols, filters or [])
+        mask = self._fit(mask, idx)
+        if mask is not None and not exact and idx.kind == "hnsw":
+            # selectivity routing: a highly selective predicate starves a
+            # graph beam, while the exact scan finds every eligible row.
+            # Below max(4096, capacity / 50) eligible rows the filtered
+            # query is served from the exact path. The count is cached
+            # per filter list under the store version its mask was
+            # evaluated at, so it costs one host read per distinct filter.
+            cnt = self.filter_cache.selectivity_count(filters or [], mask, version)
+            if cnt < max(4096, idx.capacity // 50):
+                exact = True
         if not isinstance(queries, torch.Tensor):
             queries = np.atleast_2d(np.asarray(queries, dtype=np.float32))
         d, r = idx.search(
@@ -306,6 +326,7 @@ class Dataset:
         return total
 
     def stats(self) -> dict:
+        err = getattr(self.index, "migration_error", None)
         return {
             "name": self.name,
             "dim": self.dim,
@@ -317,4 +338,7 @@ class Dataset:
             "capacity": self.index.capacity,
             "device_bytes": self.device_bytes(),
             "fields": self.columns.fields(),
+            # a failed migration to the graph tier leaves the flat tier
+            # serving; this is where it shows
+            "migration_error": None if err is None else repr(err),
         }

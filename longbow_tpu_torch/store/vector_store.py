@@ -24,7 +24,9 @@ class VectorStore:
     """All datasets of one process, on one device.
 
     dtype: storage dtype of new datasets (bf16 is what the fused scan
-    serves; torch.float32 serves every search through exact_search).
+    serves; torch.float32 serves every flat search through exact_search).
+    The default index kind is "adaptive": a flat scan until
+    migration_threshold rows, a graph (hnsw_config) after.
     device: None means the CUDA card (and raises without one).
     """
 
@@ -33,6 +35,8 @@ class VectorStore:
         *,
         default_metric: str = Metric.L2,
         dtype=torch.bfloat16,
+        migration_threshold: int = 200_000,
+        hnsw_config=None,
         query_cache_size: int = 1024,
         query_cache_ttl: float = 60.0,
         default_index_kind: str = "adaptive",
@@ -45,6 +49,10 @@ class VectorStore:
         self._lock = threading.Lock()
         self.default_metric = Metric.validate(default_metric)
         self.dtype = dtype
+        # rows at which an adaptive dataset moves from the flat scan to
+        # the graph, and the graph's knobs (an HNSWConfig; None: defaults)
+        self.migration_threshold = migration_threshold
+        self.hnsw_config = hnsw_config
         self.default_index_kind = default_index_kind
         self.default_index_params = dict(default_index_params or {})
         self.query_cache = QueryCache(query_cache_size, query_cache_ttl)
@@ -80,6 +88,8 @@ class VectorStore:
                     dim,
                     metric or self.default_metric,
                     dtype=self.dtype,
+                    hnsw_config=self.hnsw_config,
+                    migration_threshold=self.migration_threshold,
                     index_kind=index_kind or self.default_index_kind,
                     index_params=(
                         index_params
@@ -184,10 +194,18 @@ class VectorStore:
     # -- introspection ------------------------------------------------
 
     def readiness(self) -> dict:
-        """The 'check_readiness' action: builds are synchronous, so the
-        store is READY once a call returns."""
+        """The 'check_readiness' action. A migration to the graph tier
+        runs in the background while the flat tier serves every row, so
+        the store is READY once a call returns. A migration that failed
+        leaves its dataset on the flat tier and is listed by name."""
+        failed = {}
+        for name, ds in list(self._datasets.items()):
+            err = getattr(ds.index, "migration_error", None)
+            if err is not None:
+                failed[name] = repr(err)
         return {
             "status": "READY",
             "datasets": len(self._datasets),
+            "migration_errors": failed,
             "uptime_s": time.time() - self.started_at,
         }

@@ -101,18 +101,131 @@ def test_store_lifecycle_and_cache():
 
 
 def test_factory_ports_flat_only():
-    """flat, sq8 and sq8r are ported; every other kind raises."""
+    """adaptive, flat, hnsw, sq8 and sq8r are ported; every other kind
+    raises. An adaptive index below its threshold is of kind flat."""
+    assert set(PORTED_KINDS) == {"adaptive", "flat", "hnsw", "sq8", "sq8r"}
     for kind in PORTED_KINDS:
         idx = make_index(kind, 8, "l2", dtype=torch.bfloat16, device="cpu")
         idx.add(np.eye(8, dtype=np.float32))
         again = import_index(idx.export_state(), device="cpu")
-        assert len(again) == 8 and again.kind == kind
+        assert len(again) == 8 and again.kind == {"adaptive": "flat"}.get(kind, kind)
+        assert type(again) is type(idx)
     for kind in INDEX_KINDS:
         if kind not in PORTED_KINDS:
             with pytest.raises(NotImplementedError, match=kind):
                 make_index(kind, 8, "l2", dtype=torch.bfloat16, device="cpu")
     with pytest.raises(ValueError):
         make_index("nope", 8, "l2", dtype=torch.bfloat16, device="cpu")
+
+
+def _clustered(n, d, seed):
+    rng = np.random.default_rng(seed)
+    centers = rng.standard_normal((16, d)).astype(np.float32) * 3.0
+    return (centers[rng.integers(0, 16, n)] + rng.standard_normal((n, d))).astype(np.float32)
+
+
+def _small_graph_store(**kw):
+    from longbow_tpu_torch.index.hnsw import HNSWConfig
+
+    return VectorStore(
+        device="cpu", migration_threshold=1024,
+        hnsw_config=HNSWConfig(m=8, m_max=16, ef_construction=32, ef_search=64,
+                               insert_batch_size=256), **kw)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_default_kind_migrates_and_serves_from_the_graph(dtype):
+    """No kind named: f32 puts land in the flat tier, the dataset
+    migrates at the threshold and is served from the graph, like the JAX
+    store's; recall against the store's own exact path."""
+    from longbow_tpu.index.hnsw import HNSWConfig as JaxConfig
+
+    data, q = _clustered(3000, D, 21), _clustered(32, D, 22)
+    ids = np.arange(3000, dtype=np.int64) + 10_000
+    store = _small_graph_store(dtype=dtype)
+    jstore = JaxStore(dtype=jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32,
+                      migration_threshold=1024,
+                      hnsw_config=JaxConfig(m=8, m_max=16, ef_construction=32, ef_search=64,
+                                            insert_batch_size=256))
+    for st in (store, jstore):
+        for s in range(0, 3000, 500):
+            st.put("ds", ids[s:s + 500], data[s:s + 500], {"n": np.arange(s, s + 500) % 100})
+            if s == 0:
+                assert st.get("ds").index.kind == "flat"
+        assert st.get("ds").index.wait_migration() and st.get("ds").index.kind == "hnsw"
+        assert st.delete("ds", ids[:40]) == 40
+    ds = store.get("ds")
+    assert ds.migration_threshold == 1024 and ds.stats()["index_kind"] == "hnsw"
+    assert ds.stats()["index_rows"] == 3000 and ds.device_bytes() > 0
+    got, _, ok = store.search("ds", q, 10)
+    want, wscore, _ = store.search("ds", q, 10, exact=True)
+    jgot, _, _ = jstore.search("ds", q, 10)
+    rec = np.mean([len(set(g) & set(w)) / 10 for g, w in zip(got, want)])
+    jrec = np.mean([len(set(g) & set(w)) / 10 for g, w in zip(jgot, want)])
+    assert ok.all() and rec >= 0.9 and rec >= jrec - 0.05, (rec, jrec)
+    assert not (set(got.ravel().tolist()) & set(ids[:40].tolist()))
+    jwant, jscore, _ = jstore.search("ds", q, 10, exact=True)
+    np.testing.assert_allclose(wscore, jscore, rtol=1e-5, atol=1e-4)
+
+
+def test_selectivity_routing_sends_narrow_filters_to_the_exact_path():
+    data, q = _clustered(3000, D, 23), _clustered(8, D, 24)
+    store = _small_graph_store(dtype=torch.float32)
+    store.put("ds", np.arange(3000), data, {"n": np.arange(3000) % 100})
+    ds = store.get("ds")
+    assert ds.index.wait_migration()
+    calls = []
+    real = ds.index.search
+
+    def spy(queries, k, **kw):
+        calls.append(kw["exact"])
+        return real(queries, k, **kw)
+
+    ds.index.search = spy
+    ds.search(q, 5)                                        # no filter: the graph
+    wide = [Filter("n", ">=", "1")]                        # 2970 rows < max(4096, cap / 50)
+    ds.search(q, 5, filters=wide)
+    assert calls == [False, True]
+    narrow = [Filter("n", "eq", "7")]                      # 30 rows
+    ids, _, ok = ds.search(q, 5, filters=narrow)
+    assert calls[-1] is True and ok.all() and all(int(x) % 100 == 7 for x in ids[ok])
+    # a mask wide enough stays on the graph (the floor is max(4096, capacity / 50))
+    big = torch.ones(ds.index.capacity, dtype=torch.bool)
+    ds.filter_cache.get_or_eval_versioned = lambda cols, f: (big if f else None, 0)
+    ds.filter_cache.selectivity_count = lambda f, m, v: 5000
+    ds.search(q, 5, filters=wide)
+    assert calls[-1] is False
+    # a flat tier is never rerouted
+    flat = VectorStore(device="cpu", dtype=torch.float32)
+    flat.put("f", np.arange(100), data[:100], {"n": np.arange(100)})
+    fcalls = []
+    freal = flat.get("f").index.search
+    flat.get("f").index.search = lambda qq, k, **kw: (fcalls.append(kw["exact"]), freal(qq, k, **kw))[1]
+    flat.search("f", q, 5, filters=[Filter("n", "<", "10")])
+    assert fcalls == [False]
+
+
+def test_selectivity_count_is_keyed_to_the_version_of_its_mask():
+    """A write between a mask's evaluation and its count must not leave
+    the stale mask's count cached for the masks that follow."""
+    from longbow_tpu_torch.query.filters import ColumnStore, FilterCache
+
+    cols = ColumnStore(16, device="cpu")
+    cols.append({"n": np.arange(8)}, 8, 16)
+    cache = FilterCache()
+    f = [Filter("n", ">", "3")]
+    mask, ver = cache.get_or_eval_versioned(cols, f)
+    assert int(mask.sum()) == 4
+    cols.append({"n": np.full(4, 9)}, 4, 16)  # the write: 4 more rows match
+    cache.invalidate()
+    assert cache.selectivity_count(f, mask, ver) == 4  # the stale mask's own count
+    mask2, ver2 = cache.get_or_eval_versioned(cols, f)
+    assert ver2 == ver + 1 and int(mask2.sum()) == 8
+    assert cache.selectivity_count(f, mask2, ver2) == 8  # not the 4 of before
+    assert cache.selectivity_count(f, None, ver2) == 8   # cached: the mask is not read
+    assert cache.get_or_eval_versioned(cols, []) == (None, ver2)
+    cache.invalidate()
+    assert not cache._counts and not cache._d
 
 
 def test_parse_ticket_matches_jax():
