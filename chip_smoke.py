@@ -70,7 +70,27 @@ Phases, each of which passes or ends the run with a non-zero exit:
                capacity with its valid mask; the dot build at its augmented
                width) and timed there beside its bound; and a uniform
                Gaussian dataset that must stay flat (contrast below 2.0); launch
-               counts are set to 0 just before this phase and read just after it.
+               counts are set to 0 just before this phase and read just after it;
+  8. index kinds - the other single-device kinds through VectorStore on phase 4's
+               1,000,000 x 128 rows and queries, k = 10, recall@10 against the f32
+               exact_search oracle: 8.1 pq in 65,536-row puts (the first trains the
+               books), pq_m 16 measured at 1M and gated at 0.85 on 200,000 rows,
+               pq_m 64 gated at 0.85 with a filtered search and deletes; 8.2 bq,
+               l2 on the 1M rows measured, l2 and cosine on 100,000 rows gated at
+               0.90; 8.3 ivf (n_probe 8) with all rows in one put (gate 0.90;
+               cells, cap and the spill segment's rows; without a spill, a
+               100,000-row dataset in 8,192-row puts makes one), and the same rows
+               in 65,536-row puts measured (cells sized on the first put, so most
+               rows spill); 8.4 disk with its
+               host rows in an mmap file (gate 0.95, deletes, device against host
+               bytes); 8.5 100,000-row graphs of kind hnsw with storage="pq": the
+               default pq_m measured, pq_m 64 gated at 0.90 for l2 and cosine, K1's
+               launches in each build printed. For each kind: queries/s of one
+               1,000-query batch, p50 of 16 single-query searches, ingest rows/s,
+               device bytes a row. Launch counts are set to 0 just before this
+               phase and read just after it; then K1 is held against its plain
+               version on the arguments of the IVF spill segment's first launch and
+               K2 on those of the disk tier's, each timed there beside its bound.
 The last line of standard output is {"ok": true, "device": {...}}.
 
 Imports torch, numpy and longbow_tpu_torch only.
@@ -98,6 +118,11 @@ FINAL_ROWS = 20_000                 # left in the sq8r delta region
 QUANT_RECALL_GATE = 0.99            # against exact search over dequantized rows
 GRAPH_RECALL_GATE = 0.95            # graph search against the f32 oracle, ef 150
 SMALL_GRAPH_GATE = 0.90             # 100,000-row graphs against exact search on stored rows
+# phase 8: recall@10 gates against the f32 oracle
+PQ_GATE, BQ_GATE, IVF_GATE, DISK_GATE, PQ_GRAPH_GATE = 0.85, 0.90, 0.90, 0.95, 0.90
+IVF_FORCE_PUT = 8_192               # puts that make an ivf index spill, if 1M in one put did not
+PQ_M = 64                           # the gated pq configurations: 2-dim subvectors
+N_BASIS = 200_000                   # rows of the gated pq_m 16 index
 BULK_QUERIES = 128
 TIMED_LAUNCHES = 20
 PLAIN_LAUNCHES = 5                  # the plain versions are slow and gate nothing
@@ -769,64 +794,109 @@ def sq8r_stages(inner, queries, reps: int = 5) -> dict:
 
 # -- 7. graph tier (this slice's path) ----------------------------------------
 
-def recorded_self_knn(build) -> tuple:
-    """Run `build` and keep the arguments of the first call its
-    self-kNN makes to K1's wrapper (the call itself goes through)."""
-    from longbow_tpu_torch.index import graph_build
-
+def first_call(module, attr: str, run, what: str) -> tuple:
+    """Run `run` and keep the arguments of the first call it makes to
+    module.attr, a kernel's wrapper (the call itself goes through)."""
     calls = []
-    real = graph_build.fused_flat_search
+    real = getattr(module, attr)
 
     def record(*args, **kw):
         if not calls:
             calls.append((args, kw))
         return real(*args, **kw)
 
-    graph_build.fused_flat_search = record
+    setattr(module, attr, record)
     try:
-        build()
+        run()
     finally:
-        graph_build.fused_flat_search = real
+        setattr(module, attr, real)
     if not calls:
-        fail("the build did not call K1's wrapper")
+        fail(f"{what} did not call {attr}")
     return calls[0]
 
 
-def check_build_scan(label: str, call: tuple, bw: float, flops: float, reps: int) -> dict:
-    """K1 against its plain version on the very arguments a graph build
-    gave the wrapper: a block of corpus rows as queries, k + 1
-    neighbours, the whole capacity with its valid mask."""
+def recorded_self_knn(build) -> tuple:
+    """The arguments of the first call a graph build's self-kNN makes to
+    K1's wrapper."""
+    from longbow_tpu_torch.index import graph_build
+
+    return first_call(graph_build, "fused_flat_search", build, "the build")
+
+
+def scan_row(name, variant, err, ms, plain_ms, moved, ops, bw, flops, **extra) -> dict:
+    """One kernel case: times beside the bound, the larger of the bytes
+    over the memory rate and the operations over the bf16 peak."""
+    return dict(case=name, variant=variant, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=1e3 * max(moved / bw, ops / flops),
+                bound_by="bytes" if moved / bw >= ops / flops else "operations", **extra)
+
+
+def check_build_scan(label: str, call: tuple, bw: float, flops: float, reps: int,
+                     finds_itself: bool = True) -> dict:
+    """K1 against its plain version on the very arguments a path gave the
+    wrapper: for a graph build a block of corpus rows as queries, k + 1
+    neighbours, the whole capacity with its valid mask (finds_itself:
+    each of those rows must find itself); for an IVF spill segment the
+    search's queries, its pool and the segment's rows."""
+    from longbow_tpu_torch.ops._kernels import FUSED_SCAN
     from longbow_tpu_torch.ops.scan import (
         fused_flat_search, fused_flat_search_plain, scan_variant,
     )
 
-    from longbow_tpu_torch.ops._kernels import FUSED_SCAN
-
     held = FUSED_SCAN.launches  # launches made to compare and to time do not count
     args, kw = call
-    q, corpus, _, _, k = args
+    q, corpus, _, _, k = args[:5]
     (b, d), n = q.shape, corpus.shape[0]
-    name = f"self_knn_{label} l2 B={b} k={k} N={n} D={d}"
+    name = f"{label} {args[5] if len(args) > 5 else 'l2'} B={b} k={k} N={n} D={d}"
     variant = scan_variant(b, n, d, k, corpus.data_ptr() % 16 == 0)
     dk, ik = fused_flat_search(*args, **kw)
     dp, ip_ = fused_flat_search_plain(*args, **kw)
     torch.cuda.synchronize()
     err = compare(name, dk, ik, dp, ip_)
-    # the first block's queries are rows 0 .. B-1: the build masks each
-    # row's own slot, so every row must find itself
-    own = torch.arange(b, device=ik.device)[:, None]
-    if not torch.all((ik == own).any(dim=1)):
-        fail(f"{name}: a row did not find itself among its {k} nearest")
+    if finds_itself:
+        # the first block's queries are rows 0 .. B-1: the build masks each
+        # row's own slot, so every row must find itself
+        own = torch.arange(b, device=ik.device)[:, None]
+        if not torch.all((ik == own).any(dim=1)):
+            fail(f"{name}: a row did not find itself among its {k} nearest")
     ms = time_ms(lambda: fused_flat_search(*args, **kw), reps)
     plain_ms = time_ms(lambda: fused_flat_search_plain(*args, **kw), PLAIN_LAUNCHES)
-    moved = n * d * 2 + n * 4 + n + b * d * q.element_size() + b * k * 8
-    ops = 2 * b * n * d
-    row = dict(case=name, variant=variant, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-               bound_ms=1e3 * max(moved / bw, ops / flops),
-               bound_by="bytes" if moved / bw >= ops / flops else "operations",
-               b=b, k=k, n=n, d=d, tag=f"self_knn_{label}")
+    masks = 1 if kw.get("extra_mask") is None else 2
+    moved = n * d * 2 + n * 4 + masks * n + b * d * q.element_size() + b * k * 8
+    row = scan_row(name, variant, err, ms, plain_ms, moved, 2 * b * n * d, bw, flops,
+                   b=b, k=k, n=n, d=d, tag=label)
     FUSED_SCAN.launches = held
     emit({"kernel_case": row})
+    return row
+
+
+def check_codes_call(label: str, call: tuple, bw: float, flops: float, reps: int) -> dict:
+    """K2 against its plain version on the very arguments a path gave its
+    wrapper, timed there beside its bound."""
+    from longbow_tpu_torch.ops._kernels import FUSED_CODES_SCAN
+    from longbow_tpu_torch.ops.scan import (
+        fused_codes_search, fused_codes_search_plain, scan_variant,
+    )
+
+    held = FUSED_CODES_SCAN.launches
+    args, kw = call
+    qs, _, codes, _, _, k = args
+    (b, d), n = qs.shape, codes.shape[0]
+    name = f"{label} B={b} k={k} N={n} D={d}"
+    variant = scan_variant(b, n, d, k, codes.data_ptr() % 16 == 0)
+    plain_kw = {key: v for key, v in kw.items() if key != "variant"}
+    dk, ik = fused_codes_search(*args, **kw)
+    dp, ip_ = fused_codes_search_plain(*args, **plain_kw)
+    torch.cuda.synchronize()
+    err = compare(name, dk, ik, dp, ip_)
+    ms = time_ms(lambda: fused_codes_search(*args, **kw), reps)
+    plain_ms = time_ms(lambda: fused_codes_search_plain(*args, **plain_kw), PLAIN_LAUNCHES)
+    masks = 1 if kw.get("extra_mask") is None else 2
+    moved = n * d + n * 4 + masks * n + b * d * 4 + b * 4 + b * k * 8
+    row = scan_row(name, variant, err, ms, plain_ms, moved, 2 * b * n * d, bw, flops,
+                   b=b, k=k, n=n, d=d, tag=label)
+    FUSED_CODES_SCAN.launches = held
+    emit({"codes_kernel_case": row})
     return row
 
 
@@ -995,7 +1065,7 @@ def phase_graph(bw: float, flops: float, reps: int) -> dict:
         fail("a graph search launched K1")
     _, t100 = exact_search(queries, sub, 10, Metric.L2, device=DEVICE)
     d3 = {"k1_launches_in_build": built, "recall_at_10_ef100": recall_at(got, t100.cpu().numpy())}
-    scans = [check_build_scan("l2", call, bw, flops, reps)]
+    scans = [check_build_scan("self_knn_l2", call, bw, flops, reps)]
     del call
     if d3["recall_at_10_ef100"] < GRAPH_RECALL_GATE:
         fail(f"100k hnsw dataset: recall@10 {d3['recall_at_10_ef100']} < {GRAPH_RECALL_GATE}")
@@ -1010,7 +1080,7 @@ def phase_graph(bw: float, flops: float, reps: int) -> dict:
         call = recorded_self_knn(lambda: store.put(f"g_{name}", sub_ids, sub))
         if sds.index.kind != "hnsw":
             fail(f"{name}: the dataset of kind hnsw did not build its graph")
-        scans.append(check_build_scan(name, call, bw, flops, reps))
+        scans.append(check_build_scan(f"self_knn_{name}", call, bw, flops, reps))
         del call
         got, _, _ = store.search(f"g_{name}", queries, 10, ef_search=100)
         want, _, _ = store.search(f"g_{name}", queries, 10, exact=True)
@@ -1043,6 +1113,245 @@ def phase_graph(bw: float, flops: float, reps: int) -> dict:
     return out
 
 
+# -- 8. index kinds (this slice's path) -----------------------------------------
+
+def kind_stats(store, name: str, queries, truth, n: int, ingest_s: float) -> dict:
+    """recall@10 against `truth`, queries/s of one 1,000-query batch (median
+    of 3), p50 of 16 single-query searches, ingest rows/s, and the index's
+    device (and host) bytes per row."""
+    ds = store.get(name)
+    ds.warm()
+    lat = []
+    for j in range(16):
+        t = time.perf_counter()
+        store.search(name, queries[j:j + 1], 10, use_cache=False)
+        lat.append(time.perf_counter() - t)
+    served, _, _ = store.search(name, queries, 10, use_cache=False)
+    batch = timed(lambda: store.search(name, queries, 10, use_cache=False), 3)
+    stats = ds.stats()
+    return {"rows": n, "recall_at_10": recall_at(served, truth),
+            "qps_batch_1000": len(queries) / batch, "batch_1000_ms": 1e3 * batch,
+            "p50_single_query_ms": 1e3 * statistics.median(lat),
+            "ingest_rows_per_s": n / ingest_s,
+            "device_bytes_per_row": ds.index.device_bytes() / n,
+            "host_bytes_per_row": stats["host_bytes"] / n}
+
+
+def put_all(store, name: str, ids, vecs, category=None, batch=PUT_BATCH) -> float:
+    """Put the rows in `batch`-row puts; -> seconds to the device's end."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for s in range(0, len(ids), batch):
+        e = min(s + batch, len(ids))
+        cols = None if category is None else {"category": category[s:e]}
+        store.put(name, ids[s:e], vecs[s:e], cols)
+    flush = getattr(store.get(name).index, "flush", None)  # a flat tier's host stage
+    if flush is not None:
+        flush()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def gate(label: str, value: float, floor: float) -> None:
+    if value < floor:
+        fail(f"{label}: recall@10 {value} < {floor}")
+
+
+def filter_and_delete(store, name: str, corpus, queries, seed: int) -> dict:
+    """A filtered search (category == 3) and 1,000 deletes: the run fails
+    on a violation or a deleted id that comes back."""
+    from longbow_tpu_torch.query.parser import Filter
+
+    fids, _, fok = store.search(name, queries[:100], 10, filters=[Filter("category", "eq", "3")])
+    hits = fids[fok].tolist()
+    violations = sum(1 for x in hits if x % 10 != 3)
+    if not hits or violations:
+        fail(f"{name}: {violations} filter violations in {len(hits)} hits")
+    dead = np.random.default_rng(seed).choice(len(corpus), 1000, replace=False)
+    if store.delete(name, dead) != 1000:
+        fail(f"{name}: delete did not remove 1000 ids")
+    did, _, dok = store.search(name, corpus[dead], 10)
+    back = set(did[dok].tolist()) & set(dead.tolist())
+    if back:
+        fail(f"{name}: {len(back)} deleted ids came back")
+    return {"filtered_hits": len(hits), "filter_violations": 0, "deleted_returned": 0}
+
+
+def phase_index_kinds(bw: float, flops: float, reps: int) -> dict:
+    """8. pq, bq, ivf, disk and the graph's storage="pq" through VectorStore
+    on phase 4's rows; K1 (the IVF spill segment, the PQ graph's build)
+    and K2 (the disk tier's scan) held against their plain versions on
+    the arguments these paths gave them."""
+    import tempfile
+
+    from longbow_tpu_torch.index import sq8
+    from longbow_tpu_torch.ops import _kernels, scan
+    from longbow_tpu_torch.ops.distance import Metric, exact_search
+    from longbow_tpu_torch.store.vector_store import VectorStore
+
+    out: dict = {}
+    t_phase = time.perf_counter()
+    allv = make_corpus(N_STORE + N_QUERIES, D_STORE, seed=0)
+    corpus, queries = allv[:N_STORE], allv[N_STORE:]
+    ids = np.arange(N_STORE, dtype=np.int64)
+    category = ids % 10
+    _, truth = exact_search(queries, corpus, 10, Metric.L2, device=DEVICE)
+    truth = truth.cpu().numpy()
+    sub, sub_ids = corpus[:N_SMALL], ids[:N_SMALL]
+    store = VectorStore(device=DEVICE)
+    _kernels.reset_launch_counts()
+
+    # 8.1 pq with the exact re-rank; the first put trains the books. The
+    # default pq_m 16 (8-dim subvectors) cannot rank rows inside one of
+    # the recipe's clusters (about 1,000 rows each at 1M, against a pool
+    # of 160): measured at 1M, gated at 200,000 rows. pq_m 64 (2-dim
+    # subvectors) is gated at 1M.
+    for pq_m in (16, PQ_M):
+        name = f"pq_m{pq_m}"
+        store.get_or_create(name, D_STORE, index_kind="pq",
+                            index_params={"pq_m": pq_m, "rerank": True})
+        secs = put_all(store, name, ids, corpus, category)
+        row = kind_stats(store, name, queries, truth, N_STORE, secs)
+        if pq_m == PQ_M:
+            gate(f"pq (pq_m {pq_m}) 1M x 128", row["recall_at_10"], PQ_GATE)
+            row.update(filter_and_delete(store, name, corpus, queries, 11))
+        if pq_m == 16:
+            # the same configuration on 200,000 rows (about 200 a cluster),
+            # where 8-dim subvectors and a pool of 160 reach into a cluster
+            name16 = "pq_m16_200k"
+            store.get_or_create(name16, D_STORE, index_kind="pq",
+                                index_params={"pq_m": 16, "rerank": True})
+            secs = put_all(store, name16, ids[:N_BASIS], corpus[:N_BASIS])
+            _, want = exact_search(queries, corpus[:N_BASIS], 10, Metric.L2, device=DEVICE)
+            row[name16] = small = kind_stats(store, name16, queries, want.cpu().numpy(),
+                                             N_BASIS, secs)
+            gate("pq (pq_m 16) 200k x 128", small["recall_at_10"], PQ_GATE)
+            store.drop(name16)
+        out[name] = row
+        emit({f"index_kind_{name}": row})
+        store.drop(name)
+        torch.cuda.empty_cache()
+
+    # 8.2 bq: l2 on the 1M rows, measured, not gated: 128 sign bits a row
+    # cannot rank inside a cluster of about 1,000 rows against a pool of
+    # 320; l2 and cosine on 100,000 rows (about 100 a cluster), gated
+    store.get_or_create("bq", D_STORE, index_kind="bq")
+    secs = put_all(store, "bq", ids, corpus, category)
+    row = kind_stats(store, "bq", queries, truth, N_STORE, secs)
+    store.drop("bq")
+    for metric in (Metric.L2, Metric.COSINE):
+        name = f"bq_{metric}_100k"
+        store.get_or_create(name, D_STORE, metric, index_kind="bq")
+        secs = put_all(store, name, sub_ids, sub)
+        _, want = exact_search(queries, sub, 10, metric, device=DEVICE)
+        row[name] = small = kind_stats(store, name, queries, want.cpu().numpy(), N_SMALL, secs)
+        gate(f"bq {metric} 100k", small["recall_at_10"], BQ_GATE)
+        store.drop(name)
+    out["bq"] = row
+    emit({"index_kind_bq": row})
+    torch.cuda.empty_cache()
+
+    # 8.3 ivf: n_probe 8, the 1M rows in one put; rows past a cell's cap
+    # spill to a flat segment that K1 scans
+    store.get_or_create("ivf", D_STORE, index_kind="ivf", index_params={"n_probe": 8})
+    secs = put_all(store, "ivf", ids, corpus, category, batch=N_STORE)
+    inner = store.get("ivf").index._inner
+    row = kind_stats(store, "ivf", queries, truth, N_STORE, secs)
+    row.update(n_cells=inner.n_cells, cap=inner.cells.shape[1], spill_rows=inner.spill_rows)
+    print(f"ivf: {inner.n_cells} cells x cap {inner.cells.shape[1]}, "
+          f"{inner.spill_rows} rows in the spill segment", flush=True)
+    gate("ivf 1M x 128", row["recall_at_10"], IVF_GATE)
+    row.update(filter_and_delete(store, "ivf", corpus, queries, 12))
+    spill_store = "ivf"
+    if inner.spill_rows == 0:
+        print("ivf: no spill at 1M rows in one put; forcing one with 100,000 rows in "
+              f"{IVF_FORCE_PUT}-row puts", flush=True)
+        store.get_or_create("ivf_spill", D_STORE, index_kind="ivf")
+        put_all(store, "ivf_spill", sub_ids, sub, batch=IVF_FORCE_PUT)
+        row["forced_spill_rows"] = store.get("ivf_spill").index._inner.spill_rows
+        spill_store = "ivf_spill"
+    spill_call = first_call(scan, "fused_flat_search",
+                            lambda: store.search(spill_store, queries, 10, use_cache=False),
+                            "the ivf search")
+    # the same rows in PUT_BATCH-row puts: cells are sized on the first
+    # put alone, so most rows spill (measured, not gated)
+    store.get_or_create("ivf_puts", D_STORE, index_kind="ivf", index_params={"n_probe": 8})
+    secs = put_all(store, "ivf_puts", ids, corpus, batch=PUT_BATCH)
+    puts = store.get("ivf_puts").index._inner
+    row["ivf_puts"] = dict(kind_stats(store, "ivf_puts", queries, truth, N_STORE, secs),
+                           n_cells=puts.n_cells, cap=puts.cells.shape[1],
+                           spill_rows=puts.spill_rows)
+    print(f"ivf in {PUT_BATCH}-row puts: {puts.n_cells} cells x cap {puts.cells.shape[1]}, "
+          f"{puts.spill_rows} rows in the spill segment", flush=True)
+    store.drop("ivf_puts")
+    del puts
+    out["ivf"] = row
+    emit({"index_kind_ivf": row})
+
+    # 8.4 disk: int8 codes on the card (K2), f32 rows in an mmap file
+    with tempfile.TemporaryDirectory(prefix="longbow_disk_") as tmp:
+        store.get_or_create("disk", D_STORE, index_kind="disk",
+                            index_params={"path": f"{tmp}/rows.f32"})
+        secs = put_all(store, "disk", ids, corpus, category)
+        row = kind_stats(store, "disk", queries, truth, N_STORE, secs)
+        gate("disk 1M x 128", row["recall_at_10"], DISK_GATE)
+        disk = store.get("disk").index
+        row.update(device_bytes=disk.device_bytes(), host_bytes=disk.host_bytes())
+        row.update(filter_and_delete(store, "disk", corpus, queries, 13))
+        disk_call = first_call(sq8, "fused_codes_search",
+                               lambda: store.search("disk", queries, 10, use_cache=False),
+                               "the disk search")
+        out["disk"] = row
+        emit({"index_kind_disk": row})
+        store.drop("disk")
+        del disk
+
+    # 8.5 graphs with storage="pq", 100,000 rows: the default pq_m (dim / 4
+    # = 32) measured for l2, pq_m 64 gated for l2 and cosine
+    for metric, pq_m in ((Metric.L2, 0), (Metric.L2, PQ_M), (Metric.COSINE, PQ_M)):
+        name = f"hnsw_pq{pq_m or 'default'}_{metric}"
+        store.get_or_create(name, D_STORE, metric, index_kind="hnsw",
+                            index_params={"storage": "pq", "pq_m": pq_m})
+        before = _kernels.FUSED_SCAN.launches
+        secs = put_all(store, name, sub_ids, sub, batch=N_SMALL)
+        built = _kernels.FUSED_SCAN.launches - before
+        _, want = exact_search(queries, sub, 10, metric, device=DEVICE)
+        row = kind_stats(store, name, queries, want.cpu().numpy(), N_SMALL, secs)
+        g = store.get(name).index._graph
+        row.update(k1_launches_in_build=built, pq_m=g.pq_m)
+        print(f"{name}: the build launched K1 {built} times", flush=True)
+        if pq_m:
+            gate(f"graph storage=pq pq_m {pq_m} {metric} 100k", row["recall_at_10"],
+                 PQ_GRAPH_GATE)
+        out[name] = row
+        emit({f"index_kind_{name}": row})
+        store.drop(name)
+
+    torch.cuda.synchronize()
+    out["launches"] = {k.name: k.launches for k in _kernels.KERNELS}
+    for kernel in _kernels.KERNELS:
+        if kernel.launches == 0:
+            fail(f"kernel {kernel.name} was not launched on the index kinds' path")
+    # held against the plain versions after the counts are read
+    out["k1_spill"] = check_build_scan("ivf_spill", spill_call, bw, flops, reps,
+                                       finds_itself=False)
+    out["k2_disk"] = check_codes_call("disk_scan", disk_call, bw, flops, reps)
+    del spill_call, disk_call
+    store.drop("ivf")
+    store.drop("ivf_spill")
+    out["seconds"] = time.perf_counter() - t_phase
+    emit({"index_kinds": {k: v for k, v in out.items()
+                          if k in ("launches", "k1_spill", "k2_disk", "seconds")}})
+    return out
+
+
+def recorded_fields(prefix: str, row: dict) -> dict:
+    """A kernel's check on a path's recorded arguments, for the kernels line."""
+    return {f"{prefix}_{key}": row[src] for key, src in (
+        ("shape", "case"), ("variant", "variant"), ("ms", "ms"), ("plain_ms", "plain_ms"),
+        ("bound_ms", "bound_ms"), ("bound_by", "bound_by"))}
+
+
 def main() -> int:
     card, bw, flops = phase_device()
     import longbow_tpu_torch  # noqa: F401  (fails outside the repo)
@@ -1059,6 +1368,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     graph = phase_graph(bw, flops, TIMED_LAUNCHES)
     knn = graph["self_knn_cases"][0]  # the l2 build's first launch
+    torch.cuda.empty_cache()
+    kinds = phase_index_kinds(bw, flops, TIMED_LAUNCHES)
 
     served = next(c for c in kern["cases"] if c["tag"] == "served_batch")
     served2 = next(c for c in codes["cases"] if c["tag"] == "served_batch")
@@ -1069,13 +1380,16 @@ def main() -> int:
         "replaces": "longbow_tpu/ops/pallas_scan.py:256",
         "launches": store["launches"]["fused_scan"],
         "launches_graph_tier": graph["launches"]["fused_scan"],
-        "max_abs_err": max(c["max_abs_err"] for c in kern["cases"] + graph["self_knn_cases"]),
+        "launches_index_kinds": kinds["launches"]["fused_scan"],
+        "max_abs_err": max(c["max_abs_err"] for c in
+                           kern["cases"] + graph["self_knn_cases"] + [kinds["k1_spill"]]),
         "graph_tier_shape": knn["case"],
         "graph_tier_variant": knn["variant"],
         "graph_tier_ms": knn["ms"],
         "graph_tier_plain_ms": knn["plain_ms"],
         "graph_tier_bound_ms": knn["bound_ms"],
         "graph_tier_bound_by": knn["bound_by"],
+        **recorded_fields("index_kinds", kinds["k1_spill"]),
         "ms": served["ms"],
         "variant": served["variant"],
         "prev_ms": served["prev_ms"],
@@ -1092,7 +1406,9 @@ def main() -> int:
         "replaces": "longbow_tpu/ops/pallas_scan.py:444",
         "launches": quant["launches"]["fused_codes_scan"],
         "launches_graph_tier": graph["launches"]["fused_codes_scan"],
-        "max_abs_err": max(c["max_abs_err"] for c in codes["cases"]),
+        "launches_index_kinds": kinds["launches"]["fused_codes_scan"],
+        "max_abs_err": max(c["max_abs_err"] for c in codes["cases"] + [kinds["k2_disk"]]),
+        **recorded_fields("index_kinds", kinds["k2_disk"]),
         "ms": served2["ms"],
         "variant": served2["variant"],
         "prev_ms": served2["prev_ms"],

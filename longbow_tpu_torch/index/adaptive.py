@@ -61,12 +61,7 @@ class AdaptiveIndex:
         self.dtype = storage_dtype(dtype)
         self.migration_threshold = migration_threshold
         self.hnsw_config = hnsw_config or HNSWConfig()
-        # graph vector payload: "dense" (dtype) or "sq8" codes
-        if str(storage).lower() == "pq":
-            raise NotImplementedError(
-                "storage='pq' of the graph tier is not yet ported to "
-                "longbow_tpu_torch: it needs the pq index's encoder"
-            )
+        # graph vector payload: "dense" (dtype), "sq8" or "pq" codes
         self.storage = storage
         self.pq_m = pq_m
         # capacity pre-sizing skips every growth step
@@ -345,6 +340,12 @@ class AdaptiveIndex:
     def device_bytes(self) -> int:
         flat, g = self._tiers()
         return (g or flat).device_bytes()
+
+    def host_bytes(self) -> int:
+        """Host RAM the index holds besides the device (the re-rank copy
+        of a graph with storage="pq")."""
+        _, g = self._tiers()
+        return 0 if g is None else g.host_bytes()
 
     def export_state(self) -> dict:
         flat, g = self._tiers()

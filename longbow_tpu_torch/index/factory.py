@@ -1,10 +1,10 @@
 """Index construction behind one uniform surface.
 
-Counterpart of longbow_tpu/index/factory.py. The "adaptive", "flat",
-"hnsw", "sq8" and "sq8r" kinds are ported ("adaptive" and "hnsw" with
-storage "dense" or "sq8"); every other kind the reference knows, and
-storage="pq", raises NotImplementedError naming it, so a caller learns
-what is missing instead of getting a different index.
+Counterpart of longbow_tpu/index/factory.py. Every single-device kind is
+ported: "adaptive" and "hnsw" (storage "dense", "sq8" or "pq"), "flat",
+"sq8", "sq8r", "pq", "bq", "ivf" and "disk". The device-mesh kinds
+("mesh_flat", "mesh_graph") raise NotImplementedError naming them, so a
+caller learns what is missing instead of getting a different index.
 """
 from __future__ import annotations
 
@@ -13,9 +13,13 @@ import os
 import numpy as np
 
 from longbow_tpu_torch.index.adaptive import DEFAULT_MIGRATION_THRESHOLD, AdaptiveIndex
+from longbow_tpu_torch.index.bq import BQIndex
 from longbow_tpu_torch.index.flat import MIN_CAPACITY, FlatIndex
 from longbow_tpu_torch.index.hardness import DEFAULT_MIN_CONTRAST
+from longbow_tpu_torch.index.ivf import IVFIndex
+from longbow_tpu_torch.index.pq import PQIndex
 from longbow_tpu_torch.index.sq8 import SQ8Index, SQ8ResidualIndex
+from longbow_tpu_torch.index.tiered import TieredIndex
 
 INDEX_KINDS = (
     "adaptive", "flat", "hnsw", "pq", "sq8", "sq8r", "bq", "disk",
@@ -24,7 +28,13 @@ INDEX_KINDS = (
 )
 
 
-PORTED_KINDS = ("adaptive", "flat", "hnsw", "sq8", "sq8r")
+PORTED_KINDS = ("adaptive", "flat", "hnsw", "pq", "sq8", "sq8r", "bq", "disk", "ivf")
+
+# the quantized kinds behind _QuantizedAdapter, by the kind in their state
+_QUANTIZED = {
+    "pq": PQIndex, "sq8": SQ8Index, "sq8r": SQ8ResidualIndex, "bq": BQIndex,
+    "ivf": IVFIndex, "disk": TieredIndex,
+}
 
 
 def _not_ported(kind: str) -> NotImplementedError:
@@ -81,8 +91,8 @@ class _FlatAdapter:
 
 
 class _QuantizedAdapter:
-    """The same surface over an SQ8Index or SQ8ResidualIndex. The scans
-    are exhaustive, so ef_search and exact do not apply."""
+    """The same surface over the PQ, SQ8, SQ8-residual, BQ, IVF and tiered
+    indexes. ef_search and exact do not apply to them."""
 
     accepts_blocks = False
 
@@ -106,7 +116,10 @@ class _QuantizedAdapter:
         self._inner.delete_rows(rows)
 
     def flush(self) -> None:
-        """Rows are on the device once add returns."""
+        """Rows are stored once add returns; a disk tier syncs its file."""
+        flush = getattr(self._inner, "flush", None)
+        if flush is not None:
+            flush()
 
     def search(self, queries, k, *, filter_mask=None, ef_search=None,
                exact=False):
@@ -125,6 +138,11 @@ class _QuantizedAdapter:
     def device_bytes(self) -> int:
         return self._inner.device_bytes()
 
+    def host_bytes(self) -> int:
+        """Host RAM or file bytes beside the device ("disk")."""
+        host_bytes = getattr(self._inner, "host_bytes", None)
+        return 0 if host_bytes is None else host_bytes()
+
 
 def make_index(
     kind: str, dim: int, metric: str, *, dtype, device=None,
@@ -135,11 +153,15 @@ def make_index(
 
     "adaptive" is flat until `migration_threshold` rows and a graph
     after; "hnsw" is the same class migrating on its first add; both take
-    hnsw_config (an HNSWConfig) and the params storage ("dense" or
-    "sq8"), min_contrast (default: LONGBOW_ADAPTIVE_MIN_CONTRAST, else
-    2.0; "adaptive" only) and capacity. Other params: capacity (flat:
-    rows to preallocate), n_clusters (sq8r: k-means clusters, 0 for the
-    default)."""
+    hnsw_config (an HNSWConfig) and the params storage ("dense", "sq8"
+    or "pq"), pq_m (storage "pq": code bytes, 0 for dim / 4),
+    min_contrast (default: LONGBOW_ADAPTIVE_MIN_CONTRAST, else 2.0;
+    "adaptive" only) and capacity. Other params: capacity (flat: rows to
+    preallocate), n_clusters (sq8r: k-means clusters, 0 for the default),
+    pq_m (pq: subquantizers, default 16) and rerank (pq, bq: default
+    True), n_cells (ivf: 0 picks about 2 sqrt(n)) and n_probe (ivf:
+    default 8), path (disk: an mmap file for the host rows, None keeps
+    them in RAM) and rerank_factor (disk: default 8)."""
     kind = (kind or "adaptive").lower()
     if kind in ("adaptive", "hnsw"):
         common = dict(
@@ -171,6 +193,21 @@ def make_index(
             dim, metric, n_clusters=int(params.get("n_clusters", 0)), device=device
         )
         return _QuantizedAdapter(inner, "sq8r")
+    if kind == "pq":
+        inner = PQIndex(dim, int(params.get("pq_m", 16)), metric,
+                        rerank=bool(params.get("rerank", True)), device=device)
+        return _QuantizedAdapter(inner, "pq")
+    if kind == "bq":
+        inner = BQIndex(dim, metric, rerank=bool(params.get("rerank", True)), device=device)
+        return _QuantizedAdapter(inner, "bq")
+    if kind == "ivf":
+        inner = IVFIndex(dim, metric, n_cells=int(params.get("n_cells", 0)),
+                         n_probe=int(params.get("n_probe", 8)), dtype=dtype, device=device)
+        return _QuantizedAdapter(inner, "ivf")
+    if kind == "disk":
+        inner = TieredIndex(dim, metric, path=params.get("path"),
+                            rerank_factor=int(params.get("rerank_factor", 8)), device=device)
+        return _QuantizedAdapter(inner, "disk")
     if kind in INDEX_KINDS:
         raise _not_ported(kind)
     raise ValueError(f"unknown index kind {kind!r}; want one of {INDEX_KINDS}")
@@ -184,10 +221,8 @@ def import_index(state: dict, *, device=None):
         return AdaptiveIndex.import_state(state, device=device)
     if kind == "flat":
         return _FlatAdapter(FlatIndex.import_state(state, device=device))
-    if kind == "sq8":
-        return _QuantizedAdapter(SQ8Index.import_state(state, device=device), kind)
-    if kind == "sq8r":
-        return _QuantizedAdapter(SQ8ResidualIndex.import_state(state, device=device), kind)
+    if kind in _QUANTIZED:
+        return _QuantizedAdapter(_QUANTIZED[kind].import_state(state, device=device), kind)
     if kind in INDEX_KINDS:
         raise _not_ported(kind)
     raise ValueError(f"cannot import index state of kind {kind!r}")

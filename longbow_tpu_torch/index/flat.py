@@ -23,6 +23,7 @@ from longbow_tpu_torch.ops.distance import (
     Metric,
     cosine_report,
     exact_search,
+    fit_mask,
     normalize_rows,
     tombstone_rows,
 )
@@ -250,18 +251,6 @@ class FlatIndex:
 
     # -- search -------------------------------------------------------
 
-    def _fit_mask(self, mask, cap: int) -> Optional[torch.Tensor]:
-        """A filter mask on this device, cut or padded (False) to cap."""
-        if mask is None:
-            return None
-        m = torch.as_tensor(mask, device=self.device).bool()
-        if m.shape[0] > cap:
-            return m[:cap]
-        if m.shape[0] < cap:
-            pad = torch.zeros(cap - m.shape[0], dtype=torch.bool, device=self.device)
-            return torch.cat([m, pad])
-        return m
-
     def search(
         self,
         queries,
@@ -292,7 +281,7 @@ class FlatIndex:
         with self._mu:  # dispatch under the lock, fetch outside
             self._flush_locked()
             cap = self.vectors.shape[0]
-            mask = self._fit_mask(filter_mask, cap)
+            mask = fit_mask(filter_mask, cap, self.device)
             if not exact and self.dtype == torch.bfloat16 and k <= FUSED_MAX_K:
                 d, i = flat_search_rerank(
                     q, self.vectors, self.norms_sq, self.valid, k, metric,

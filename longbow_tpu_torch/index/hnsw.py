@@ -23,7 +23,7 @@ import torch
 
 from longbow_tpu_torch.device import resolve_device
 from longbow_tpu_torch.index.flat import dtype_name, storage_dtype
-from longbow_tpu_torch.index.graph import beam_search, gather_vectors_f32, graph_init
+from longbow_tpu_torch.index.graph import beam_search, gather_vectors_f32, graph_init, pq_decode
 from longbow_tpu_torch.index.graph_build import (
     build_stage_timer,
     bulk_build_clustered,
@@ -31,11 +31,13 @@ from longbow_tpu_torch.index.graph_build import (
     bulk_build_rp,
     insert_batch,
 )
+from longbow_tpu_torch.index.pq import encode_rows, train_codebooks
 from longbow_tpu_torch.ops.distance import (
     MASKED,
     Metric,
     cosine_report,
     exact_search,
+    fit_mask,
     normalize_rows,
     pad_to,
     squared_norms,
@@ -48,6 +50,9 @@ from longbow_tpu_torch.ops.distance import (
 MIN_CAPACITY = 8192
 # first adds of at least this many rows go to a sub-quadratic bulk build
 EXACT_BUILD_LIMIT = 150_000
+# storage="pq": the codebooks train on at most this many rows of the first add
+PQ_TRAIN_SAMPLE = 65_536
+PQ_TRAIN_ITERS = 12
 
 
 class HNSWConfig:
@@ -94,7 +99,10 @@ class HNSWIndex:
     storage="sq8" stores per-dim affine uint8 codes as the graph's vector
     payload; traversal gathers 1-byte codes and folds the dequant affine
     into the query; the quantizer trains on the first add batch.
-    storage="pq" is not ported yet (it needs index/pq.py's encoder).
+    storage="pq" stores pq_m-byte PQ codes (pq_m defaults to dim / 4; the
+    codebooks train on the first add batch); traversal ranks by ADC
+    tables, and an f16 copy of the rows in host RAM re-ranks an
+    oversampled pool exactly. l2 and cosine only.
     device: None means the CUDA card (and raises without one).
     """
 
@@ -126,21 +134,30 @@ class HNSWIndex:
         self.dtype = storage_dtype(dtype)
         if storage not in ("dense", "sq8", "pq"):
             raise ValueError("storage must be dense|sq8|pq")
-        if storage == "pq":
-            raise NotImplementedError(
-                "storage='pq' of the graph index is not yet ported to "
-                "longbow_tpu_torch: it needs the pq index's encoder"
-            )
         self.storage = storage
         self.edge_dtype = storage_dtype(edge_dtype)
         self.pq_m = 0
+        if storage == "pq":
+            if self._mips:
+                raise ValueError(
+                    "storage='pq' serves l2/cosine; use index kind 'pq' for "
+                    "the dot metric (native MIPS tables)"
+                )
+            self.pq_m = int(pq_m or max(dim // 4, 1))
+            if dim % self.pq_m != 0:
+                raise ValueError(f"dim {dim} not divisible by pq_m {self.pq_m}")
+        # PQ traversal ranks by ADC; a host-RAM f16 copy re-ranks an
+        # oversampled pool exactly, so device memory holds only codes and
+        # adjacency
+        self.pq_rerank = storage == "pq"
+        self._rerank_host: Optional[np.ndarray] = None  # [cap, dim] f16
         self.count = 0
         self._dead = 0  # tombstoned rows (gates deferred extraction)
         cap = pad_to(capacity, MIN_CAPACITY)
-        store_dim = dim + 1 if self._mips else dim
+        store_dim = self.pq_m if storage == "pq" else (dim + 1 if self._mips else dim)
         self.state = graph_init(
             cap, store_dim, self.config.m_max,
-            torch.uint8 if storage == "sq8" else self.dtype,
+            torch.uint8 if storage in ("sq8", "pq") else self.dtype,
             edge_dtype=self.edge_dtype, device=self.device,
         )
         self._sample_dirty = True
@@ -203,6 +220,34 @@ class HNSWIndex:
 
     # ------------------------------------------------------------------
 
+    def _pq_host_rerank(self, q: np.ndarray, d: np.ndarray, r: np.ndarray, k: int,
+                        normalize: bool) -> tuple[np.ndarray, np.ndarray]:
+        """Exact re-rank of the ADC-ranked pool against the host f16 copy
+        -> ([B, k] f32, [B, k] int32), in numpy as the reference does."""
+        if normalize:
+            q = q / np.maximum(np.linalg.norm(q, axis=1, keepdims=True), 1e-30)
+        vec = self._rerank_host[np.maximum(r, 0)].astype(np.float32)  # [B, P, dim]
+        ip = np.einsum("bd,bpd->bp", q, vec, dtype=np.float32)
+        vn = np.sum(vec * vec, axis=2)
+        qn = np.sum(q * q, axis=1, keepdims=True)
+        dist = np.maximum(qn - 2.0 * ip + vn, 0.0)
+        dist[(r < 0) | (d >= MASKED)] = np.float32(MASKED)
+        order = np.argsort(dist, axis=1)[:, :k]
+        d2 = np.take_along_axis(dist, order, axis=1).astype(np.float32)
+        r2 = np.take_along_axis(r, order, axis=1)
+        return d2, np.where(d2 >= MASKED, -1, r2).astype(np.int32)
+
+    def _host_store(self, vecs16: np.ndarray, start: int) -> None:
+        """Write rows into the host-RAM f16 re-rank copy, grown to the
+        capacity (the device never holds it)."""
+        cap = self.capacity
+        if self._rerank_host is None or self._rerank_host.shape[0] < cap:
+            new = np.zeros((cap, self.dim), np.float16)
+            if self._rerank_host is not None:
+                new[: self._rerank_host.shape[0]] = self._rerank_host
+            self._rerank_host = new
+        self._rerank_host[start:start + len(vecs16)] = vecs16
+
     def add(self, vecs) -> np.ndarray:
         """Store + link vectors; returns assigned internal row ids.
 
@@ -245,6 +290,7 @@ class HNSWIndex:
             jv = normalize_rows(jv)
         if self._mips:
             jv = torch.cat([jv, aug[:, None]], dim=1)
+        host = None  # storage="pq": the rows of the host re-rank copy
         if self.storage == "sq8":
             with self._mu:
                 if self.state.scale is None:
@@ -258,6 +304,19 @@ class HNSWIndex:
             # norms of the *dequantized* vectors: distances computed from
             # codes must see consistent |v|^2
             norms = squared_norms(store.float() * scale + offset)
+        elif self.storage == "pq":
+            with self._mu:
+                if self.state.pq_books is None:
+                    books = train_codebooks(
+                        jv[:PQ_TRAIN_SAMPLE], self.pq_m, PQ_TRAIN_ITERS
+                    )
+                    self.state = self.state._replace(pq_books=books)
+                books = self.state.pq_books
+            store = encode_rows(jv, books)
+            # |v_hat|^2 of the decoded rows: ADC distances see consistent norms
+            norms = squared_norms(pq_decode(store, books))
+            if self.pq_rerank:
+                host = jv.half().cpu().numpy()
         else:
             store = jv.to(self.dtype)
             # norms of the STORED (rounded) vectors, not the f32
@@ -265,17 +324,20 @@ class HNSWIndex:
             # inner products add a per-row bias 2*v.dv; consistent norms
             # make the metric |q - v_hat|^2 exactly
             norms = squared_norms(store)
-        return self._add_arrays(store, norms)
+        return self._add_arrays(store, norms, host)
 
-    def _add_arrays(self, store: torch.Tensor, norms) -> np.ndarray:
+    def _add_arrays(self, store: torch.Tensor, norms, host_rows=None) -> np.ndarray:
         """Write already-prepared storage rows + link (shared tail of
-        add(); the device fast path enters here directly)."""
+        add(); the device fast path enters here directly). host_rows: the
+        f16 re-rank rows of storage="pq"."""
         n = store.shape[0]
         cfg = self.config
         with self._mu:
             self._grow_to(self.count + n)
             if norms is None:
                 norms = squared_norms(store)
+            if host_rows is not None:
+                self._host_store(host_rows, self.count)
             s = self.state
             start = self.count
             s.vectors[start:start + n] = store
@@ -360,16 +422,7 @@ class HNSWIndex:
     def _fit_mask(self, mask) -> Optional[torch.Tensor]:
         """A filter mask on this device, cut or padded (False) to the
         capacity."""
-        if mask is None:
-            return None
-        cap = self.capacity
-        m = torch.as_tensor(mask, device=self.device).bool()
-        if m.shape[0] > cap:
-            return m[:cap]
-        if m.shape[0] < cap:
-            pad = torch.zeros(cap - m.shape[0], dtype=torch.bool, device=self.device)
-            return torch.cat([m, pad])
-        return m
+        return fit_mask(mask, self.capacity, self.device)
 
     def _report(self, q: torch.Tensor, d: torch.Tensor) -> np.ndarray:
         """Internal (augmented or unit-vector) L2 distances as the
@@ -401,6 +454,9 @@ class HNSWIndex:
         normalize = self.metric == Metric.COSINE
         cfg = self.config
         ef = max(ef_search or cfg.ef_search, k)
+        # PQ with re-rank: an oversampled ADC-ranked pool, re-ranked on the host
+        rerank = self.pq_rerank and self._rerank_host is not None
+        pool_k = min(max(4 * k, 32), ef) if rerank else k
         with self._mu:
             self._refresh_sample()
             eligible = self._fit_mask(filter_mask)
@@ -413,7 +469,7 @@ class HNSWIndex:
                 eligible=eligible, normalize=normalize, track_results=track,
                 expand_per_iter=cfg.search_expand, m_used=cfg.search_m_max, stats=stats,
             )
-            d, r = beam_search(self.state, q, self._sample_rows, k, ef, **kw)
+            d, r = beam_search(self.state, q, self._sample_rows, pool_k, ef, **kw)
             # the retry needs a host read to see fill-ness: skipped when
             # under-fill is implausible (no filter and the corpus dwarfs
             # ef: the entry scan alone yields >= k valid rows)
@@ -423,8 +479,12 @@ class HNSWIndex:
                     if filled or ef >= self.count:
                         break
                     ef = ef * 5
-                    d, r = beam_search(self.state, q, self._sample_rows, k, ef, **kw)
+                    d, r = beam_search(self.state, q, self._sample_rows, pool_k, ef, **kw)
             self.last_search_iters = stats["iters"]
+        if rerank:
+            d, r = self._pq_host_rerank(q.cpu().numpy(), d.cpu().numpy(), r.cpu().numpy(), k,
+                                        normalize)
+            return (cosine_report(d) if normalize else d), r
         return self._report(q, d), r.cpu().numpy()
 
     # ------------------------------------------------------------------
@@ -451,8 +511,13 @@ class HNSWIndex:
         with self._mu:
             s = self.state
             corpus = s.vectors
-            if s.scale is not None:  # sq8: transient dequant
-                corpus = (corpus.float() * s.scale + s.offset).to(torch.bfloat16)
+            # codes: a transient f32 decode, the rows whose norms norms_sq
+            # holds (the reference rounds it to bf16 and pairs it with
+            # the f32 norms, which biases every distance by 2 q.dv)
+            if s.scale is not None:  # sq8
+                corpus = corpus.float() * s.scale + s.offset
+            elif s.pq_books is not None:  # pq
+                corpus = pq_decode(corpus, s.pq_books)
             metric = Metric.L2 if (self._mips or self.metric == Metric.COSINE) else self.metric
             d, r = exact_search(
                 q, corpus, k, metric,
@@ -464,6 +529,10 @@ class HNSWIndex:
 
     def device_bytes(self) -> int:
         return self.state.device_bytes()
+
+    def host_bytes(self) -> int:
+        """The host-RAM re-rank copy of storage="pq"."""
+        return 0 if self._rerank_host is None else self._rerank_host.nbytes
 
     def export_state(self) -> dict:
         """longbow_tpu's HNSWIndex.export_state layout: numpy arrays cut
@@ -491,7 +560,9 @@ class HNSWIndex:
                 "search_expand": self.config.search_expand,
                 "mips_msq": self._mips_msq,
                 "pq_m": self.pq_m,
-                "vectors": host(s.vectors) if self.storage == "sq8" else host(s.vectors.float()),
+                "vectors": (
+                    host(s.vectors) if self.storage in ("sq8", "pq") else host(s.vectors.float())
+                ),
                 "edge_dtype": dtype_name(self.edge_dtype),
                 "norms_sq": host(s.norms_sq),
                 "valid": host(s.valid),
@@ -502,6 +573,10 @@ class HNSWIndex:
             if s.scale is not None:
                 st["sq8_scale"] = s.scale.cpu().numpy()
                 st["sq8_offset"] = s.offset.cpu().numpy()
+            if s.pq_books is not None:
+                st["pq_books"] = s.pq_books.cpu().numpy()
+            if self._rerank_host is not None:
+                st["pq_rerank_host"] = self._rerank_host[:n].copy()
         return st
 
     @classmethod
@@ -522,6 +597,7 @@ class HNSWIndex:
             capacity=max(MIN_CAPACITY, n),
             storage=storage,
             edge_dtype=storage_dtype(str(st.get("edge_dtype", "float32"))),
+            pq_m=int(st.get("pq_m", 0)) or None,
             device=device,
         )
         # without the bound a dot-metric index reports wrong inner
@@ -530,8 +606,12 @@ class HNSWIndex:
         s = idx.state
         if "sq8_scale" in st:
             s = s._replace(
-                scale=torch.as_tensor(np.asarray(st["sq8_scale"], np.float32), device=idx.device),
-                offset=torch.as_tensor(np.asarray(st["sq8_offset"], np.float32), device=idx.device),
+                scale=torch.tensor(np.asarray(st["sq8_scale"], np.float32), device=idx.device),
+                offset=torch.tensor(np.asarray(st["sq8_offset"], np.float32), device=idx.device),
+            )
+        if "pq_books" in st:  # trained books survive an import of 0 rows too
+            s = s._replace(
+                pq_books=torch.tensor(np.asarray(st["pq_books"], np.float32), device=idx.device)
             )
         if n:
             for name in ("vectors", "norms_sq", "valid", "nbrs", "nbr_dists", "nbr_count"):
@@ -541,4 +621,8 @@ class HNSWIndex:
             idx._dead = int(n - np.asarray(st["valid"], bool).sum())
             idx._sample_dirty = True
         idx.state = s
+        if "pq_rerank_host" in st:
+            idx._host_store(np.asarray(st["pq_rerank_host"], np.float16), 0)
+        elif n:  # a state without the host copy is served by ADC alone
+            idx.pq_rerank = False
         return idx

@@ -37,12 +37,13 @@ from longbow_tpu_torch.ops.distance import (
     MASKED_GUARD,
     Metric,
     cosine_report,
+    fit_mask,
     full_f32_matmul,
     normalize_rows,
     pad_to,
     tombstone_rows,
 )
-from longbow_tpu_torch.ops.kmeans import kmeans_init, lloyd
+from longbow_tpu_torch.ops.kmeans import kmeans_init, lloyd, nearest_center
 from longbow_tpu_torch.ops.scan import GROUP, fused_codes_search
 
 MIN_CAPACITY = 4096
@@ -306,15 +307,6 @@ class SQ8Index(_AffineCodes):
     def device_bytes(self) -> int:
         return _tensor_bytes(self.codes, self.norms_sq, self.valid, self.lo, self.hi)
 
-    def _fit_mask(self, mask, cap: int) -> Optional[torch.Tensor]:
-        """A filter mask on this device, cut or padded (False) to cap."""
-        if mask is None:
-            return None
-        m = torch.as_tensor(mask, device=self.device).bool()[:cap]
-        if m.shape[0] < cap:
-            m = torch.cat([m, torch.zeros(cap - m.shape[0], dtype=torch.bool, device=self.device)])
-        return m
-
     def search(self, queries, k: int, *, filter_mask=None):
         """-> (dist [B, k] f32, rows [B, k] int64) as numpy; masked or
         missing slots are (MASKED, -1). filter_mask: [capacity] bool of
@@ -328,7 +320,7 @@ class SQ8Index(_AffineCodes):
             q = normalize_rows(q)
         outs = []
         with self._mu:
-            mask = self._fit_mask(filter_mask, self.capacity)
+            mask = fit_mask(filter_mask, self.capacity, self.device)
             for off in range(0, q.shape[0], QUERY_CHUNK):
                 qc = q[off:off + QUERY_CHUNK]
                 if k <= FUSED_MAX_K:
@@ -467,18 +459,6 @@ def _relayout(
     inv = torch.full((ext_cap + 1,), -1, dtype=torch.int64, device=dev)
     inv[inv_idx] = torch.arange(new_cap, device=dev)
     return new_codes, new_gcid, new_norms, new_valid, new_ext, inv[:ext_cap]
-
-
-def _assign_chunked(v: torch.Tensor, centers: torch.Tensor, chunk: int = 65536) -> torch.Tensor:
-    """Nearest-center ids [n] (int64), chunked over rows so that the
-    [chunk, C] distance block stays bounded."""
-    full_f32_matmul()
-    cn = (centers * centers).sum(dim=1)
-    out = [
-        torch.argmin(cn[None, :] - 2.0 * (v[s:s + chunk] @ centers.T), dim=1)
-        for s in range(0, v.shape[0], chunk)
-    ]
-    return torch.cat(out) if out else torch.zeros(0, dtype=torch.int64, device=v.device)
 
 
 def _delta_append(codes, norms, valid, cids, exts, nc, nn, ncid, next_, row: int):
@@ -684,7 +664,7 @@ class SQ8ResidualIndex(_AffineCodes):
         self.hi = res.max(dim=0).values
 
     def _assign(self, v: torch.Tensor) -> torch.Tensor:
-        return _assign_chunked(v, self.centers)
+        return nearest_center(v, self.centers)
 
     # -- mutation -----------------------------------------------------
 

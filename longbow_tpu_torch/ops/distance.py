@@ -101,6 +101,31 @@ def tombstone_rows(valid: torch.Tensor, rows) -> torch.Tensor:
     return valid
 
 
+def fit_mask(mask, cap: int, device) -> Optional[torch.Tensor]:
+    """A filter mask as a bool tensor on `device`, cut or padded (False)
+    to cap rows; None stays None."""
+    if mask is None:
+        return None
+    m = torch.as_tensor(mask, device=device).bool()[:cap]
+    if m.shape[0] < cap:
+        m = torch.cat([m, torch.zeros(cap - m.shape[0], dtype=torch.bool, device=device)])
+    return m
+
+
+def as_rows(x, device, dim: int) -> torch.Tensor:
+    """Rows (a tensor, an array, or one vector) as f32 [n, dim] on
+    `device`; another width raises ValueError."""
+    if isinstance(x, torch.Tensor):
+        v = x.to(device, torch.float32)
+    else:
+        v = torch.from_numpy(np.ascontiguousarray(np.asarray(x), np.float32)).to(device)
+    if v.ndim == 1:
+        v = v[None, :]
+    if v.ndim != 2 or v.shape[1] != dim:
+        raise ValueError(f"expected [n, {dim}] vectors, got {tuple(v.shape)}")
+    return v
+
+
 def squared_norms(v) -> torch.Tensor:
     """Row-wise |v|^2 in float32."""
     vf = torch.as_tensor(v).float()

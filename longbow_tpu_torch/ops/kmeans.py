@@ -51,6 +51,21 @@ def kmeans_init(data: torch.Tensor, k: int, seed: int = 0) -> torch.Tensor:
     `seed`. The rows differ from longbow_tpu's, whose jax.random.choice
     draws from another generator; tests hand both the same init."""
     n = data.shape[1]
+    if k > n:  # as jax.random.choice without replacement
+        raise ValueError(f"kmeans_init: cannot take {k} distinct rows of {n}")
     gen = torch.Generator().manual_seed(seed)
     idx = torch.randperm(n, generator=gen)[:k].to(data.device)
     return data[:, idx]
+
+
+def nearest_center(v: torch.Tensor, centers: torch.Tensor, chunk: int = 65536) -> torch.Tensor:
+    """Nearest-center ids [n] (int64) of rows v [n, D] by argmin of
+    |c|^2 - 2 v.c, chunked over rows so that the [chunk, C] distance
+    block stays bounded (ties go to the lower id)."""
+    full_f32_matmul()
+    cn = (centers * centers).sum(dim=1)
+    out = [
+        torch.argmin(cn[None, :] - 2.0 * (v[s:s + chunk] @ centers.T), dim=1)
+        for s in range(0, v.shape[0], chunk)
+    ]
+    return torch.cat(out) if out else torch.zeros(0, dtype=torch.int64, device=v.device)

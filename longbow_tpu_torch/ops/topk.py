@@ -7,7 +7,7 @@ from __future__ import annotations
 
 import torch
 
-from longbow_tpu_torch.ops.distance import MASKED
+from longbow_tpu_torch.ops.distance import MASKED, MASKED_GUARD
 
 
 def topk_smallest(dist: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -98,3 +98,13 @@ def later_duplicate(ids: torch.Tensor) -> torch.Tensor:
     rep = torch.zeros_like(s, dtype=torch.bool)
     rep[:, 1:] = s[:, 1:] == s[:, :-1]
     return torch.zeros_like(rep).scatter_(1, order, rep)
+
+
+def pad_k(d: torch.Tensor, i: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(d, i) [B, <= k] widened to k columns with (MASKED, -1), and every
+    masked slot's id set to -1."""
+    if d.shape[1] < k:
+        pad = k - d.shape[1]
+        d = torch.cat([d, torch.full((d.shape[0], pad), MASKED, device=d.device)], dim=1)
+        i = torch.cat([i, torch.full((i.shape[0], pad), -1, dtype=i.dtype, device=i.device)], dim=1)
+    return d, torch.where(d < MASKED_GUARD, i, torch.full_like(i, -1))

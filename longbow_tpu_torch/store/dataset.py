@@ -337,6 +337,9 @@ class Dataset:
             "index_rows": len(self.index),
             "capacity": self.index.capacity,
             "device_bytes": self.device_bytes(),
+            # host RAM or file bytes of the index beside the device: the
+            # disk tier's rows, a PQ graph's re-rank copy
+            "host_bytes": getattr(self.index, "host_bytes", lambda: 0)(),
             "fields": self.columns.fields(),
             # a failed migration to the graph tier leaves the flat tier
             # serving; this is where it shows

@@ -241,8 +241,8 @@ def test_factory_kinds_and_parameters(monkeypatch):
     h.add(gaussian(300, D, 80))  # the first add builds the graph, no probe
     assert h.kind == "hnsw" and h.last_contrast is None
     for kind in ("adaptive", "hnsw"):
-        with pytest.raises(NotImplementedError, match="pq"):
-            make_index(kind, D, "l2", dtype=torch.float32, device="cpu", storage="pq")
+        p = make_index(kind, D, "l2", dtype=torch.float32, device="cpu", storage="pq", pq_m=8)
+        assert (p.storage, p.pq_m) == ("pq", 8)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make_index("adaptive", D, "l2", dtype=torch.float32)
@@ -257,3 +257,20 @@ def test_sq8_graph_tier_after_migration():
     got = idx.search(q, 10, ef_search=64)[1]
     want = idx.search(q, 10, exact=True)[1]
     assert recall(got, want) >= 0.9
+
+
+def test_pq_graph_tier_after_migration():
+    data, q = gaussian(2048, D, 83), gaussian(16, D, 84)
+    idx = AdaptiveIndex(D, migration_threshold=1024, hnsw_config=HNSWConfig(**CFG),
+                        storage="pq", pq_m=8, device="cpu")
+    idx.add(data)
+    assert idx.wait_migration() and idx._graph.state.vectors.shape[1] == 8
+    from longbow_tpu_torch.ops.distance import exact_search
+
+    got = idx.search(q, 10, ef_search=64)[1]
+    # the pool is re-ranked against the original rows: hold it to them
+    assert recall(got, exact_search(q, data, 10, device="cpu")[1].numpy()) >= 0.9
+    assert idx.host_bytes() == idx.capacity * D * 2
+    again = import_index(idx.export_state(), device="cpu")
+    assert again.storage == "pq" and again.pq_m == 8
+    np.testing.assert_array_equal(again.search(q, 10, ef_search=64)[1], got)

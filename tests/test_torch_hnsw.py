@@ -295,11 +295,84 @@ def test_no_card_no_pq_and_bad_input():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             HNSWIndex(D)
-    with pytest.raises(NotImplementedError, match="pq"):
-        HNSWIndex(D, storage="pq", device="cpu")
+    # storage="pq": l2 and cosine only, pq_m must divide the dim
+    with pytest.raises(ValueError, match="pq"):
+        HNSWIndex(D, "dot", storage="pq", device="cpu")
+    with pytest.raises(ValueError, match="divisible"):
+        HNSWIndex(D, storage="pq", pq_m=5, device="cpu")
+    assert HNSWIndex(D, storage="pq", device="cpu").pq_m == D // 4
     with pytest.raises(ValueError):
         HNSWIndex(D, storage="nope", device="cpu")
     idx = HNSWIndex(D, device="cpu")
     with pytest.raises(ValueError):
         idx.add(np.ones((3, D + 1), np.float32))
     assert idx.device_bytes() == 8192 * (D * 4 + 4 + 1 + 64 * 4 + 64 * 4 + 4)
+
+
+def test_pq_storage_recall_incremental_and_round_trip():
+    """tests/test_hnsw.py::test_pq_graph_storage's fixture and gate: PQ
+    codes as the traversal payload, books trained on the first batch, an
+    exact re-rank of the ADC pool against the host f16 copy, incremental
+    adds through the trained books, and an export/import round trip."""
+    from longbow_tpu_torch.ops.distance import exact_search
+
+    rng = np.random.default_rng(0)
+    n, d = 4000, 32
+    centers = rng.standard_normal((64, d)).astype(np.float32) * 4.0
+    v = centers[rng.integers(0, 64, n)] + 0.3 * rng.standard_normal((n, d)).astype(np.float32)
+    idx = HNSWIndex(d, config=HNSWConfig(m=12, m_max=24, ef_search=64), dtype=torch.bfloat16,
+                    storage="pq", pq_m=8, capacity=n, device="cpu")
+    idx.add(v)
+    assert idx.state.vectors.shape == (idx.capacity, 8)
+    assert idx.state.vectors.dtype == torch.uint8
+    assert idx.state.pq_books.shape == (8, 256, 4)
+    assert idx.host_bytes() == idx.capacity * d * 2
+    q = v[:64] + 0.01 * rng.standard_normal((64, d)).astype(np.float32)
+    _, want = exact_search(q, v, 10, device="cpu")
+    _, rr = idx.search(q, 10)
+    assert recall(rr, want.numpy()) >= 0.9
+    idx.add(v[:100] + 0.05)
+    assert idx.count == n + 100
+    dd, rr = idx.search(q, 10)
+    st = idx.export_state()
+    assert st["vectors"].dtype == np.uint8 and st["pq_rerank_host"].dtype == np.float16
+    again = HNSWIndex.import_state(st, device="cpu")
+    d2, r2 = again.search(q, 10)
+    np.testing.assert_array_equal(r2, rr)
+    np.testing.assert_array_equal(d2, dd)
+    # exact=True scans a transient bf16 decode of the codes
+    _, re = again.exact_search(q, 10)
+    _, want_decoded = exact_search(q, again.get_vectors(np.arange(n + 100)), 10, device="cpu")
+    assert recall(re, want_decoded.numpy()) >= 0.97
+
+
+@pytest.mark.parametrize("metric", ["l2", "cosine"])
+def test_pq_storage_matches_jax(monkeypatch, metric):
+    """Both packages train from JAX's init (the port's draw differs), so
+    books agree to rtol 1e-4 / atol 1e-5; codes and adjacency are then
+    equal but for rounding near ties; results as assert_same; state
+    crosses both ways."""
+    from longbow_tpu.ops.kmeans import kmeans_init as jax_kmeans_init
+    from longbow_tpu_torch.index import pq as tpq
+
+    data, q = gaussian(1500, D, 50), gaussian(16, D, 51)
+    rows = data / np.linalg.norm(data, axis=1, keepdims=True) if metric == "cosine" else data
+    sub = jnp.asarray(rows).reshape(-1, 4, D // 4).transpose(1, 0, 2)
+    init = torch.from_numpy(np.array(jax_kmeans_init(sub, 256, 0)))
+    monkeypatch.setattr(tpq, "kmeans_init", lambda x, k, seed=0: init)
+    ji, ti = pair(metric, jkw=dict(storage="pq", pq_m=4), tkw=dict(storage="pq", pq_m=4))
+    ji.add(data)
+    ti.add(data)
+    np.testing.assert_allclose(ti.state.pq_books.numpy(), np.asarray(ji.state.pq_books),
+                               rtol=1e-4, atol=1e-5)
+    assert (ti.state.vectors[:1500].numpy() == np.asarray(ji.state.vectors[:1500])).mean() > 0.999
+    nbrs_j, nbrs_t = np.asarray(ji.state.nbrs[:1500]), ti.state.nbrs[:1500].numpy()
+    assert (nbrs_j == nbrs_t).mean() > 0.99
+    assert_same(ji.search(q, 10), ti.search(q, 10), exact=False, atol=1e-4)
+    for idx in (ji, ti):
+        idx.delete_rows(np.array([3, 9]))
+    moved = HNSWIndex.import_state(ji.export_state(), device="cpu")
+    assert moved.pq_m == 4 and moved._rerank_host.dtype == np.float16
+    assert_same(ji.search(q, 10), moved.search(q, 10), exact=False, atol=1e-4)
+    back = JaxHNSW.import_state(ti.export_state())
+    assert_same(back.search(q, 10), ti.search(q, 10), exact=False, atol=1e-4)

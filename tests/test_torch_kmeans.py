@@ -61,3 +61,10 @@ def test_kmeans_init_is_seeded_and_distinct():
     # rows of the data, the same rows for every problem
     rows = [(data[0] == r).all(dim=1).nonzero()[0, 0] for r in a[0]]
     assert torch.equal(a[1], data[1][torch.stack(rows)])
+
+
+def test_kmeans_init_wants_k_distinct_rows():
+    """As jax.random.choice without replacement: k > n raises (a PQ index's
+    first add needs 256 rows, an IVF index's 16)."""
+    with pytest.raises(ValueError, match="distinct"):
+        kmeans_init(torch.zeros((1, 10, 4)), 11, 0)

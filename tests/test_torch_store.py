@@ -101,15 +101,19 @@ def test_store_lifecycle_and_cache():
 
 
 def test_factory_ports_flat_only():
-    """adaptive, flat, hnsw, sq8 and sq8r are ported; every other kind
-    raises. An adaptive index below its threshold is of kind flat."""
-    assert set(PORTED_KINDS) == {"adaptive", "flat", "hnsw", "sq8", "sq8r"}
+    """Every single-device kind is ported and reads its own export back;
+    only the device-mesh kinds raise. An adaptive index below its
+    threshold is of kind flat."""
+    assert set(PORTED_KINDS) == {"adaptive", "flat", "hnsw", "pq", "sq8", "sq8r", "bq",
+                                 "disk", "ivf"}
+    rows = _clustered(300, 16, 5)  # pq trains 256 centroids: at least 256 rows
     for kind in PORTED_KINDS:
-        idx = make_index(kind, 8, "l2", dtype=torch.bfloat16, device="cpu")
-        idx.add(np.eye(8, dtype=np.float32))
+        idx = make_index(kind, 16, "l2", dtype=torch.bfloat16, device="cpu")
+        idx.add(rows)
         again = import_index(idx.export_state(), device="cpu")
-        assert len(again) == 8 and again.kind == {"adaptive": "flat"}.get(kind, kind)
+        assert len(again) == 300 and again.kind == {"adaptive": "flat"}.get(kind, kind)
         assert type(again) is type(idx)
+        np.testing.assert_array_equal(again.search(rows[:4], 3)[1], idx.search(rows[:4], 3)[1])
     for kind in INDEX_KINDS:
         if kind not in PORTED_KINDS:
             with pytest.raises(NotImplementedError, match=kind):
@@ -275,3 +279,83 @@ def test_port_sources_name_no_forbidden_import():
         text = path.read_text()
         for bad in forbidden:
             assert bad not in text, f"{path}: {bad.strip()}"
+
+
+# the quantized kinds of this slice, with the params that reach the index
+NEW_KINDS = {
+    "pq": {"pq_m": 8},
+    "bq": {},
+    "ivf": {"n_probe": 6},
+    "disk": {"rerank_factor": 8},
+}
+
+
+@pytest.mark.parametrize("kind", sorted(NEW_KINDS))
+def test_new_kinds_through_the_store(kind, tmp_path):
+    """pq, bq, ivf and disk through VectorStore.get_or_create and the
+    same put / delete / filtered-search sequence as longbow_tpu's store.
+    bq and disk train nothing random, so their ids equal JAX's wherever
+    neighbouring scores differ by more than 1e-4 (and scores to rtol
+    1e-5 / atol 1e-4); pq and ivf draw another k-means init, so they are
+    held to recall@10 against the store's exact flat twin, no lower than
+    JAX's by more than 0.05. Every kind has a recall floor too."""
+    params = dict(NEW_KINDS[kind])
+    if kind == "disk":
+        params["path"] = str(tmp_path / "rows.f32")
+    data, q = _clustered(3000, D, 31), _clustered(16, D, 32)
+    ids = np.arange(3000, dtype=np.int64) + 500
+    cols = {"n": np.arange(3000) % 4}
+    out = {}
+    for name, st in (("port", VectorStore(device="cpu")), ("jax", JaxStore())):
+        ds = st.get_or_create("ds", D, index_kind=kind, index_params=params)
+        st.put("ds", ids[:1500], data[:1500], {"n": cols["n"][:1500]})
+        st.put("ds", ids[1500:], data[1500:], {"n": cols["n"][1500:]})
+        assert st.delete("ds", ids[:3000:10]) == 300
+        filt = (Filter if name == "port" else JaxFilter)("n", "eq", "2")
+        out[name] = (st.search("ds", q, 10), st.search("ds", q, 10, filters=[filt]), ds)
+    (gi, gs, gok), (fi, _, fok), ds = out["port"]
+    (wi, ws, wok), _, _ = out["jax"]
+    assert ds.index.kind == kind and ds.index_params == params
+    stats = ds.stats()
+    assert stats["index_kind"] == kind and stats["live_rows"] == 2700 and stats["device_bytes"] > 0
+    assert stats["host_bytes"] == (4096 * D * 4 if kind == "disk" else 0)
+    assert gok.all() and not (set(gi.ravel().tolist()) & set(ids[:3000:10].tolist()))
+    assert fok.any() and all((int(x) - 500) % 4 == 2 for x in fi[fok])
+    exact = VectorStore(device="cpu", dtype=torch.float32, default_index_kind="flat")
+    exact.put("ds", ids, data)
+    exact.delete("ds", ids[:3000:10])
+    want = exact.search("ds", q, 10)[0]
+    rec = np.mean([len(set(a) & set(b)) / 10 for a, b in zip(gi, want)])
+    jrec = np.mean([len(set(a) & set(b)) / 10 for a, b in zip(wi, want)])
+    floor = {"bq": 0.5, "disk": 0.95}.get(kind, 0.8)  # bq: 32 sign bits a row
+    assert rec >= floor and rec >= jrec - 0.05, (rec, jrec)
+    if kind in ("bq", "disk"):
+        np.testing.assert_allclose(gs, ws, rtol=1e-5, atol=1e-4)
+        gap = np.full(ws.shape, np.inf)
+        step = np.diff(ws, axis=1)
+        gap[:, 1:] = np.minimum(gap[:, 1:], step)
+        gap[:, :-1] = np.minimum(gap[:, :-1], step)
+        sure = gap > 1e-3
+        np.testing.assert_array_equal(gi[sure], wi[sure])
+
+
+@pytest.mark.parametrize("kind", ["pq", "bq", "ivf", "disk", "hnsw_pq"])
+def test_import_index_reads_jax_states(kind):
+    """A state longbow_tpu's factory wrote is served by the port with the
+    same answers (ids where scores are apart, distances to rtol 1e-5 /
+    atol 1e-3), and the port's export goes back into longbow_tpu."""
+    from longbow_tpu.index.factory import import_index as jax_import
+    from longbow_tpu.index.factory import make_index as jax_make
+    from test_torch_pq import assert_close_results
+
+    real = "hnsw" if kind == "hnsw_pq" else kind
+    params = {"storage": "pq", "pq_m": 4} if kind == "hnsw_pq" else {}
+    data, q = _clustered(2048, D, 33), _clustered(16, D, 34)
+    j = jax_make(real, D, "l2", **params)
+    j.add(data)
+    j.delete_rows(np.arange(0, 2048, 9))
+    t = import_index(j.export_state(), device="cpu")
+    assert t.kind == real and len(t) == 2048
+    assert_close_results(j.search(q, 10), t.search(q, 10), 10, atol=1e-3)
+    back = jax_import(t.export_state())
+    assert_close_results(back.search(q, 10), t.search(q, 10), 10, atol=1e-3)
