@@ -90,7 +90,40 @@ Phases, each of which passes or ends the run with a non-zero exit:
                device bytes a row. Launch counts are set to 0 just before this
                phase and read just after it; then K1 is held against its plain
                version on the arguments of the IVF spill segment's first launch and
-               K2 on those of the disk tier's, each timed there beside its bound.
+               K2 on those of the disk tier's, each timed there beside its bound;
+  9. store services - on phase 4's 1,000,000 x 128 rows and 1,000 queries, k = 10:
+               9.1 hybrid search on a flat dataset with a `category` and a `text`
+               column (12 Zipf(1.1) words over 50,000 and the row's cluster word):
+               ingest rows/s with BM25, BM25Index's top-30 scores against a brute
+               force over a scipy.sparse term-document matrix (relative 1e-5, 100
+               queries), hybrid_search "rrf" against the RRF formula over the
+               store's own two halves, a category filter (0 violations), 1% of the
+               ids deleted (none returned by either half), p50 of 16 single-query
+               searches in "linear", "rrf" and "cascade" and a 1,000-vector batch
+               with one text; 9.2 an edge from every live id to a seeded live id of
+               its cluster (edges/s), p50 of traverse_graph (bfs, 2 hops) and of
+               hybrid_search with graph_alpha 0.3, every id returned live; 9.3 a flat
+               dataset with 600,000 of its rows deleted, compacted while a second
+               thread searches it (searches served, their largest latency, none may
+               fail): 600,000 rows reclaimed, capacity 1,048,576 -> 524,288, device
+               bytes halved, results equal to a fresh dataset of the live rows in
+               the same order, recall@10 against the f32 oracle over the live rows
+               >= 0.95, K1 launched; 9.4 the same with sq8: the live rows' codes bit
+               for bit unchanged, recall@10 against exact search over the
+               dequantized live rows >= 0.99, K2 launched; 9.5 memory backpressure
+               on the compacted flat dataset (soft limit at half its device bytes,
+               hard just under them): a put is rejected, enforce() evicts the least
+               recently read rows of an EvictionManager down to the soft limit,
+               none comes back, longbow_memory_pressure_level reads 2 then 0; 9.6 the
+               metrics registry's text: every sample in the catalog,
+               longbow_tpu_hbm_bytes_in_use equal to each dataset's device_bytes(),
+               the search count, longbow_simd_dispatch_total{"cuda_fused"} and
+               {"cuda_sq8_fused"}, the compactions and the BM25 documents equal to
+               what the phase did, and the size of the debug mux's /metrics answer
+               over a loopback port. Launch counts are set to 0 just before the phase
+               and read just after it; then K1 is held against its plain version on
+               the arguments of the hybrid dataset's dense search and K2 on those of
+               the compacted sq8 dataset's search.
 The last line of standard output is {"ok": true, "device": {...}}.
 
 Imports torch, numpy and longbow_tpu_torch only.
@@ -149,14 +182,15 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def make_corpus(n: int, d: int, seed: int = 0) -> np.ndarray:
+def make_corpus(n: int, d: int, seed: int = 0, clusters: bool = False):
     """The clustered recipe of bench.py's make_corpus: a mixture of 1024
-    Gaussian clusters (centers x4, unit noise), seeded."""
+    Gaussian clusters (centers x4, unit noise), seeded. clusters=True also
+    returns each row's cluster."""
     rng = np.random.default_rng(seed)
     centers = rng.standard_normal((1024, d)).astype(np.float32) * 4.0
     assign = rng.integers(0, 1024, n)
-    out = centers[assign] + rng.standard_normal((n, d)).astype(np.float32)
-    return out.astype(np.float32)
+    out = (centers[assign] + rng.standard_normal((n, d)).astype(np.float32)).astype(np.float32)
+    return (out, assign) if clusters else out
 
 
 def time_ms(fn, reps: int) -> float:
@@ -1345,6 +1379,556 @@ def phase_index_kinds(bw: float, flops: float, reps: int) -> dict:
     return out
 
 
+# -- 9. store services ------------------------------------------------------
+
+VOCAB = 50_000          # text words w1 .. w50000
+TEXT_WORDS = 12         # Zipf(1.1) words a row, beside its cluster word
+BM25_QUERIES = 100
+BM25_TOP = 30
+BM25_RTOL = 1e-5
+COMPACT_DELETE = 600_000
+QUANT_COMPACT_GATE = 0.99   # sq8 after compaction, against its dequantized live rows
+
+
+def zipf_words(rng, shape) -> np.ndarray:
+    """Word numbers drawn from Zipf(1.1) over VOCAB words (draws past it
+    redrawn uniformly)."""
+    z = rng.zipf(1.1, shape)
+    over = z > VOCAB
+    z[over] = rng.integers(1, VOCAB + 1, int(over.sum()))
+    return z
+
+
+def bm25_brute_force(words, clusters, query_terms: list[set], top: int) -> list[np.ndarray]:
+    """Top-`top` BM25 scores (k1 1.2, b 0.75, the idf of hybrid/bm25.py)
+    of each query's term set, over a scipy.sparse term-document matrix
+    of every row's 12 words and its cluster word."""
+    import scipy.sparse as sp
+
+    n = words.shape[0]
+    k1, b = 1.2, 0.75
+    cols = np.concatenate([words, VOCAB + 1 + clusters[:, None]], axis=1)
+    rows = np.repeat(np.arange(n), cols.shape[1])
+    m = sp.coo_matrix((np.ones(rows.size), (rows, cols.ravel())),
+                      shape=(n, VOCAB + 1 + 1024)).tocsc()
+    m.sum_duplicates()
+    dl = np.asarray(m.sum(axis=1)).ravel()
+    avg = dl.sum() / n
+    out = []
+    for terms in query_terms:
+        scores = np.zeros(n)
+        for t in terms:
+            lo, hi = m.indptr[t], m.indptr[t + 1]
+            docs, tf = m.indices[lo:hi], m.data[lo:hi]
+            df = hi - lo
+            if df == 0:
+                continue
+            idf = np.log(1.0 + (n - df + 0.5) / (df + 0.5))
+            scores[docs] += idf * tf * (k1 + 1) / (tf + k1 * (1 - b + b * dl[docs] / avg))
+        best = np.sort(scores)[::-1][:top]
+        out.append(best[best > 0])
+    return out
+
+
+def term_of(token: str) -> int:
+    """A token's column in bm25_brute_force's matrix."""
+    return int(token[1:]) if token[0] == "w" else VOCAB + 1 + int(token[1:])
+
+
+def parse_metrics(text: str) -> dict:
+    """{(sample name, ((label, value), ...)): value} of a Prometheus text
+    exposition."""
+    import re
+
+    line_re = re.compile(r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(?:\{(.*)\})? (\S+)$')
+    label_re = re.compile(r'(\w+)="((?:[^"\\]|\\.)*)"')
+    out = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        m = line_re.match(line)
+        if m is None:
+            fail(f"metrics: cannot parse {line!r}")
+        labels = tuple(sorted(label_re.findall(m.group(2) or "")))
+        out[(m.group(1), labels)] = float(m.group(3))
+    return out
+
+
+def metric_sum(samples: dict, name: str, **labels) -> float:
+    """The sum of a sample over every label set that holds `labels`."""
+    return sum(v for (n, ls), v in samples.items()
+               if n == name and all(dict(ls).get(k) == val for k, val in labels.items()))
+
+
+def in_catalog(name: str, catalog: dict) -> bool:
+    if name in catalog:
+        return True
+    for sfx in ("_bucket", "_count", "_sum"):
+        if name.endswith(sfx) and catalog.get(name[: -len(sfx)], ("",))[0] in (
+                "histogram", "size_histogram"):
+            return True
+    if name.endswith("_created"):
+        base = name[: -len("_created")]
+        return base in catalog or base + "_total" in catalog
+    return False
+
+
+def p50_ms(fn, n: int = 16) -> float:
+    lat = []
+    for j in range(n):
+        t = time.perf_counter()
+        fn(j)
+        lat.append(time.perf_counter() - t)
+    return 1e3 * statistics.median(lat)
+
+
+def phase_services(bw: float, flops: float, reps: int, flat_ingest_rows_per_s: float) -> dict:
+    """9. the store's services through VectorStore on phase 4's rows: hybrid
+    dense + BM25 search, the GraphRAG edge store, compaction of a flat (K1)
+    and an sq8 (K2) dataset with searches served during it, memory
+    backpressure with eviction, and the metrics registry's reading of it
+    all."""
+    import threading
+    import urllib.request
+
+    from longbow_tpu_torch.hybrid.bm25 import tokenize
+    from longbow_tpu_torch.index import sq8
+    from longbow_tpu_torch.metrics import get_registry
+    from longbow_tpu_torch.metrics.registry import _CATALOG
+    from longbow_tpu_torch.ops import _kernels, scan
+    from longbow_tpu_torch.ops.distance import Metric, exact_search
+    from longbow_tpu_torch.query.parser import Filter
+    from longbow_tpu_torch.store import compaction
+    from longbow_tpu_torch.store.vector_store import VectorStore
+
+    out: dict = {}
+    t_phase = time.perf_counter()
+    allv, assign = make_corpus(N_STORE + N_QUERIES, D_STORE, seed=0, clusters=True)
+    corpus, queries = allv[:N_STORE], allv[N_STORE:]
+    clusters, qclusters = assign[:N_STORE], assign[N_STORE:]
+    ids = np.arange(N_STORE, dtype=np.int64)
+    rng = np.random.default_rng(9)
+    words = zipf_words(rng, (N_STORE, TEXT_WORDS))
+    texts = np.array([" ".join(f"w{w}" for w in row) + f" c{c}"
+                      for row, c in zip(words.tolist(), clusters.tolist())])
+    qwords = zipf_words(rng, (N_QUERIES, 2))
+    qtexts = [f"c{c} w{a} w{b}" for c, (a, b) in zip(qclusters.tolist(), qwords.tolist())]
+
+    # every store search of the phase is counted here (none is served
+    # from the query cache: use_cache=False throughout), and which kernel
+    # its index sends it to; every compaction too
+    count_mu = threading.Lock()
+    counts = {"searches": 0, "flat_fused": 0, "sq8_fused": 0, "compactions": 0}
+    real_search, real_compact = VectorStore.search, compaction.compact_dataset
+
+    def counted_search(self, dataset, q, k, **kw):
+        kind = self.get(dataset).index.kind
+        with count_mu:
+            counts["searches"] += 1
+            if not kw.get("exact") and k <= 64:
+                if kind == "flat":
+                    counts["flat_fused"] += 1
+                elif kind == "sq8":
+                    counts["sq8_fused"] += 1
+        return real_search(self, dataset, q, k, **kw)
+
+    def counted_compact(ds):
+        with count_mu:
+            counts["compactions"] += 1
+        return real_compact(ds)
+
+    reg = get_registry()
+    before = parse_metrics(reg.text().decode())
+    VectorStore.search, compaction.compact_dataset = counted_search, counted_compact
+    _kernels.reset_launch_counts()
+    try:
+        out.update(services_hybrid(corpus, queries, ids, clusters, words, texts, qtexts,
+                                   flat_ingest_rows_per_s, tokenize, Filter, VectorStore,
+                                   counts))
+        hstore = out.pop("_store")
+        svc_call = first_call(scan, "fused_flat_search",
+                              lambda: hstore.search("hybrid", queries, 10, use_cache=False),
+                              "the hybrid dataset's search")
+        out.update(services_compaction(corpus, queries, ids, Metric, exact_search,
+                                       compaction, VectorStore, _kernels))
+        cstore, sstore = out.pop("_cstore"), out.pop("_sstore")
+        codes_call = first_call(sq8, "fused_codes_search",
+                                lambda: sstore.search("compact_sq8", queries, 10, use_cache=False),
+                                "the compacted sq8 search")
+        out.update(services_backpressure(cstore, corpus, queries, compaction))
+        torch.cuda.synchronize()
+    finally:
+        VectorStore.search, compaction.compact_dataset = real_search, real_compact
+    out["launches"] = {k.name: k.launches for k in _kernels.KERNELS}
+    for kernel in _kernels.KERNELS:
+        if kernel.launches == 0:
+            fail(f"kernel {kernel.name} was not launched on the services' path")
+
+    # 9.6 the registry's reading of the phase
+    t0 = time.perf_counter()
+    text = reg.text().decode()
+    after = parse_metrics(text)
+    bad = sorted({n for n, _ in after if not in_catalog(n, _CATALOG)})
+    if bad:
+        fail(f"metrics: samples outside the catalog: {bad[:5]}")
+    live = {"hybrid": hstore, "compact_flat": cstore, "compact_sq8": sstore}
+    hbm = {}
+    for name, st in live.items():
+        got = after.get(("longbow_tpu_hbm_bytes_in_use", (("dataset", name),)))
+        want = st.get(name).device_bytes()
+        if got != want:
+            fail(f"metrics: longbow_tpu_hbm_bytes_in_use{{dataset={name}}} {got} != {want}")
+        hbm[name] = want
+
+    def delta(name, **labels):
+        return metric_sum(after, name, **labels) - metric_sum(before, name, **labels)
+
+    readings = {
+        "searches": (delta("longbow_vector_search_latency_seconds_count"), counts["searches"]),
+        "cuda_fused": (delta("longbow_simd_dispatch_total", implementation="cuda_fused"),
+                       counts["flat_fused"]),
+        "cuda_sq8_fused": (delta("longbow_simd_dispatch_total", implementation="cuda_sq8_fused"),
+                           counts["sq8_fused"]),
+        "compactions_ok": (delta("longbow_compaction_operations_total", status="ok"),
+                           counts["compactions"]),
+        "bm25_documents": (delta("longbow_bm25_documents_indexed_total"), N_STORE),
+    }
+    for key, (got, want) in readings.items():
+        if got != want:
+            fail(f"metrics: {key} rose by {got}, the phase made {want}")
+    if out["launches"]["fused_scan"] < counts["flat_fused"]:
+        fail("metrics: K1 launched fewer times than the searches counted as cuda_fused")
+    port = reg.serve(0, host="127.0.0.1")
+    try:
+        body = urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=30).read()
+    finally:
+        reg.close()
+    out["metrics"] = {"readings": {k: v[0] for k, v in readings.items()},
+                      "hbm_bytes_in_use": hbm, "samples": len(after),
+                      "debug_mux_metrics_bytes": len(body), "seconds": time.perf_counter() - t0}
+    emit({"services_metrics": out["metrics"]})
+
+    # held against the plain versions after the counts are read
+    out["k1_services"] = check_build_scan("hybrid_dense", svc_call, bw, flops, reps,
+                                          finds_itself=False)
+    out["k2_services"] = check_codes_call("compacted_sq8", codes_call, bw, flops, reps)
+    del svc_call, codes_call
+    for st, name in ((hstore, "hybrid"), (cstore, "compact_flat"), (sstore, "compact_sq8")):
+        st.drop(name)
+    out["seconds"] = time.perf_counter() - t_phase
+    emit({"services": {k: out[k] for k in ("launches", "k1_services", "k2_services", "seconds")}})
+    return out
+
+
+def services_hybrid(corpus, queries, ids, clusters, words, texts, qtexts, flat_rate,
+                    tokenize, Filter, VectorStore, counts) -> dict:
+    """9.1 hybrid search and 9.2 the graph store, on a flat dataset of the
+    1M rows with a `category` and a `text` column."""
+    t0 = time.perf_counter()
+    store = VectorStore(device=DEVICE, dtype=torch.bfloat16, default_index_kind="flat")
+    category = ids % 1000
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for s in range(0, N_STORE, PUT_BATCH):
+        e = min(s + PUT_BATCH, N_STORE)
+        store.put("hybrid", ids[s:e], corpus[s:e],
+                  {"category": category[s:e], "text": texts[s:e]})
+    ds = store.get("hybrid")
+    ds.index.flush()
+    torch.cuda.synchronize()
+    row: dict = {"ingest_rows_per_s_with_bm25": N_STORE / (time.perf_counter() - t),
+                 "ingest_rows_per_s_without_bm25": flat_rate,
+                 "bm25_documents": len(ds.bm25)}
+    print(f"hybrid ingest: {row['ingest_rows_per_s_with_bm25']:.0f} rows/s with BM25, "
+          f"{flat_rate:.0f} without (phase 4)", flush=True)
+    ds.warm()
+    counts["flat_fused"] += 1  # the warm-up: the index's own search, not the store's
+
+    # BM25 against a brute force over a scipy.sparse term-document matrix
+    t = time.perf_counter()
+    terms = [{term_of(tok) for tok in tokenize(qt)} for qt in qtexts[:BM25_QUERIES]]
+    want = bm25_brute_force(words, clusters, terms, BM25_TOP)
+    worst = 0.0
+    for j, w in enumerate(want):
+        got = np.array([sc for _, sc in ds.bm25.search(qtexts[j], BM25_TOP)])
+        if got.shape != w.shape:
+            fail(f"bm25 query {j}: {len(got)} hits, brute force {len(w)}")
+        rel = np.abs(got - w) / np.maximum(np.abs(w), 1e-30)
+        worst = max(worst, float(rel.max()) if rel.size else 0.0)
+    if worst > BM25_RTOL:
+        fail(f"bm25: scores {worst} off the brute force (relative), gate {BM25_RTOL}")
+    row["bm25_max_rel_err"] = worst
+    row["bm25_check_seconds"] = time.perf_counter() - t
+
+    # rrf against the formula over the store's own two halves
+    for j in range(20):
+        q = queries[j:j + 1]
+        d_ids, _, d_ok = store.search("hybrid", q, 30, use_cache=False)
+        lists = [[x for x, ok in zip(d_ids[0], d_ok[0]) if ok],
+                 [doc for doc, _ in ds.bm25.search(qtexts[j], 30)]]
+        score: dict = {}
+        for lst in lists:
+            for r, doc in enumerate(lst):
+                score[doc] = score.get(doc, 0.0) + 1.0 / (60 + r + 1)
+        want_rrf = sorted(score.items(), key=lambda kv: -kv[1])[:10]
+        h_ids, h_sc, h_ok = store.hybrid_search("hybrid", q, 10, text_query=qtexts[j],
+                                                fusion="rrf")
+        got_rrf = [(x, float(sc)) for x, sc, ok in zip(h_ids[0], h_sc[0], h_ok[0]) if ok]
+        if [x for x, _ in got_rrf] != [x for x, _ in want_rrf] or any(
+                abs(a[1] - b[1]) > 1e-7 for a, b in zip(got_rrf, want_rrf)):
+            fail(f"hybrid rrf query {j}: {got_rrf[:3]} against the formula's {want_rrf[:3]}")
+    row["rrf_checked_queries"] = 20
+
+    # a category filter through both halves
+    violations = hits = 0
+    for j in range(BM25_QUERIES):
+        f_ids, _, f_ok = store.hybrid_search("hybrid", queries[j:j + 1], 10, text_query=qtexts[j],
+                                             fusion="rrf", filters=[Filter("category", "eq", "3")])
+        got = f_ids[f_ok].tolist()
+        hits += len(got)
+        violations += sum(1 for x in got if x % 1000 != 3)
+    if violations or not hits:
+        fail(f"hybrid: {violations} filter violations in {hits} hits")
+    row.update(filtered_hits=hits, filter_violations=0)
+
+    # 1% of the ids deleted: neither half returns one, queried by their own
+    # vectors and texts
+    dead = np.random.default_rng(10).choice(N_STORE, N_STORE // 100, replace=False)
+    if store.delete("hybrid", dead) != len(dead):
+        fail("hybrid: delete did not remove every id")
+    dead_set = set(dead.tolist())
+    back = 0
+    for x in dead[:100].tolist():
+        h_ids, _, h_ok = store.hybrid_search("hybrid", corpus[x:x + 1], 10, text_query=texts[x])
+        back += len(set(h_ids[h_ok].tolist()) & dead_set)
+        back += len({doc for doc, _ in ds.bm25.search(texts[x], 30)} & dead_set)
+    d_ids, _, d_ok = store.search("hybrid", corpus[dead[:1000]], 10, use_cache=False)
+    back += len(set(d_ids[d_ok].tolist()) & dead_set)
+    if back:
+        fail(f"hybrid: {back} deleted ids came back")
+    row["deleted_returned"] = 0
+
+    for mode in ("linear", "rrf", "cascade"):
+        row[f"p50_single_query_{mode}_ms"] = p50_ms(lambda j: store.hybrid_search(
+            "hybrid", queries[j:j + 1], 10, text_query=qtexts[j], fusion=mode))
+    # the two halves of one hybrid query, alone: the dense search of its
+    # 30 candidates (K1) and BM25's
+    row["p50_dense_half_ms"] = p50_ms(lambda j: store.search(
+        "hybrid", queries[j:j + 1], 30, use_cache=False))
+    row["p50_bm25_half_ms"] = p50_ms(lambda j: ds.bm25.search(qtexts[j], 30))
+    row["batch_1000_one_text_ms"] = 1e3 * timed(lambda: store.hybrid_search(
+        "hybrid", queries, 10, text_query=qtexts[0]), 3)
+    row["seconds"] = time.perf_counter() - t0
+    emit({"services_hybrid": row})
+
+    # 9.2 an edge from every live id to one seeded random live id of its cluster
+    t0 = time.perf_counter()
+    live_mask = np.ones(N_STORE, bool)
+    live_mask[dead] = False
+    live = ids[live_mask]
+    order = live[np.argsort(clusters[live], kind="stable")]
+    counts_c = np.bincount(clusters[live], minlength=1024)
+    start = np.concatenate([[0], np.cumsum(counts_c)[:-1]])
+    pick = np.random.default_rng(11).random(len(live))
+    dst = order[start[clusters[live]] + (pick * counts_c[clusters[live]]).astype(np.int64)]
+    t = time.perf_counter()
+    for a, b in zip(live.tolist(), dst.tolist()):
+        store.add_edge("hybrid", a, b)
+    g = {"edges": len(live), "edges_per_s": len(live) / (time.perf_counter() - t)}
+    g["p50_traverse_bfs_2_hops_ms"] = p50_ms(
+        lambda j: store.traverse_graph("hybrid", int(live[j * 997]), max_hops=2))
+    reached = [node for j in range(16)
+               for node, _ in store.traverse_graph("hybrid", int(live[j * 997]), max_hops=2)]
+    g["p50_hybrid_graph_alpha_0_3_ms"] = p50_ms(lambda j: store.hybrid_search(
+        "hybrid", queries[j:j + 1], 10, text_query=qtexts[j], graph_alpha=0.3))
+    for j in range(16):
+        h_ids, _, h_ok = store.hybrid_search("hybrid", queries[j:j + 1], 10,
+                                             text_query=qtexts[j], graph_alpha=0.3)
+        reached += h_ids[h_ok].tolist()
+    if not reached or not all(live_mask[x] for x in reached):
+        fail("graph: a traversal or a graph re-rank returned an id that is not live")
+    g["graph_stats"] = store.graph_stats("hybrid")
+    g["seconds"] = time.perf_counter() - t0
+    emit({"services_graph": g})
+    return {"hybrid": row, "graph": g, "_store": store}
+
+
+def services_compaction(corpus, queries, ids, Metric, exact_search, compaction, VectorStore,
+                        _kernels) -> dict:
+    """9.3 compaction of a flat dataset (K1) while a second thread searches
+    it, against a fresh dataset of the same live rows; 9.4 the same for sq8
+    (K2), whose codes must not change."""
+    import threading
+
+    out: dict = {}
+    dead = np.random.default_rng(12).choice(N_STORE, COMPACT_DELETE, replace=False)
+    live_mask = np.ones(N_STORE, bool)
+    live_mask[dead] = False
+    live = ids[live_mask]
+    category = ids % 1000
+    _, truth = exact_search(queries, corpus[live], 10, Metric.L2, device=DEVICE)
+    truth_ids = live[truth.cpu().numpy()]
+
+    # 9.3 flat
+    t0 = time.perf_counter()
+    cstore = VectorStore(device=DEVICE, dtype=torch.bfloat16, default_index_kind="flat")
+    put_all(cstore, "compact_flat", ids, corpus, category)
+    ds = cstore.get("compact_flat")
+    cstore.delete("compact_flat", dead)
+    tracker = compaction.FragmentationTracker()
+    if not tracker.needs_compaction(ds):
+        fail(f"compaction: ratio {tracker.ratio(ds)} does not ask for a compaction")
+    row: dict = {"fragmentation": tracker.ratio(ds), "capacity_before": ds.index.capacity,
+                 "device_bytes_before": ds.device_bytes()}
+    done, lat, errors = threading.Event(), [], []
+
+    def serve():
+        j = 0
+        while not done.is_set():
+            t = time.perf_counter()
+            try:
+                cstore.search("compact_flat", queries[j % N_QUERIES:j % N_QUERIES + 1], 10,
+                              use_cache=False)
+            except Exception as e:  # counted, and the run fails below
+                errors.append(repr(e))
+            lat.append(time.perf_counter() - t)
+            j += 1
+
+    k1_before = _kernels.FUSED_SCAN.launches
+    reader = threading.Thread(target=serve, name="searcher")
+    reader.start()
+    try:
+        st = compaction.compact_dataset(ds)
+    finally:
+        done.set()
+        reader.join(timeout=120)
+    torch.cuda.synchronize()
+    row.update(st, compaction_seconds=st["seconds"])
+    row.update(searches_during=len(lat), max_search_ms_during=1e3 * max(lat, default=0.0),
+               capacity_after=ds.index.capacity, device_bytes_after=ds.device_bytes())
+    print(f"flat compaction: {st['reclaimed_rows']} rows reclaimed in {st['seconds']:.3f} s, "
+          f"{len(lat)} searches served meanwhile (max {row['max_search_ms_during']:.1f} ms); "
+          f"capacity {row['capacity_before']} -> {row['capacity_after']}, device bytes "
+          f"{row['device_bytes_before']} -> {row['device_bytes_after']}", flush=True)
+    if errors or reader.is_alive():
+        fail(f"compaction: {len(errors)} searches failed during it: {errors[:2]}")
+    if st["reclaimed_rows"] != COMPACT_DELETE or st["live_rows"] != len(live):
+        fail(f"compaction: reclaimed {st['reclaimed_rows']}, live {st['live_rows']}")
+    ratio = row["device_bytes_after"] / row["device_bytes_before"]
+    if row["capacity_after"] != row["capacity_before"] // 2 or abs(ratio - 0.5) > 0.01:
+        fail(f"compaction: capacity {row['capacity_after']}, bytes ratio {ratio}")
+    put_all(cstore, "fresh_flat", live, corpus[live], category[live])
+    got = cstore.search("compact_flat", queries, 10, use_cache=False)
+    want = cstore.search("fresh_flat", queries, 10, use_cache=False)
+    if not (got[2].all() and want[2].all()):
+        fail("compaction: a search returned fewer than 10 ids")
+    diff = np.abs(got[1] - want[1])
+    if not np.all(diff <= 1e-6 * np.maximum(1.0, np.abs(want[1]))):
+        fail(f"compaction: distances {diff.max()} off a fresh index of the live rows")
+    apart = np.ones(want[1].shape, bool)  # ids must agree where no distance ties
+    apart[:, 1:] &= np.diff(want[1], axis=1) > 0
+    apart[:, :-1] &= np.diff(want[1], axis=1) > 0
+    if not np.array_equal(got[0][apart], want[0][apart]):
+        fail("compaction: ids differ from a fresh index of the live rows")
+    row.update(distances_bit_equal=bool(np.array_equal(got[1], want[1])),
+               max_distance_diff=float(diff.max()),
+               recall_at_10=recall_at(got[0], truth_ids))
+    gate("compacted flat 400k x 128", row["recall_at_10"], RECALL_GATE)
+    if _kernels.FUSED_SCAN.launches <= k1_before:
+        fail("compaction: K1's launch count did not rise")
+    cstore.drop("fresh_flat")
+    row["seconds"] = time.perf_counter() - t0
+    out["compaction_flat"] = row
+    emit({"services_compaction_flat": row})
+
+    # 9.4 sq8
+    t0 = time.perf_counter()
+    sstore = VectorStore(device=DEVICE)
+    sstore.get_or_create("compact_sq8", D_STORE, index_kind="sq8")
+    put_all(sstore, "compact_sq8", ids, corpus, category)
+    ds = sstore.get("compact_sq8")
+    live_t = torch.as_tensor(live, device=DEVICE)
+    before = ds.index._inner.codes[torch.as_tensor(
+        [ds._id_to_row[x] for x in live.tolist()], device=DEVICE)]
+    sstore.delete("compact_sq8", dead)
+    k2_before = _kernels.FUSED_CODES_SCAN.launches
+    st = compaction.compact_dataset(ds)
+    rows_after = np.asarray([ds._id_to_row[x] for x in live.tolist()])
+    after = ds.index._inner.codes[torch.as_tensor(rows_after, device=DEVICE)]
+    if not torch.equal(before, after):
+        fail(f"sq8 compaction: {int((before != after).any(dim=1).sum())} rows changed codes")
+    deq = ds.index.get_vectors_device(rows_after)
+    _, qt = exact_search(queries, deq, 10, Metric.L2, device=DEVICE)
+    served, _, _ = sstore.search("compact_sq8", queries, 10, use_cache=False)
+    row = dict(st, compaction_seconds=st["seconds"], codes_bit_equal=True,
+               recall_at_10_vs_dequantized=recall_at(served, live[qt.cpu().numpy()]),
+               recall_at_10=recall_at(served, truth_ids),
+               device_bytes_after=ds.device_bytes())
+    gate("compacted sq8 400k x 128 (dequantized rows)", row["recall_at_10_vs_dequantized"],
+         QUANT_COMPACT_GATE)
+    if _kernels.FUSED_CODES_SCAN.launches <= k2_before:
+        fail("sq8 compaction: K2's launch count did not rise")
+    del before, after, deq, live_t
+    row["seconds"] = time.perf_counter() - t0
+    out["compaction_sq8"] = row
+    emit({"services_compaction_sq8": row})
+    return dict(out, _cstore=cstore, _sstore=sstore)
+
+
+def services_backpressure(cstore, corpus, queries, compaction) -> dict:
+    """9.5 memory backpressure on the compacted flat dataset: soft limit at
+    half the store's device bytes, hard limit just under them; eviction by
+    the least recently read rows of an EvictionManager."""
+    from longbow_tpu_torch.metrics import get_registry
+
+    t0 = time.perf_counter()
+    reg = get_registry()
+    ds = cstore.get("compact_flat")
+    used = compaction.MemoryBackpressureController.total_bytes(cstore)
+    ev = compaction.EvictionManager()
+    live = np.asarray(sorted(ds._id_to_row), dtype=np.int64)
+    for chunk in np.array_split(np.random.default_rng(13).permutation(live), 8):
+        ev.record_access(chunk.tolist())  # eight read times, coldest first
+    ctrl = compaction.MemoryBackpressureController(soft_bytes=used // 2, hard_bytes=used - 1,
+                                                  eviction=ev)
+    cstore.backpressure = ctrl
+    probe = corpus[:1] + 0.5
+
+    def pressure() -> float:
+        return parse_metrics(reg.text().decode())[("longbow_memory_pressure_level", ())]
+
+    try:
+        cstore.put("compact_flat", [N_STORE], probe)
+    except compaction.MemoryPressureError:
+        pass
+    else:
+        fail("backpressure: a put above the hard limit was admitted")
+    level_over = pressure()
+    evicted = ctrl.enforce(cstore)
+    used_after = ctrl.total_bytes(cstore)
+    survivors = set(ds._id_to_row)
+    gone = np.asarray([x for x in live.tolist() if x not in survivors], dtype=np.int64)
+    if used_after > ctrl.soft_bytes or len(gone) != evicted or not evicted:
+        fail(f"backpressure: {used_after} bytes after evicting {evicted} (soft {ctrl.soft_bytes})")
+    last = ev._last_access
+    if max(last[x] for x in gone.tolist()) > min(last[x] for x in survivors):
+        fail("backpressure: an evicted row was read more recently than a survivor")
+    g_ids, _, g_ok = cstore.search("compact_flat", corpus[gone[:1000]], 10, use_cache=False)
+    if set(g_ids[g_ok].tolist()) & set(gone.tolist()):
+        fail("backpressure: an evicted id came back")
+    cstore.put("compact_flat", [N_STORE], probe)  # admitted again
+    level_after = pressure()
+    if (level_over, level_after) != (2.0, 0.0):
+        fail(f"backpressure: pressure level read {level_over} then {level_after}, not 2 then 0")
+    cstore.backpressure = None
+    row = {"device_bytes_before": used, "soft_bytes": ctrl.soft_bytes,
+           "hard_bytes": ctrl.hard_bytes, "rejected": ctrl.rejected_total, "evicted": evicted,
+           "device_bytes_after": used_after, "pressure_levels": [level_over, level_after],
+           "evicted_returned": 0, "seconds": time.perf_counter() - t0}
+    emit({"services_backpressure": row})
+    return {"backpressure": row}
+
+
 def recorded_fields(prefix: str, row: dict) -> dict:
     """A kernel's check on a path's recorded arguments, for the kernels line."""
     return {f"{prefix}_{key}": row[src] for key, src in (
@@ -1370,6 +1954,8 @@ def main() -> int:
     knn = graph["self_knn_cases"][0]  # the l2 build's first launch
     torch.cuda.empty_cache()
     kinds = phase_index_kinds(bw, flops, TIMED_LAUNCHES)
+    torch.cuda.empty_cache()
+    services = phase_services(bw, flops, TIMED_LAUNCHES, store["ingest_rows_per_s"])
 
     served = next(c for c in kern["cases"] if c["tag"] == "served_batch")
     served2 = next(c for c in codes["cases"] if c["tag"] == "served_batch")
@@ -1381,8 +1967,10 @@ def main() -> int:
         "launches": store["launches"]["fused_scan"],
         "launches_graph_tier": graph["launches"]["fused_scan"],
         "launches_index_kinds": kinds["launches"]["fused_scan"],
+        "launches_services": services["launches"]["fused_scan"],
         "max_abs_err": max(c["max_abs_err"] for c in
-                           kern["cases"] + graph["self_knn_cases"] + [kinds["k1_spill"]]),
+                           kern["cases"] + graph["self_knn_cases"] + [kinds["k1_spill"]]
+                           + [services["k1_services"]]),
         "graph_tier_shape": knn["case"],
         "graph_tier_variant": knn["variant"],
         "graph_tier_ms": knn["ms"],
@@ -1390,6 +1978,7 @@ def main() -> int:
         "graph_tier_bound_ms": knn["bound_ms"],
         "graph_tier_bound_by": knn["bound_by"],
         **recorded_fields("index_kinds", kinds["k1_spill"]),
+        **recorded_fields("services", services["k1_services"]),
         "ms": served["ms"],
         "variant": served["variant"],
         "prev_ms": served["prev_ms"],
@@ -1407,8 +1996,11 @@ def main() -> int:
         "launches": quant["launches"]["fused_codes_scan"],
         "launches_graph_tier": graph["launches"]["fused_codes_scan"],
         "launches_index_kinds": kinds["launches"]["fused_codes_scan"],
-        "max_abs_err": max(c["max_abs_err"] for c in codes["cases"] + [kinds["k2_disk"]]),
+        "launches_services": services["launches"]["fused_codes_scan"],
+        "max_abs_err": max(c["max_abs_err"] for c in
+                           codes["cases"] + [kinds["k2_disk"], services["k2_services"]]),
         **recorded_fields("index_kinds", kinds["k2_disk"]),
+        **recorded_fields("services", services["k2_services"]),
         "ms": served2["ms"],
         "variant": served2["variant"],
         "prev_ms": served2["prev_ms"],

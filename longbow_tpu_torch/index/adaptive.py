@@ -29,6 +29,7 @@ from longbow_tpu_torch.index.hardness import (
     sample_for_contrast,
 )
 from longbow_tpu_torch.index.hnsw import HNSWConfig, HNSWIndex
+from longbow_tpu_torch.metrics import get_registry
 from longbow_tpu_torch.ops._kernels import KernelError
 from longbow_tpu_torch.ops.distance import Metric
 
@@ -175,6 +176,10 @@ class AdaptiveIndex:
                             self.dim, self.metric, self.dtype, capacity=1,
                             device=self.device,
                         )
+                        try:
+                            get_registry().inc("longbow_adaptive_index_migrations_total")
+                        except Exception:
+                            pass
                         break
                 # large backlog: catch up outside the lock (adds only
                 # append past `count`, so [built, count) is stable)
@@ -203,6 +208,16 @@ class AdaptiveIndex:
         rc = relative_contrast_from_sample(*sampled)  # a host read: the device is done
         self.last_contrast = rc
         self.migration_stats = {"probe_s": time.perf_counter() - t0}
+        try:
+            reg = get_registry()
+            # relative contrast is the hardness signal this index adapts
+            # on (the reference gauges adaptive m and intrinsic
+            # dimensionality per index)
+            reg.set("longbow_hnsw_intrinsic_dimensionality", rc, index_name="adaptive")
+            reg.set("longbow_hnsw_adaptive_m_value", self.hnsw_config.m, index_name="adaptive")
+            reg.inc("longbow_hnsw_adaptive_adjustments_total", index_name="adaptive")
+        except Exception:
+            pass
         if rc < self.min_contrast:
             log.warning(
                 "corpus relative contrast %.2f < %.2f at n=%d: "
@@ -330,12 +345,7 @@ class AdaptiveIndex:
     def get_vectors_device(self, rows) -> torch.Tensor:
         """Device-resident f32 gather."""
         flat, g = self._tiers()
-        if g is not None:
-            return g.get_vectors_device(rows)
-        with flat._mu:
-            flat._flush_locked()
-            idx = torch.as_tensor(np.asarray(rows, np.int64), device=self.device)
-            return flat.vectors[idx].float()
+        return (g or flat).get_vectors_device(rows)
 
     def device_bytes(self) -> int:
         flat, g = self._tiers()

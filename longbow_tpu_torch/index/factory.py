@@ -11,6 +11,7 @@ from __future__ import annotations
 import os
 
 import numpy as np
+import torch
 
 from longbow_tpu_torch.index.adaptive import DEFAULT_MIGRATION_THRESHOLD, AdaptiveIndex
 from longbow_tpu_torch.index.bq import BQIndex
@@ -83,6 +84,9 @@ class _FlatAdapter:
     def get_vectors(self, rows) -> np.ndarray:
         return self._flat.get_vectors(rows)
 
+    def get_vectors_device(self, rows) -> torch.Tensor:
+        return self._flat.get_vectors_device(rows)
+
     def export_state(self) -> dict:
         return self._flat.export_state()
 
@@ -131,6 +135,14 @@ class _QuantizedAdapter:
 
     def get_vectors(self, rows) -> np.ndarray:
         return self._inner.get_vectors(rows)
+
+    def get_vectors_device(self, rows) -> torch.Tensor:
+        """f32 rows on the index's device: a device gather where the index
+        has one (sq8), else its host rows uploaded."""
+        gather = getattr(self._inner, "get_vectors_device", None)
+        if gather is not None:
+            return gather(rows)
+        return torch.from_numpy(self._inner.get_vectors(rows)).to(self._inner.device)
 
     def export_state(self) -> dict:
         return self._inner.export_state()

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from longbow_tpu_torch.device import resolve_device
+from longbow_tpu_torch.metrics.registry import count_dispatch
 from longbow_tpu_torch.ops.distance import (
     Metric,
     cosine_report,
@@ -243,11 +244,15 @@ class FlatIndex:
 
     def get_vectors(self, rows) -> np.ndarray:
         """f32 host copies of the stored rows (a device gather)."""
+        return self.get_vectors_device(rows).cpu().numpy()
+
+    def get_vectors_device(self, rows) -> torch.Tensor:
+        """The stored rows as f32, left on the device (compaction feeds
+        them to the new index without a host round trip)."""
         with self._mu:
             self._flush_locked()
             idx = torch.as_tensor(np.asarray(rows, np.int64), device=self.device)
-            out = self.vectors[idx].float()
-        return out.cpu().numpy()
+            return self.vectors[idx].float()
 
     # -- search -------------------------------------------------------
 
@@ -282,13 +287,16 @@ class FlatIndex:
             self._flush_locked()
             cap = self.vectors.shape[0]
             mask = fit_mask(filter_mask, cap, self.device)
-            if not exact and self.dtype == torch.bfloat16 and k <= FUSED_MAX_K:
+            fused = not exact and self.dtype == torch.bfloat16 and k <= FUSED_MAX_K
+            if fused:
                 d, i = flat_search_rerank(
                     q, self.vectors, self.norms_sq, self.valid, k, metric,
                     pool=POOL, extra_mask=mask, normalize=normalize,
                     device=self.device,
                 )
+                count_dispatch("pallas_fused", self.vectors.is_cuda)
             else:
+                count_dispatch("xla")
                 d, i = exact_search(
                     q, self.vectors, k, metric,
                     corpus_norms_sq=self.norms_sq, valid=self.valid,

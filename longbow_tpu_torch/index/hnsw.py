@@ -16,6 +16,7 @@ every batch whole or not at all.
 from __future__ import annotations
 
 import threading
+import time
 from typing import Optional
 
 import numpy as np
@@ -32,6 +33,7 @@ from longbow_tpu_torch.index.graph_build import (
     insert_batch,
 )
 from longbow_tpu_torch.index.pq import encode_rows, train_codebooks
+from longbow_tpu_torch.metrics import get_registry
 from longbow_tpu_torch.ops.distance import (
     MASKED,
     Metric,
@@ -307,10 +309,19 @@ class HNSWIndex:
         elif self.storage == "pq":
             with self._mu:
                 if self.state.pq_books is None:
+                    t0 = time.perf_counter()
                     books = train_codebooks(
                         jv[:PQ_TRAIN_SAMPLE], self.pq_m, PQ_TRAIN_ITERS
                     )
                     self.state = self.state._replace(pq_books=books)
+                    try:
+                        get_registry().observe(
+                            "longbow_hnsw_pq_training_duration_seconds",
+                            time.perf_counter() - t0,
+                            dataset="",  # the index layer has no dataset name
+                        )
+                    except Exception:
+                        pass  # a metric never fails an add
                 books = self.state.pq_books
             store = encode_rows(jv, books)
             # |v_hat|^2 of the decoded rows: ADC distances see consistent norms
@@ -347,6 +358,11 @@ class HNSWIndex:
             was_empty = self.count == 0
             self.count += n
             self._sample_dirty = True
+            try:
+                # each state swap is one "epoch" in the reference's RCU sense
+                get_registry().inc("longbow_hnsw_epoch_transitions_total")
+            except Exception:
+                pass
             build_stage_timer(n, tag="add")("store/norms/scatter", s.vectors)
 
             if was_empty and n >= 2 * cfg.insert_batch_size:

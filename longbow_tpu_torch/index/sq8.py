@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from longbow_tpu_torch.device import resolve_device
+from longbow_tpu_torch.metrics.registry import count_dispatch
 from longbow_tpu_torch.ops.distance import (
     MASKED,
     MASKED_GUARD,
@@ -300,9 +301,13 @@ class SQ8Index(_AffineCodes):
 
     def get_vectors(self, rows) -> np.ndarray:
         """Dequantized f32 host copies of the stored rows."""
+        return self.get_vectors_device(rows).cpu().numpy()
+
+    def get_vectors_device(self, rows) -> torch.Tensor:
+        """The dequantized f32 rows, left on the device."""
         idx = torch.as_tensor(np.asarray(rows, np.int64), device=self.device)
         with self._mu:
-            return self._dequant(self.codes[idx]).cpu().numpy()
+            return self._dequant(self.codes[idx])
 
     def device_bytes(self) -> int:
         return _tensor_bytes(self.codes, self.norms_sq, self.valid, self.lo, self.hi)
@@ -312,6 +317,9 @@ class SQ8Index(_AffineCodes):
         missing slots are (MASKED, -1). filter_mask: [capacity] bool of
         allowed rows."""
         q = self._query(queries)
+        fused = k <= FUSED_MAX_K and self.codes is not None
+        if not fused:
+            count_dispatch("xla")
         if self.codes is None:
             return _masked_result(q.shape[0], k)
         normalize = self.metric == Metric.COSINE
@@ -323,7 +331,7 @@ class SQ8Index(_AffineCodes):
             mask = fit_mask(filter_mask, self.capacity, self.device)
             for off in range(0, q.shape[0], QUERY_CHUNK):
                 qc = q[off:off + QUERY_CHUNK]
-                if k <= FUSED_MAX_K:
+                if fused:
                     outs.append(_sq8_fused(
                         qc, self.codes, self.lo, self.hi, self.norms_sq, self.valid,
                         k, metric, mask, self.device,
@@ -333,6 +341,8 @@ class SQ8Index(_AffineCodes):
                     outs.append(_sq8_scan(
                         self.codes, self.lo, self.hi, self.norms_sq, qc, valid, k, metric,
                     ))
+        if fused:
+            count_dispatch("pallas_sq8_fused", self.codes.is_cuda)
         d = torch.cat([o[0] for o in outs]).cpu().numpy()
         i = torch.cat([o[1] for o in outs]).cpu().numpy()
         if normalize:
@@ -758,6 +768,7 @@ class SQ8ResidualIndex(_AffineCodes):
                     self.centers, self.lo, self.hi, mask,
                     k, metric, normalize, fused, has_delta, self.device,
                 ))
+        count_dispatch("pallas_sq8r_fused" if fused else "xla", fused and self.m_codes.is_cuda)
         d = torch.cat([o[0] for o in outs]).cpu().numpy()
         i = torch.cat([o[1] for o in outs]).cpu().numpy()
         if normalize:

@@ -2,8 +2,9 @@
 
 Counterpart of longbow_tpu/store/dataset.py: records, tombstones, the
 primary user-id index, the vector index, the metric (schema metadata
-`longbow.metric`), and filter masks with caching. A `text` column is
-kept as a plain metadata column (BM25 is not ported yet).
+`longbow.metric`), filter masks with caching, the BM25 index over a
+text column and the GraphRAG edge store. Anti-entropy (export_delta,
+merkle_state, apply_remote_tombstones) comes with the cluster layer.
 """
 from __future__ import annotations
 
@@ -15,10 +16,17 @@ import numpy as np
 import torch
 
 from longbow_tpu_torch.device import resolve_device
+from longbow_tpu_torch.hybrid.bm25 import BM25Index
+from longbow_tpu_torch.hybrid.graph_store import DiskGraphStore, GraphStore
 from longbow_tpu_torch.index.factory import make_index
+from longbow_tpu_torch.metrics import get_registry
 from longbow_tpu_torch.ops.distance import MASKED_GUARD, Metric
 from longbow_tpu_torch.query.filters import ColumnStore, FilterCache
 from longbow_tpu_torch.query.parser import Filter
+
+# string columns indexed into BM25 for hybrid search (the reference
+# indexes document text fed through its BM25 pipeline)
+TEXT_COLUMNS = ("text", "content", "body")
 
 # schema metadata key + value aliases (reference: dataset.go:176-189)
 METRIC_METADATA_KEY = "longbow.metric"
@@ -43,6 +51,7 @@ class Dataset:
         migration_threshold: int = 200_000,
         index_kind: str = "adaptive",
         index_params: Optional[dict] = None,
+        graph_disk_path=None,
         device=None,
     ):
         self.name = name
@@ -53,11 +62,13 @@ class Dataset:
         self.hnsw_config = hnsw_config
         self.migration_threshold = migration_threshold
         self.index_kind = (index_kind or "adaptive").lower()
+        # graph_disk is the dataset's (a disk edge store), not the index's;
+        # it stays in index_params so that a snapshot can record it
         self.index_params = dict(index_params or {})
         self.index = make_index(
             self.index_kind, dim, self.metric, dtype=dtype, device=self.device,
             migration_threshold=migration_threshold, hnsw_config=hnsw_config,
-            **self.index_params,
+            **self.index_construction_params(),
         )
         self.columns = ColumnStore(self.index.capacity, device=self.device)
         self.filter_cache = FilterCache()
@@ -67,12 +78,25 @@ class Dataset:
         self._row_ids_np: Optional[np.ndarray] = None  # lazy cache
         # LWW timestamps for conflict resolution (reference: lww.go:8)
         self._lww: dict = {}
+        self.bm25 = BM25Index()
+        self.graph = (
+            GraphStore() if graph_disk_path is None else DiskGraphStore(graph_disk_path)
+        )
         self._lock = threading.RLock()
+        # serializes compactions (the rebuild runs outside self._lock so
+        # serving continues; two rebuilds of one dataset would race on
+        # the swap)
+        self._compact_mu = threading.Lock()
         self.created_at = time.time()
         self.last_access = time.time()
 
     def touch(self) -> None:
         self.last_access = time.time()
+
+    def index_construction_params(self) -> dict:
+        """index_params without the dataset-level knobs: what make_index
+        takes (compaction builds its new index from these too)."""
+        return {k: v for k, v in self.index_params.items() if k != "graph_disk"}
 
     # ------------------------------------------------------------------
 
@@ -194,6 +218,13 @@ class Dataset:
 
             rows = self.index.add(vectors)
             self.columns.append(columns or {}, n, self.index.capacity, rows=rows)
+            if columns:
+                for tc in TEXT_COLUMNS:
+                    if tc in columns:
+                        vals = np.asarray(columns[tc])
+                        for j in range(n):
+                            self.bm25.add(keys[j], str(vals[j]))
+                        break
             rows_list = rows.tolist()
             if ts_list is None:
                 for k, r in zip(keys, rows_list):
@@ -227,6 +258,7 @@ class Dataset:
                 if row is not None:
                     rows.append(row)
                     self._lww[key] = time.time()
+                    self.bm25.remove(key)
                     if row < len(self._row_to_id):
                         self._row_to_id[row] = None
             if rows:
@@ -294,9 +326,18 @@ class Dataset:
                 exact = True
         if not isinstance(queries, torch.Tensor):
             queries = np.atleast_2d(np.asarray(queries, dtype=np.float32))
+        t0 = time.perf_counter()
         d, r = idx.search(
             queries, k, filter_mask=mask, ef_search=ef_search, exact=exact
         )
+        dt = time.perf_counter() - t0
+        if dt > 1.0:
+            # a search of over a second is a kernel build (nvcc, at a
+            # kernel's first launch); warm searches take milliseconds
+            try:
+                get_registry().histogram("longbow_tpu_kernel_compile_seconds").observe(dt)
+            except Exception:
+                pass
         ok = (d < float(MASKED_GUARD)) & (r >= 0) & (r < len(r2i))
         scores = -d if self.metric == Metric.DOT else d
         ids = np.empty(r.shape, dtype=object)
@@ -316,6 +357,47 @@ class Dataset:
         if self._row_ids_np is None or len(self._row_ids_np) != len(self._row_to_id):
             self._row_ids_np = np.asarray(self._row_to_id, dtype=object)
         return self._row_ids_np
+
+    def graph_heuristic(self):
+        """Embedding-distance heuristic for A* graph navigation. Vector
+        fetches go through a small host cache (one device gather a miss)."""
+        cache: dict = {}
+
+        def vec(uid):
+            v = cache.get(uid)
+            if v is None:
+                row = self._id_to_row.get(self._key(np.asarray(uid)))
+                if row is None:
+                    return None
+                if len(cache) > 256:
+                    cache.clear()
+                v = np.asarray(self.index.get_vectors(np.asarray([row]))[0], np.float32)
+                cache[uid] = v
+            return v
+
+        def h(node, dst):
+            a, b = vec(node), vec(dst)
+            if a is None or b is None:
+                return 0.0  # unknown node: no guidance
+            return float(np.linalg.norm(a - b))
+
+        return h
+
+    def search_by_id(self, uid, k: int, **kw):
+        """Search with the stored vector of `uid` (the VectorSearchByID
+        action)."""
+        t0 = time.perf_counter()
+        row = self._id_to_row.get(self._key(np.asarray(uid)))
+        if row is None:
+            raise KeyError(f"id {uid!r} not found in {self.name!r}")
+        vec = self.index.get_vectors(np.asarray([row]))
+        get_registry().observe(
+            "longbow_id_resolution_duration_seconds", time.perf_counter() - t0
+        )
+        return self.search(vec, k, **kw)
+
+    def get_vectors_by_rows(self, rows: np.ndarray) -> np.ndarray:
+        return self.index.get_vectors(rows)
 
     def device_bytes(self) -> int:
         """Device-memory footprint of the index (whatever its kind) and

@@ -2,22 +2,29 @@
 
 Counterpart of longbow_tpu/store/vector_store.py: the same surface the
 Flight handlers call (put, search, delete, the dataset lifecycle and
-readiness). Persistence, eviction, memory backpressure, hybrid search
-and graph re-rank are not ported yet, and neither are the metrics calls.
+readiness), with the reference's metrics, the eviction and memory
+backpressure hooks, hybrid dense + BM25 search, graph re-rank and the
+GraphRAG actions. Persistence (the storage engine, its WAL and
+snapshots) is not ported yet.
 """
 from __future__ import annotations
 
+import tempfile
 import threading
 import time
+from pathlib import Path
 from typing import Optional
 
 import numpy as np
 import torch
 
 from longbow_tpu_torch.device import resolve_device
+from longbow_tpu_torch.hybrid.fusion import estimate_alpha, fuse_cascade, fuse_linear, fuse_rrf
+from longbow_tpu_torch.metrics import get_registry
 from longbow_tpu_torch.ops.distance import Metric
 from longbow_tpu_torch.store.dataset import Dataset
 from longbow_tpu_torch.utils.query_cache import QueryCache
+from longbow_tpu_torch.wire_types import NATIVE_VECTOR_DTYPES
 
 
 class VectorStore:
@@ -28,6 +35,12 @@ class VectorStore:
     The default index kind is "adaptive": a flat scan until
     migration_threshold rows, a graph (hnsw_config) after.
     device: None means the CUDA card (and raises without one).
+
+    Hooks, None until set: `eviction` (an EvictionManager fed by the
+    ids every search returns), `backpressure` (a
+    MemoryBackpressureController whose hard limit rejects puts) and
+    `reranker` ((query_text, [ids]) -> scores, the last stage of
+    hybrid_search).
     """
 
     def __init__(
@@ -57,6 +70,9 @@ class VectorStore:
         self.default_index_params = dict(default_index_params or {})
         self.query_cache = QueryCache(query_cache_size, query_cache_ttl)
         self.started_at = time.time()
+        self.eviction = None
+        self.reranker = None
+        self.backpressure = None
 
     # -- dataset lifecycle --------------------------------------------
 
@@ -70,37 +86,50 @@ class VectorStore:
         index_params: Optional[dict] = None,
         dtype_hint=None,
     ) -> Dataset:
-        # a dataset first seen with int8/uint8 vectors, in a store whose
-        # default kind is adaptive and with no kind asked for, stores the
-        # bytes 1:1 as identity-affine sq8 codes
-        if (
-            dtype_hint is not None
-            and index_kind is None
-            and self.default_index_kind in (None, "adaptive")
-            and np.dtype(dtype_hint) in (np.dtype(np.int8), np.dtype(np.uint8))
+        # dtype-aware creation, in a store whose default kind is adaptive
+        # and with no kind asked for: a dataset first seen with int8/uint8
+        # vectors stores the bytes 1:1 as identity-affine sq8 codes; one
+        # first seen with float16 stores float16 (no lossy bounce through
+        # bf16). An explicit kind always wins over the hint.
+        ds_dtype = self.dtype
+        if dtype_hint is not None and index_kind is None and (
+            self.default_index_kind in (None, "adaptive")
         ):
-            index_kind = "sq8"
+            hint = np.dtype(dtype_hint)
+            if hint in (np.dtype(np.int8), np.dtype(np.uint8)):
+                index_kind = "sq8"
+            elif hint == np.dtype(np.float16):
+                ds_dtype = torch.float16
         with self._lock:
             ds = self._datasets.get(name)
             if ds is None:
+                params = (
+                    index_params
+                    if index_params is not None
+                    else self.default_index_params
+                )
+                graph_disk_path = None
+                if params and params.get("graph_disk"):
+                    # a disk-backed edge store; under the temp directory
+                    # until the storage engine (and its directory) is ported
+                    base = Path(tempfile.gettempdir()) / "longbow_graphs"
+                    graph_disk_path = base / "graphs" / f"{name.replace('/', '_')}.edges"
                 ds = Dataset(
                     name,
                     dim,
                     metric or self.default_metric,
-                    dtype=self.dtype,
+                    dtype=ds_dtype,
                     hnsw_config=self.hnsw_config,
                     migration_threshold=self.migration_threshold,
                     index_kind=index_kind or self.default_index_kind,
-                    index_params=(
-                        index_params
-                        if index_params is not None
-                        else self.default_index_params
-                    ),
+                    index_params=params,
+                    graph_disk_path=graph_disk_path,
                     device=self.device,
                 )
                 self._datasets[name] = ds
                 ns = name.split("/", 1)[0] if "/" in name else "default"
                 self._namespaces.setdefault(ns, set()).add(name)
+                get_registry().set("longbow_store_active_datasets", len(self._datasets))
             elif ds.dim != dim:
                 raise ValueError(
                     f"dataset {name!r} has dim {ds.dim}, put has {dim}"
@@ -120,6 +149,10 @@ class VectorStore:
             for members in self._namespaces.values():
                 members.discard(name)
             self.query_cache.clear()
+            if ds is not None:
+                reg = get_registry()
+                reg.inc("longbow_store_dropped_datasets_total")
+                reg.set("longbow_store_active_datasets", len(self._datasets))
             return ds is not None
 
     def list_datasets(self) -> list[str]:
@@ -127,6 +160,11 @@ class VectorStore:
 
     def list_namespaces(self) -> list[str]:
         return sorted(self._namespaces)
+
+    def namespace_dataset_counts(self) -> dict[str, int]:
+        """namespace -> live dataset count."""
+        with self._lock:
+            return {ns: len(m) for ns, m in self._namespaces.items()}
 
     # -- data plane ---------------------------------------------------
 
@@ -141,18 +179,50 @@ class VectorStore:
         timestamp=None,
     ) -> None:
         """Upsert rows (the DoPut path). vectors: a numpy array, a list
-        of numpy blocks of one dim, or a tensor (kept on its device)."""
+        of numpy blocks of one dim, or a tensor (kept on its device).
+        With a `backpressure` controller its hard limit may raise
+        MemoryPressureError before anything is stored."""
+        dtype_hint = None
         if isinstance(vectors, list):
-            dim, dtype_hint = vectors[0].shape[1], vectors[0].dtype
+            dim = vectors[0].shape[1]
+            if vectors[0].dtype in NATIVE_VECTOR_DTYPES:
+                dtype_hint = vectors[0].dtype
         else:
-            dtype_hint = None
             if not isinstance(vectors, torch.Tensor):
                 vectors = np.atleast_2d(np.asarray(vectors))
-                dtype_hint = vectors.dtype
+                if vectors.dtype in NATIVE_VECTOR_DTYPES:
+                    dtype_hint = vectors.dtype
+                else:
+                    vectors = vectors.astype(np.float32)
             dim = vectors.shape[1]
+        if self.backpressure is not None:
+            self.backpressure.check_admit(self)
         ds = self.get_or_create(dataset, dim, metric, dtype_hint=dtype_hint)
         ds.put(np.asarray(ids), vectors, columns, timestamp=timestamp)
+        if self.backpressure is not None:
+            # the admission slot is held only for the apply
+            get_registry().inc("longbow_memory_backpressure_releases_total")
         self.query_cache.clear()
+        self._observe_dataset(ds)
+
+    def _observe_dataset(self, ds) -> None:
+        """Refresh the per-dataset gauges after a mutation."""
+        reg = get_registry()
+        reg.set("longbow_vector_index_size", len(ds.index), dataset=ds.name)
+        reg.set("longbow_tombstones_total", len(ds.index) - ds.live_count, dataset=ds.name)
+        reg.set("longbow_tpu_hbm_bytes_in_use", ds.device_bytes(), dataset=ds.name)
+        # graph-index internals; graph_height is 1: one layer, with beam
+        # search from entry samples in place of the HNSW hierarchy
+        graph = getattr(ds.index, "_graph", None)
+        if graph is not None:
+            reg.set("longbow_hnsw_node_count", graph.count, dataset=ds.name)
+            reg.set("longbow_hnsw_graph_height", 1, dataset=ds.name)
+            pq_on = graph.storage == "pq"
+            reg.set("longbow_hnsw_pq_enabled", int(pq_on), dataset=ds.name)
+            if pq_on:  # the graph's rows are its PQ codes
+                codes = graph.state.vectors
+                reg.set("longbow_hnsw_pq_compressed_bytes_total",
+                        codes.numel() * codes.element_size(), dataset=ds.name)
 
     def search(
         self,
@@ -168,6 +238,7 @@ class VectorStore:
         """-> (ids [B, k] object, scores [B, k] f32, ok [B, k] bool),
         the DoGet search path. Results are cached by dataset, query
         bytes and parameters until the next mutation or the TTL."""
+        reg = get_registry()
         queries = np.atleast_2d(np.asarray(queries, dtype=np.float32))
         key = None
         if use_cache:
@@ -176,19 +247,61 @@ class VectorStore:
             )
             hit = self.query_cache.get(key)
             if hit is not None:
-                self.get(dataset).touch()
+                try:
+                    # a cache hit is a read too (dataset TTL)
+                    self.get(dataset).touch()
+                except KeyError:
+                    pass
+                if self.eviction is not None:
+                    found = [i for i in hit[0].ravel() if i is not None]
+                    if found:
+                        self.eviction.record_access(found)
                 return hit
-        out = self.get(dataset).search(
-            queries, k, filters=filters, ef_search=ef_search, exact=exact
-        )
+        ds = self.get(dataset)
+        kind = ds.index.kind
+        graph_search = not exact and kind not in ("flat", "mesh_flat")
+        if graph_search:
+            reg.inc("longbow_hnsw_searches_total")
+            reg.gauge("longbow_hnsw_active_readers", ("dataset",)).labels(dataset=dataset).inc()
+        else:
+            reg.inc("longbow_bruteforce_searches_total")
+        reg.gauge("longbow_active_search_contexts").inc()
+        t0 = time.perf_counter()
+        try:
+            out = ds.search(queries, k, filters=filters, ef_search=ef_search, exact=exact)
+        finally:
+            reg.gauge("longbow_active_search_contexts").dec()
+            if graph_search:
+                reg.gauge("longbow_hnsw_active_readers", ("dataset",)).labels(
+                    dataset=dataset
+                ).dec()
+        if graph_search:
+            # traversal work per query, as the reference estimates it: the
+            # beam gathers up to 2 * ef * m_max candidate rows, each one
+            # distance
+            cfg = getattr(getattr(ds.index, "_graph", None) or ds.index, "config", None)
+            if cfg is not None:
+                ef = ef_search or cfg.ef_search
+                visited = 2 * ef * (cfg.search_m_max or cfg.m_max)
+                reg.observe("longbow_hnsw_nodes_visited", visited, dataset=dataset)
+                reg.inc("longbow_hnsw_distance_calculations_total",
+                        visited * queries.shape[0])
+        reg.observe("longbow_vector_search_latency_seconds", time.perf_counter() - t0,
+                    dataset=dataset)
         if key is not None:
             self.query_cache.put(key, out)
+        if self.eviction is not None:
+            found = [i for i in out[0].ravel() if i is not None]
+            if found:
+                self.eviction.record_access(found)
         return out
 
     def delete(self, dataset: str, ids) -> int:
         """The 'delete' action: tombstone rows by user id."""
-        n = self.get(dataset).delete(ids)
+        ds = self.get(dataset)
+        n = ds.delete(ids)
         self.query_cache.clear()
+        self._observe_dataset(ds)
         return n
 
     # -- introspection ------------------------------------------------
@@ -209,3 +322,140 @@ class VectorStore:
             "migration_errors": failed,
             "uptime_s": time.time() - self.started_at,
         }
+
+    # -- hybrid search ------------------------------------------------
+
+    def hybrid_search(
+        self,
+        dataset: str,
+        queries,
+        k: int,
+        *,
+        text_query: str = "",
+        alpha: float = 0.0,
+        filters: Optional[list] = None,
+        graph_alpha: float = 0.0,
+        graph_depth: int = 2,
+        fusion: str = "linear",
+        oversample: int = 3,
+    ):
+        """Dense + BM25 sparse fusion ("linear", "rrf" or "cascade").
+        alpha: 0 = sparse only, 1 = dense only, <= 0 estimated from the
+        query text. The dense half is this store's search (k * oversample
+        candidates, uncached); its failure is the caller's to see. A
+        reranker that raises leaves the fused order.
+        -> (ids [B, k] object, scores [B, k] f32, ok [B, k] bool)."""
+        reg = get_registry()
+        ds = self.get(dataset)
+        # sparse-only hybrids never reach ds.search: count them as access
+        ds.touch()
+        if alpha <= 0.0 and text_query:
+            alpha = estimate_alpha(text_query)
+
+        kk = max(k * oversample, k)
+        have_dense = queries is not None and np.asarray(queries).size > 0
+        if have_dense and alpha > 0.0:
+            reg.inc("longbow_hybrid_search_vector_total")
+            d_ids, d_scores, d_ok = self.search(
+                dataset, queries, kk, filters=filters, use_cache=False
+            )
+            b = d_ids.shape[0]
+        else:
+            d_ids = d_scores = d_ok = None
+            b = 1
+        sparse: list = []
+        if text_query and alpha < 1.0:
+            reg.inc("longbow_hybrid_search_keyword_total")
+            allowed = None
+            mask = ds.filter_mask(filters or [])
+            if mask is not None:
+                m = mask.cpu().numpy()
+                ids_arr = ds.row_ids_array()
+                sel = ids_arr[np.nonzero(m[: len(ids_arr)])[0]]
+                allowed = {i for i in sel if i is not None}
+            sparse = ds.bm25.search(text_query, kk, allowed=allowed)
+
+        out_ids = np.empty((b, k), dtype=object)
+        out_scores = np.zeros((b, k), np.float32)
+        out_ok = np.zeros((b, k), bool)
+        for row in range(b):
+            dense_pairs = []
+            if d_ids is not None:
+                for j in range(d_ids.shape[1]):
+                    if d_ok[row, j]:
+                        s = d_scores[row, j]
+                        # to a similarity: distances (l2, cosine) negate
+                        sim = s if ds.metric == Metric.DOT else -s
+                        dense_pairs.append((d_ids[row, j], float(sim)))
+            if fusion == "rrf":
+                fused = fuse_rrf([dense_pairs, sparse], k)
+            elif fusion == "cascade":
+                fused = fuse_cascade(dense_pairs, sparse, alpha, k)
+            else:
+                fused = fuse_linear(dense_pairs, sparse, alpha, k)
+            if graph_alpha > 0.0:
+                fused = ds.graph.rank_with_graph(fused, graph_alpha, hops=graph_depth)[:k]
+            if self.reranker is not None:
+                try:
+                    rr = self.reranker(text_query, [doc for doc, _ in fused])
+                    fused = sorted(
+                        zip((doc for doc, _ in fused), rr), key=lambda p: -p[1]
+                    )[:k]
+                except Exception:
+                    pass  # the reranker's own failure degrades to the fused order
+            for j, (doc, score) in enumerate(fused):
+                out_ids[row, j] = doc
+                out_scores[row, j] = score
+                out_ok[row, j] = True
+        return out_ids, out_scores, out_ok
+
+    def graph_rerank(self, dataset: str, ids, scores, ok, graph_alpha: float,
+                     graph_depth: int = 2):
+        """Spreading-activation re-rank of dense results over the
+        dataset's edge store."""
+        ds = self.get(dataset)
+        b, k = ids.shape
+        out_ids = np.empty_like(ids)
+        out_scores = np.zeros_like(scores)
+        out_ok = np.zeros_like(ok)
+        for row in range(b):
+            pairs = [
+                (ids[row, j],
+                 float(scores[row, j]) if ds.metric == Metric.DOT else -float(scores[row, j]))
+                for j in range(k)
+                if ok[row, j]
+            ]
+            fused = ds.graph.rank_with_graph(pairs, graph_alpha, hops=graph_depth)[:k]
+            for j, (doc, score) in enumerate(fused):
+                out_ids[row, j] = doc
+                out_scores[row, j] = score
+                out_ok[row, j] = True
+        return out_ids, out_scores, out_ok
+
+    # -- GraphRAG actions ---------------------------------------------
+
+    def add_edge(self, dataset, src, dst, edge_type="", weight=1.0):
+        self.get(dataset).graph.add_edge(src, dst, edge_type, weight)
+
+    def traverse_graph(self, dataset, src, dst=None, max_hops=3, strategy="bfs"):
+        """Strategies bfs | weighted | astar | parallel. astar is guided by
+        the embedding distance between stored vectors."""
+        ds = self.get(dataset)
+        g = ds.graph
+        if dst is None:
+            if strategy == "parallel":
+                srcs = src if isinstance(src, (list, tuple)) else [src]
+                return [
+                    [node, hops, origin]
+                    for node, (hops, origin) in g.parallel_bfs(srcs, max_hops).items()
+                ]
+            return g.traverse(src, max_hops)
+        heuristic = ds.graph_heuristic() if strategy == "astar" else None
+        return g.find_path(src, dst, max_hops, strategy=strategy, heuristic=heuristic)
+
+    def graph_stats(self, dataset: str) -> dict:
+        return self.get(dataset).graph.stats()
+
+    def graph_analytics(self, dataset: str) -> dict:
+        """Degree stats, hubs and weakly connected components."""
+        return self.get(dataset).graph.analytics()

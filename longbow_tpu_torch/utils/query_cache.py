@@ -1,7 +1,7 @@
 """Generic LRU+TTL query cache (reference: cache/query_cache.go:17,
 cache_key.go:22 — xxhash-keyed; we use blake2b from stdlib, the hash
 just needs to be fast and stable, not cryptographic). Counterpart of
-longbow_tpu/utils/query_cache.py without the metrics counters.
+longbow_tpu/utils/query_cache.py.
 """
 from __future__ import annotations
 
@@ -10,6 +10,20 @@ import threading
 import time
 from collections import OrderedDict
 from typing import Any, Optional
+
+from longbow_tpu_torch.metrics import get_registry
+
+_COUNTERS: dict = {}
+
+
+def _count(name: str) -> None:
+    """Tick a pre-declared counter. The counter object is resolved once:
+    re-resolving through the global registry lock on every cache get
+    would nest two locks inside the per-search hot path."""
+    c = _COUNTERS.get(name)
+    if c is None:
+        c = _COUNTERS[name] = get_registry().counter(name)
+    c.inc()
 
 
 class QueryCache:
@@ -37,14 +51,17 @@ class QueryCache:
             item = self._d.get(key)
             if item is None:
                 self.misses += 1
+                _count("longbow_query_cache_misses_total")
                 return None
             ts, val = item
             if time.time() - ts > self.ttl_s:
                 del self._d[key]
                 self.misses += 1
+                _count("longbow_query_cache_misses_total")
                 return None
             self._d.move_to_end(key)
             self.hits += 1
+            _count("longbow_query_cache_hits_total")
             return val
 
     def put(self, key: str, val: Any) -> None:

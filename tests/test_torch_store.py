@@ -260,7 +260,7 @@ def test_port_imports_no_jax_pyarrow_or_reference_package():
         f"for m in {modules!r}: importlib.import_module(m.removesuffix('.__init__'))\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'pyarrow', 'longbow_tpu')]\n"
+        "('jax', 'jaxlib', 'pyarrow', 'longbow_tpu', 'prometheus_client')]\n"
         "print(len(sys.modules)); sys.exit(1 if bad else 0)\n"
     )
     env = dict(os.environ, PYTHONPATH=str(REPO))
@@ -273,7 +273,8 @@ def test_port_imports_no_jax_pyarrow_or_reference_package():
 def test_port_sources_name_no_forbidden_import():
     forbidden = ("import jax", "from jax", "import pyarrow", "from pyarrow",
                  "import longbow_tpu\n", "import longbow_tpu.", "from longbow_tpu.",
-                 "from longbow_tpu import")
+                 "from longbow_tpu import", "import prometheus_client",
+                 "from prometheus_client")
     files = [*(REPO / "longbow_tpu_torch").rglob("*.py"), REPO / "chip_smoke.py"]
     for path in files:
         text = path.read_text()
@@ -359,3 +360,41 @@ def test_import_index_reads_jax_states(kind):
     assert_close_results(j.search(q, 10), t.search(q, 10), 10, atol=1e-3)
     back = jax_import(t.export_state())
     assert_close_results(back.search(q, 10), t.search(q, 10), 10, atol=1e-3)
+
+
+def test_float16_put_keeps_float16_storage_like_jax():
+    """A float16 put into a store of the default kind stores float16 in
+    both packages (no bounce through the store's bf16): get_vectors
+    returns the input exactly, ids are equal and scores agree to rtol
+    1e-6 for k = 10 (both score exactly in f32). The graph tier takes the
+    float16 rows too: a migration keeps them."""
+    rng = np.random.default_rng(5)
+    v = (rng.standard_normal((64, 16)) * 3).astype(np.float16)
+    q = rng.standard_normal((8, 16)).astype(np.float32)
+    out = {}
+    for name, st in (("port", VectorStore(device="cpu")), ("jax", JaxStore())):
+        st.put("f", np.arange(64), v)
+        ds = st.get("f")
+        assert str(np.dtype(ds.dtype)) == "float16" if name == "jax" else ds.dtype == torch.float16
+        np.testing.assert_array_equal(
+            np.asarray(ds.index.get_vectors(np.arange(64)), np.float32), v.astype(np.float32))
+        out[name] = st.search("f", q, 10)
+    (gi, gs, gok), (wi, ws, wok) = out["port"], out["jax"]
+    assert gok.all() and wok.all()
+    np.testing.assert_array_equal(gi, wi)
+    np.testing.assert_allclose(gs, ws, rtol=1e-6)
+    # an explicit kind wins over the hint
+    st = VectorStore(device="cpu")
+    st.get_or_create("b", 16, index_kind="flat")
+    st.put("b", np.arange(64), v)
+    assert st.get("b").dtype == torch.bfloat16
+
+    big = (_clustered(3000, 16, 6)).astype(np.float16)
+    st = _small_graph_store()
+    st.put("g", np.arange(3000), big)
+    ds = st.get("g")
+    assert ds.dtype == torch.float16 and ds.index.wait_migration(120)
+    assert ds.index._graph.state.vectors.dtype == torch.float16
+    ids, _, ok = st.search("g", big[:8].astype(np.float32), 10)
+    assert ok.all() and list(ids[:, 0]) == list(range(8))
+    np.testing.assert_array_equal(ds.index.get_vectors(np.arange(8)), big[:8].astype(np.float32))
