@@ -123,7 +123,35 @@ Phases, each of which passes or ends the run with a non-zero exit:
                over a loopback port. Launch counts are set to 0 just before the phase
                and read just after it; then K1 is held against its plain version on
                the arguments of the hybrid dataset's dense search and K2 on those of
-               the compacted sq8 dataset's search.
+               the compacted sq8 dataset's search;
+ 10. persistence - VectorStore(persist_dir=...) on phase 4's rows and queries, in a
+               temp directory removed at the end: 10.1 a child process
+               (longbow_tpu_torch.tools.persist_child, wal_sync "batch") puts the
+               1,000,000 rows as a flat bf16 dataset in 65,536-row puts with a
+               `category` column, deletes 10,000 ids, snapshots, writes a WAL tail
+               (100,000 rows, half of them upserts; 5,000 deletes; a second dataset
+               put and dropped; an edge), flushes the WAL, saves its top 10 of the
+               1,000 queries and a filtered search, and SIGKILLs itself (logged
+               ingest rows/s against phase 4's, WAL bytes a row, snapshot seconds
+               and bytes); 10.2 a fresh store recovers on the card (snapshot read,
+               index import and WAL replay timed): distances within rtol 1e-6 of the
+               child's and ids equal where no distance ties, recall@10 >= 0.95
+               against the f32 oracle over the live rows, no filter violation, no
+               deleted or dropped id back, the first search's latency, and every
+               search on K1 (its launches and longbow_simd_dispatch_total{cuda_fused}
+               rise by the searches made); 10.3 an sq8 dataset of the rows is put,
+               snapshotted and restored into a fresh store: codes bit for bit,
+               results equal to before, recall@10 >= 0.99 against its dequantized
+               rows, on K2; 10.4 phase 7's graph store is snapshotted by a
+               StorageEngine and restored: adjacency bit for bit, no build (no K1
+               launch, no graph_build call), recall@10 at ef 150 equal to before and
+               >= 0.95, the restore's seconds beside phase 7's; the file, O_DIRECT
+               and io_uring WAL backends asked for and which served; 10.5
+               longbow_wal_writes_total equal to the child's frames, the snapshot
+               histogram's count equal to the snapshots taken, warm-up at 100.
+               Launch counts are set to 0 just before the phase and read just after
+               it; then K1 is held against its plain version on the recovered flat
+               dataset's search arguments and K2 on the restored sq8 dataset's.
 The last line of standard output is {"ok": true, "device": {...}}.
 
 Imports torch, numpy and longbow_tpu_torch only.
@@ -1040,7 +1068,7 @@ def phase_graph(bw: float, flops: float, reps: int) -> dict:
         fail(f"exact=True after migration: recall@10 {r} < {GRAPH_RECALL_GATE}")
     out["default_store_1m_x_128"] = d1
     emit({"graph_default_store": d1})
-    store.drop("graph")
+    out["_store"] = store  # phase 10 snapshots it and restores it
     del store, ds, idx, g
     torch.cuda.empty_cache()
 
@@ -1143,7 +1171,7 @@ def phase_graph(bw: float, flops: float, reps: int) -> dict:
         fail("kernel fused_scan was not launched on the graph tier's path")
     emit({"graph_tier": {k: v for k, v in out.items()
                          if k not in ("default_store_1m_x_128", "bulk_build_1m_x_128",
-                                      "self_knn_cases")}})
+                                      "self_knn_cases", "_store")}})
     return out
 
 
@@ -1929,6 +1957,360 @@ def services_backpressure(cstore, corpus, queries, compaction) -> dict:
     return {"backpressure": row}
 
 
+# -- 10. persistence (this slice's path) ---------------------------------------
+
+PERSIST_GATE = 0.95          # the recovered flat dataset against the f32 oracle
+CHILD_TIMEOUT_S = 600
+WAL_TRY_FRAMES = 4           # 65,536-row put frames appended a backend
+
+
+def dir_bytes(path) -> int:
+    return sum(p.stat().st_size for p in path.rglob("*") if p.is_file())
+
+
+def ids_where_untied(ids, dist) -> np.ndarray:
+    """True where a slot's distance differs from both its neighbours in the
+    row: there the id is fixed; among equal distances any order is right."""
+    same_prev = np.zeros(dist.shape, bool)
+    same_prev[:, 1:] = dist[:, 1:] == dist[:, :-1]
+    same_next = np.zeros(dist.shape, bool)
+    same_next[:, :-1] = dist[:, :-1] == dist[:, 1:]
+    return ~(same_prev | same_next)
+
+
+def dispatch_count(reg, label: str) -> float:
+    return reg.counter("longbow_simd_dispatch_total", ("implementation",)).labels(
+        implementation=label).value
+
+
+def snapshot_count(reg) -> int:
+    return sum(reg.histogram("longbow_snapshot_duration_seconds")._only().counts)
+
+
+def count_snapshots(engine, taken: list) -> None:
+    """Append to `taken` for every snapshot the engine completes, explicit
+    or started by the WAL's size."""
+    real = engine.snapshot
+
+    def snapshot(store):
+        real(store)
+        taken.append(engine.dir)
+
+    engine.snapshot = snapshot
+
+
+def phase_persistence(bw: float, flops: float, reps: int, card: str, flat_rate: float,
+                      graph_store, graph_stats: dict) -> dict:
+    """10. persistence through VectorStore(persist_dir=...) on phase 4's rows:
+    a writer that crashes (a child process), recovery on the card (K1), an
+    sq8 dataset restored (K2), phase 7's graph snapshotted and restored
+    with no build, the WAL's backends and the metrics."""
+    import shutil
+    import signal
+    import tempfile
+    from pathlib import Path
+
+    from longbow_tpu_torch.index import hnsw as hnsw_mod
+    from longbow_tpu_torch.index import sq8
+    from longbow_tpu_torch.metrics import get_registry
+    from longbow_tpu_torch.ops import _kernels, scan
+    from longbow_tpu_torch.ops.distance import Metric, exact_search
+    from longbow_tpu_torch.query.parser import Filter
+    from longbow_tpu_torch.storage import engine as storage_engine
+    from longbow_tpu_torch.storage.wal import WAL
+    from longbow_tpu_torch.store.vector_store import VectorStore
+    from longbow_tpu_torch.tools.persist_child import DROPPED_IDS, scenario
+
+    out: dict = {"card": card}
+    t_phase = time.perf_counter()
+    reg = get_registry()
+    root = Path(tempfile.mkdtemp(prefix="longbow_persist_"))
+    sc = scenario(N_STORE, N_QUERIES)
+    queries = sc["queries"]
+    snaps0 = snapshot_count(reg)
+    taken: list = []  # the snapshots this process completes
+    _kernels.reset_launch_counts()
+    try:
+        # 10.1 the writer: puts, a snapshot, a WAL tail, then SIGKILL
+        flat_dir = root / "flat"
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "longbow_tpu_torch.tools.persist_child", str(flat_dir),
+             "--rows", str(N_STORE), "--queries", str(N_QUERIES), "--device", DEVICE],
+            capture_output=True, text=True, timeout=CHILD_TIMEOUT_S,
+            cwd=str(Path(__file__).resolve().parent),
+        )
+        child_s = time.perf_counter() - t0
+        if res.returncode != -signal.SIGKILL:
+            fail(f"persist_child exited {res.returncode}, not by SIGKILL: {res.stderr[-3000:]}")
+        lines = [ln for ln in res.stdout.splitlines() if ln.startswith('{"persist_child"')]
+        if not lines:
+            fail(f"persist_child printed no result: {res.stderr[-3000:]}")
+        child = json.loads(lines[-1])["persist_child"]
+        child["process_s"] = child_s
+        child["unlogged_ingest_rows_per_s_phase4"] = flat_rate
+        out["writer"] = child
+        print(f"10.1 logged ingest {child['logged_ingest_rows_per_s']:.0f} rows/s against "
+              f"{flat_rate:.0f} unlogged (phase 4); {child['wal_bytes_per_row']:.1f} WAL bytes a "
+              f"row; snapshot {child['snapshot_s']:.3f} s, {child['snapshot_bytes']} bytes; "
+              f"WAL backend {child['wal_backend']}", flush=True)
+        emit({"persistence_writer": child})
+
+        # 10.2 recovery on the card
+        t0 = time.perf_counter()
+        store = VectorStore(persist_dir=flat_dir, device=DEVICE)
+        torch.cuda.synchronize()
+        rec = dict(store.engine.recovery_stats, recovery_s=time.perf_counter() - t0)
+        rec["replay_rows_per_s"] = rec["rows_replayed"] / rec["wal_replay_s"]
+        if reg.gauge("longbow_warmup_progress_percent")._only().value != 100:
+            fail("longbow_warmup_progress_percent is not 100 after the recovery")
+        if store.list_datasets() != ["sift"]:
+            fail(f"recovered datasets {store.list_datasets()}, want ['sift'] (one was dropped)")
+        if rec["frames"] != child["tail_frames"]:
+            fail(f"recovery replayed {rec['frames']} frames, the child wrote "
+                 f"{child['tail_frames']} after its snapshot")
+        ds = store.get("sift")
+        if ds.live_count != len(sc["live_ids"]) or ds.index.kind != "flat":
+            fail(f"recovered {ds.live_count} live rows of kind {ds.index.kind}, "
+                 f"want {len(sc['live_ids'])} flat")
+        k1_0 = _kernels.FUSED_SCAN.launches
+        disp0 = dispatch_count(reg, "cuda_fused")
+        searches = 0
+        t0 = time.perf_counter()
+        store.search("sift", queries[:1], 10, use_cache=False)
+        rec["first_search_ms"] = 1e3 * (time.perf_counter() - t0)
+        searches += 1
+        ids, dist, ok = store.search("sift", queries, 10, use_cache=False)
+        searches += 1
+        with np.load(flat_dir / "child.npz") as z:
+            c_ids, c_dist, c_fids = z["ids"], z["dist"], z["filtered_ids"]
+        got = np.where(ok, ids, -1).astype(np.int64)
+        if not np.array_equal(ok, c_ids >= 0):
+            fail("the recovered search fills other slots than the writer's")
+        if not np.allclose(dist[ok], c_dist[ok], rtol=1e-6, atol=0):
+            fail(f"recovered distances differ from the writer's by up to "
+                 f"{np.max(np.abs(dist[ok] - c_dist[ok]))}")
+        untied = ids_where_untied(got, c_dist) & ok
+        if not np.array_equal(got[untied], c_ids[untied]):
+            fail("recovered ids differ from the writer's where no distance ties")
+        rec["untied_slots"] = int(untied.sum())
+        _, truth = exact_search(queries, sc["live_rows"], 10, Metric.L2, device=DEVICE)
+        rec["recall_at_10"] = recall_at(ids, sc["live_ids"][truth.cpu().numpy()])
+        gate("recovered flat 1M x 128", rec["recall_at_10"], PERSIST_GATE)
+        fids, _, fok = store.search("sift", queries[:100], 10, use_cache=False,
+                                    filters=[Filter("category", "eq", "3")])
+        searches += 1
+        hits = fids[fok].tolist()
+        if not hits or any(x % 10 != 3 for x in hits):
+            fail("a filtered search after recovery returned a row outside category == 3")
+        rec["filtered_hits"] = len(hits)
+        rec["filtered_equal_to_writer"] = bool(np.array_equal(
+            np.where(fok, fids, -1).astype(np.int64), c_fids))
+        dead = np.concatenate([sc["dead1"], sc["dead2"]])
+        probe = sc["corpus"][sc["dead1"][:N_QUERIES]]
+        did, _, dok = store.search("sift", probe, 10, use_cache=False)
+        searches += 1
+        returned = set(did[dok].tolist()) | set(ids[ok].tolist()) | set(hits)
+        if returned & set(dead.tolist()) or returned & set(DROPPED_IDS.tolist()):
+            fail("a deleted or dropped id came back after the recovery")
+        rec["deleted_returned"] = 0
+        flat_call = first_call(scan, "fused_flat_search",
+                               lambda: store.search("sift", queries, 10, use_cache=False),
+                               "the recovered flat search")
+        searches += 1
+        torch.cuda.synchronize()
+        rec["k1_launches"] = _kernels.FUSED_SCAN.launches - k1_0
+        rec["cuda_fused_dispatches"] = dispatch_count(reg, "cuda_fused") - disp0
+        if rec["k1_launches"] != searches or rec["cuda_fused_dispatches"] != searches:
+            fail(f"{searches} searches after the recovery: K1 launched {rec['k1_launches']} "
+                 f"times, cuda_fused counted {rec['cuda_fused_dispatches']}")
+        print(f"10.2 recovery {rec['recovery_s']:.3f} s: snapshot read "
+              f"{rec['snapshot_read_s']:.3f}, index import {rec['index_import_s']:.3f}, WAL "
+              f"replay {rec['wal_replay_s']:.3f} ({rec['replay_rows_per_s']:.0f} rows/s); first "
+              f"search {rec['first_search_ms']:.3f} ms; recall@10 {rec['recall_at_10']:.4f}",
+              flush=True)
+        out["recovery"] = rec
+        emit({"persistence_recovery": rec})
+        store.engine.close()
+        del store, ds
+        shutil.rmtree(flat_dir)
+
+        # 10.3 sq8 (K2): put, snapshot, restore into a fresh store
+        q_dir = root / "sq8"
+        corpus, ids = sc["corpus"], np.arange(N_STORE, dtype=np.int64)
+        qstore = VectorStore(persist_dir=q_dir, device=DEVICE, default_index_kind="sq8")
+        count_snapshots(qstore.engine, taken)
+        t0 = time.perf_counter()
+        put_batches(qstore, "q8", ids, corpus, ids % 10)
+        torch.cuda.synchronize()
+        d3 = {"logged_ingest_rows_per_s": N_STORE / (time.perf_counter() - t0)}
+        inner = qstore.get("q8").index._inner
+        before = qstore.search("q8", queries, 10, use_cache=False)
+        d3["snapshots_during_ingest"] = len(taken)
+        if qstore.engine._snap_bg is not None:
+            qstore.engine._snap_bg.join()  # a WAL-triggered snapshot still writing
+        t0 = time.perf_counter()
+        qstore.snapshot()
+        d3["snapshot_s"] = time.perf_counter() - t0
+        d3["snapshot_bytes"] = dir_bytes(q_dir / "snapshot")
+        qstore.engine.close()
+        t0 = time.perf_counter()
+        restored = VectorStore(persist_dir=q_dir, device=DEVICE)
+        torch.cuda.synchronize()
+        d3["restore_s"] = time.perf_counter() - t0
+        d3.update({f"restore_{k}": v for k, v in restored.engine.recovery_stats.items()})
+        rinner = restored.get("q8").index._inner
+        if restored.get("q8").index.kind != "sq8" or rinner.count != inner.count:
+            fail("the restored sq8 dataset is not the one snapshotted")
+        for name in ("codes", "lo", "hi", "valid"):
+            a, b = getattr(inner, name), getattr(rinner, name)
+            n = inner.count if name in ("codes", "valid") else a.shape[0]
+            if not torch.equal(a[:n], b[:n]):
+                fail(f"sq8 {name} differ after the restore")
+        k2_0 = _kernels.FUSED_CODES_SCAN.launches
+        disp0 = dispatch_count(reg, "cuda_sq8_fused")
+        after = restored.search("q8", queries, 10, use_cache=False)
+        for a, b, what in zip(before, after, ("ids", "distances", "ok")):
+            if not np.array_equal(a, b):
+                fail(f"sq8: {what} differ from before the restore")
+        truth = dequantized_truth(restored.get("q8").index, queries, N_STORE, 10, Metric.L2)
+        d3["recall_at_10_vs_dequantized"] = recall_at(after[0], truth)
+        gate("restored sq8 1M x 128 (dequantized rows)", d3["recall_at_10_vs_dequantized"],
+             QUANT_RECALL_GATE)
+        codes_call = first_call(sq8, "fused_codes_search",
+                                lambda: restored.search("q8", queries, 10, use_cache=False),
+                                "the restored sq8 search")
+        torch.cuda.synchronize()
+        d3["k2_launches"] = _kernels.FUSED_CODES_SCAN.launches - k2_0
+        d3["cuda_sq8_fused_dispatches"] = dispatch_count(reg, "cuda_sq8_fused") - disp0
+        if d3["k2_launches"] != 2 or d3["cuda_sq8_fused_dispatches"] != 2:
+            fail(f"2 searches of the restored sq8 dataset: K2 launched {d3['k2_launches']} "
+                 f"times, cuda_sq8_fused counted {d3['cuda_sq8_fused_dispatches']}")
+        print(f"10.3 sq8: snapshot {d3['snapshot_s']:.3f} s, {d3['snapshot_bytes']} bytes; "
+              f"restore {d3['restore_s']:.3f} s; codes bit for bit; recall@10 "
+              f"{d3['recall_at_10_vs_dequantized']:.4f} against its dequantized rows", flush=True)
+        out["sq8"] = d3
+        emit({"persistence_sq8": d3})
+        restored.engine.close()
+        del qstore, restored, inner, rinner
+        shutil.rmtree(q_dir)
+
+        # 10.4 the default kind after migration: phase 7's graph, restored
+        g_dir = root / "graph"
+        d4: dict = {}
+        gds = graph_store.get("graph")
+        g = gds.index._graph
+        live = np.fromiter(gds._id_to_row, np.int64)
+        _, gtruth = exact_search(queries, sc["corpus"][live], 10, Metric.L2, device=DEVICE)
+        gtruth = live[gtruth.cpu().numpy()]
+        before = graph_store.search("graph", queries, 10, ef_search=150, use_cache=False)
+        d4["recall_at_10_ef150_before"] = recall_at(before[0], gtruth)
+        eng = storage_engine.StorageEngine(g_dir, sync="never")
+        count_snapshots(eng, taken)
+        t0 = time.perf_counter()
+        eng.snapshot(graph_store)
+        d4["snapshot_s"] = time.perf_counter() - t0
+        d4["snapshot_bytes"] = dir_bytes(g_dir / "snapshot")
+        eng.close()
+        builds = []
+        real = {fn: getattr(hnsw_mod, fn) for fn in
+                ("bulk_build_rp", "bulk_build_clustered", "bulk_build_edges", "insert_batch")}
+        for fn, f in real.items():
+            setattr(hnsw_mod, fn, lambda *a, _fn=fn, _f=f, **kw: builds.append(_fn) or _f(*a, **kw))
+        k1_0 = _kernels.FUSED_SCAN.launches
+        try:
+            t0 = time.perf_counter()
+            gr = VectorStore(persist_dir=g_dir, device=DEVICE)
+            torch.cuda.synchronize()
+            d4["restore_s"] = time.perf_counter() - t0
+        finally:
+            for fn, f in real.items():
+                setattr(hnsw_mod, fn, f)
+        d4.update({f"restore_{k}": v for k, v in gr.engine.recovery_stats.items()})
+        d4["k1_launches_in_restore"] = _kernels.FUSED_SCAN.launches - k1_0
+        if builds or d4["k1_launches_in_restore"]:
+            fail(f"the graph's restore built: {builds}, K1 launched "
+                 f"{d4['k1_launches_in_restore']} times")
+        rg = gr.get("graph").index._graph
+        if gr.get("graph").index.kind != "hnsw" or rg.count != g.count:
+            fail("the restored graph is not the one snapshotted")
+        for name in ("nbrs", "nbr_count", "valid"):
+            if not torch.equal(getattr(g.state, name)[:g.count], getattr(rg.state, name)[:g.count]):
+                fail(f"the graph's {name} differ after the restore")
+        after = gr.search("graph", queries, 10, ef_search=150, use_cache=False)
+        d4["recall_at_10_ef150_after"] = recall_at(after[0], gtruth)
+        d4["results_equal"] = all(np.array_equal(a, b) for a, b in zip(before, after))
+        if d4["recall_at_10_ef150_after"] != d4["recall_at_10_ef150_before"]:
+            fail(f"graph recall@10 {d4['recall_at_10_ef150_after']} after the restore, "
+                 f"{d4['recall_at_10_ef150_before']} before")
+        gate("restored graph 1M x 128, ef 150", d4["recall_at_10_ef150_after"], GRAPH_RECALL_GATE)
+        d4["phase7_ingest_and_migration_s"] = graph_stats["ingest_s"]
+        d4["phase7_bulk_build_s"] = graph_stats["bulk_build_s"]
+        print(f"10.4 graph: snapshot {d4['snapshot_s']:.3f} s, {d4['snapshot_bytes']} bytes; "
+              f"restore {d4['restore_s']:.3f} s against {graph_stats['ingest_s']:.3f} s of puts "
+              f"and migration in phase 7; adjacency bit for bit, no build; recall@10 "
+              f"{d4['recall_at_10_ef150_after']:.4f}", flush=True)
+        out["graph"] = d4
+        emit({"persistence_graph": d4})
+        gr.engine.close()
+        del gr, rg, g, gds
+        shutil.rmtree(g_dir)
+
+        torch.cuda.synchronize()
+        out["launches"] = {k.name: k.launches for k in _kernels.KERNELS}
+
+        # the WAL's append backends: which one serves, at what rate
+        wal_try: dict = {}
+        frame = storage_engine._put_table(ids[:PUT_BATCH], corpus[:PUT_BATCH],
+                                          {"category": ids[:PUT_BATCH] % 10})
+        for label, kw in (("fs", {}), ("direct", {"direct_io": True}),
+                          ("io_uring", {"io_uring": True})):
+            path = root / f"try_{label}.log"
+            w = WAL(path, sync="always", **kw)
+            served = w.backend_name
+            t0 = time.perf_counter()
+            for _ in range(WAL_TRY_FRAMES):
+                w.append_batch("t", frame)
+            sec = time.perf_counter() - t0
+            w.close()
+            if len(list(WAL.replay(path))) != WAL_TRY_FRAMES:
+                fail(f"the {served} WAL backend lost frames")
+            wal_try[label] = {"served": served, "mb_per_s": path.stat().st_size / sec / 1e6}
+            path.unlink()
+        out["wal_backends"] = wal_try
+        print("10 WAL backends asked for -> served: " + ", ".join(
+            f"{k} -> {v['served']} ({v['mb_per_s']:.0f} MB/s, fsync each frame)"
+            for k, v in wal_try.items()), flush=True)
+
+        # 10.5 the metrics
+        m = {"child_wal_writes_total": child["wal_writes_total"], "child_frames": child["frames"],
+             "child_last_seq": child["last_seq"], "child_snapshots": child["snapshots"],
+             "child_snapshot_histogram_count": child["snapshot_histogram_count"],
+             "parent_snapshots": len(taken),
+             "parent_snapshot_histogram_count": snapshot_count(reg) - snaps0}
+        if not m["child_wal_writes_total"] == m["child_frames"] == m["child_last_seq"]:
+            fail(f"longbow_wal_writes_total {m['child_wal_writes_total']}, the child appended "
+                 f"{m['child_frames']} frames (last seq {m['child_last_seq']})")
+        if m["child_snapshot_histogram_count"] != m["child_snapshots"] or \
+                m["parent_snapshot_histogram_count"] != m["parent_snapshots"]:
+            fail(f"longbow_snapshot_duration_seconds counted {m['child_snapshot_histogram_count']}"
+                 f" and {m['parent_snapshot_histogram_count']} snapshots, taken "
+                 f"{m['child_snapshots']} and {m['parent_snapshots']}")
+        out["metrics"] = m
+        emit({"persistence_metrics": m})
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    out["k1_persistence"] = check_build_scan("recovered_flat", flat_call, bw, flops, reps,
+                                             finds_itself=False)
+    out["k2_persistence"] = check_codes_call("restored_sq8", codes_call, bw, flops, reps)
+    del flat_call, codes_call
+    out["seconds"] = time.perf_counter() - t_phase
+    emit({"persistence": {k: out[k] for k in ("launches", "k1_persistence", "k2_persistence",
+                                              "seconds")}})
+    return out
+
+
 def recorded_fields(prefix: str, row: dict) -> dict:
     """A kernel's check on a path's recorded arguments, for the kernels line."""
     return {f"{prefix}_{key}": row[src] for key, src in (
@@ -1951,11 +2333,17 @@ def main() -> int:
     del deep_index
     torch.cuda.empty_cache()
     graph = phase_graph(bw, flops, TIMED_LAUNCHES)
+    graph_store = graph.pop("_store")
     knn = graph["self_knn_cases"][0]  # the l2 build's first launch
     torch.cuda.empty_cache()
     kinds = phase_index_kinds(bw, flops, TIMED_LAUNCHES)
     torch.cuda.empty_cache()
     services = phase_services(bw, flops, TIMED_LAUNCHES, store["ingest_rows_per_s"])
+    torch.cuda.empty_cache()
+    persist = phase_persistence(bw, flops, TIMED_LAUNCHES, card, store["ingest_rows_per_s"],
+                                graph_store, graph["default_store_1m_x_128"])
+    graph_store.drop("graph")
+    del graph_store
 
     served = next(c for c in kern["cases"] if c["tag"] == "served_batch")
     served2 = next(c for c in codes["cases"] if c["tag"] == "served_batch")
@@ -1968,9 +2356,10 @@ def main() -> int:
         "launches_graph_tier": graph["launches"]["fused_scan"],
         "launches_index_kinds": kinds["launches"]["fused_scan"],
         "launches_services": services["launches"]["fused_scan"],
+        "launches_persistence": persist["launches"]["fused_scan"],
         "max_abs_err": max(c["max_abs_err"] for c in
                            kern["cases"] + graph["self_knn_cases"] + [kinds["k1_spill"]]
-                           + [services["k1_services"]]),
+                           + [services["k1_services"], persist["k1_persistence"]]),
         "graph_tier_shape": knn["case"],
         "graph_tier_variant": knn["variant"],
         "graph_tier_ms": knn["ms"],
@@ -1979,6 +2368,7 @@ def main() -> int:
         "graph_tier_bound_by": knn["bound_by"],
         **recorded_fields("index_kinds", kinds["k1_spill"]),
         **recorded_fields("services", services["k1_services"]),
+        **recorded_fields("persistence", persist["k1_persistence"]),
         "ms": served["ms"],
         "variant": served["variant"],
         "prev_ms": served["prev_ms"],
@@ -1997,10 +2387,13 @@ def main() -> int:
         "launches_graph_tier": graph["launches"]["fused_codes_scan"],
         "launches_index_kinds": kinds["launches"]["fused_codes_scan"],
         "launches_services": services["launches"]["fused_codes_scan"],
+        "launches_persistence": persist["launches"]["fused_codes_scan"],
         "max_abs_err": max(c["max_abs_err"] for c in
-                           codes["cases"] + [kinds["k2_disk"], services["k2_services"]]),
+                           codes["cases"] + [kinds["k2_disk"], services["k2_services"],
+                                             persist["k2_persistence"]]),
         **recorded_fields("index_kinds", kinds["k2_disk"]),
         **recorded_fields("services", services["k2_services"]),
+        **recorded_fields("persistence", persist["k2_persistence"]),
         "ms": served2["ms"],
         "variant": served2["variant"],
         "prev_ms": served2["prev_ms"],

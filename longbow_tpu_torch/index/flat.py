@@ -349,4 +349,5 @@ class FlatIndex:
             idx.add(np.asarray(state["vectors"], dtype=np.float32))
             dead = np.nonzero(~np.asarray(state["valid"], dtype=bool))[0]
             idx.delete_rows(dead)
+            idx.flush()  # the rows are on the device before the first search
         return idx

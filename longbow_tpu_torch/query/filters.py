@@ -139,6 +139,72 @@ class ColumnStore:
     def fields(self) -> list[str]:
         return sorted(set(self._numeric) | set(self._str_codes))
 
+    # -- snapshot state ------------------------------------------------
+
+    def export_state(self) -> dict:
+        """The columns' first `count` rows as numpy, in longbow_tpu's layout:
+        an int column whose values all fit int32 (|v| < 2^31) as int32,
+        else int64 (the reference keeps such a column on the host), float
+        columns as float32, string codes as int32 with their dictionaries.
+        Every array is a copy: a write after the capture cannot reach it."""
+        c = self.count
+        num = {}
+        for k, v in self._numeric.items():
+            arr = np.array(v[:c].cpu().numpy())
+            if arr.dtype == np.int64 and (np.abs(arr) < 2**31).all():
+                arr = arr.astype(np.int32)
+            num[k] = arr
+        return {
+            "count": c,
+            "numeric": num,
+            "str_codes": {k: np.array(v[:c].cpu().numpy()) for k, v in self._str_codes.items()},
+            "str_dicts": {k: dict(v) for k, v in self._str_dicts.items()},
+        }
+
+    @classmethod
+    def import_state(cls, st: dict, capacity: int, *, device=None) -> "ColumnStore":
+        """From export_state() output, this package's or longbow_tpu's:
+        int32 and int64 columns both become int64 tensors."""
+        cs = cls(max(capacity, st["count"], 1), device=device)
+        cs.count = st["count"]
+        for k, arr in st["numeric"].items():
+            arr = np.asarray(arr)
+            arr = arr.astype(np.int64 if arr.dtype.kind in "iu" else np.float32)
+            col = torch.zeros((cs.capacity,), dtype=torch.from_numpy(arr).dtype, device=cs.device)
+            col[: len(arr)] = torch.from_numpy(arr).to(cs.device)
+            cs._numeric[k] = col
+        for k, arr in st["str_codes"].items():
+            arr = np.asarray(arr, np.int32)
+            col = torch.full((cs.capacity,), -1, dtype=torch.int32, device=cs.device)
+            col[: len(arr)] = torch.from_numpy(arr).to(cs.device)
+            cs._str_codes[k] = col
+        for k, d in st["str_dicts"].items():
+            cs._str_dicts[k] = {str(v): int(c) for v, c in d.items()}
+        cs._rebuild_prefilters(st)
+        return cs
+
+    def _rebuild_prefilters(self, st: dict) -> None:
+        """The eq/in pre-filters are derived state: rebuilt from the
+        imported columns, as the reference rebuilds them."""
+        n = st["count"]
+        rows = np.arange(n, dtype=np.int64)
+        for k, arr in st["numeric"].items():
+            arr = np.asarray(arr)[:n]
+            if arr.dtype.kind in "iu":
+                self._prefilters.setdefault(k, ColumnPrefilter()).add_batch(
+                    arr.astype(np.int64).astype("U"), rows
+                )
+        for k, codes in st["str_codes"].items():
+            d = self._str_dicts.get(k, {})
+            if not d:
+                continue
+            inv = np.empty(max(d.values()) + 1, dtype=object)
+            for v, c in d.items():
+                inv[c] = v
+            codes = np.asarray(codes, np.int64)[:n]
+            ok = codes >= 0
+            self._prefilters.setdefault(k, ColumnPrefilter()).add_batch(inv[codes[ok]], rows[ok])
+
     # ------------------------------------------------------------------
 
     def _prefilter_mask(self, f: Filter) -> Optional[torch.Tensor]:

@@ -3,15 +3,18 @@
 Counterpart of longbow_tpu/store/vector_store.py: the same surface the
 Flight handlers call (put, search, delete, the dataset lifecycle and
 readiness), with the reference's metrics, the eviction and memory
-backpressure hooks, hybrid dense + BM25 search, graph re-rank and the
-GraphRAG actions. Persistence (the storage engine, its WAL and
-snapshots) is not ported yet.
+backpressure hooks, hybrid dense + BM25 search, graph re-rank, the
+GraphRAG actions and persistence: with a persist_dir every put, delete,
+drop and edge is logged to a WAL before it is applied, snapshot() writes
+every dataset's full state, and a new store on the same directory
+recovers both before it serves (storage/engine.py).
 """
 from __future__ import annotations
 
 import tempfile
 import threading
 import time
+from contextlib import nullcontext
 from pathlib import Path
 from typing import Optional
 
@@ -36,6 +39,12 @@ class VectorStore:
     migration_threshold rows, a graph (hnsw_config) after.
     device: None means the CUDA card (and raises without one).
 
+    persist_dir: a directory for the WAL and snapshots (None: nothing is
+    persisted). wal_sync is the WAL's group commit ("always", "batch",
+    "adaptive", "never"); wal_io_uring and wal_direct_io ask for those
+    append backends (the file backend serves where the OS refuses them);
+    snapshot_backend mirrors every snapshot (LocalBackend, S3Backend).
+
     Hooks, None until set: `eviction` (an EvictionManager fed by the
     ids every search returns), `backpressure` (a
     MemoryBackpressureController whose hard limit rejects puts) and
@@ -55,6 +64,11 @@ class VectorStore:
         default_index_kind: str = "adaptive",
         default_index_params: Optional[dict] = None,
         device=None,
+        persist_dir=None,
+        wal_sync: str = "batch",
+        wal_io_uring: bool = False,
+        wal_direct_io: bool = False,
+        snapshot_backend=None,
     ):
         self.device = resolve_device(device)
         self._datasets: dict[str, Dataset] = {}
@@ -73,6 +87,16 @@ class VectorStore:
         self.eviction = None
         self.reranker = None
         self.backpressure = None
+        # persistence: recover the snapshot and the WAL before serving
+        self.engine = None
+        if persist_dir is not None:
+            from longbow_tpu_torch.storage.engine import StorageEngine
+
+            self.engine = StorageEngine(
+                persist_dir, sync=wal_sync, snapshot_backend=snapshot_backend,
+                io_uring=wal_io_uring, direct_io=wal_direct_io,
+            )
+            self.engine.recover(self)
 
     # -- dataset lifecycle --------------------------------------------
 
@@ -110,10 +134,7 @@ class VectorStore:
                 )
                 graph_disk_path = None
                 if params and params.get("graph_disk"):
-                    # a disk-backed edge store; under the temp directory
-                    # until the storage engine (and its directory) is ported
-                    base = Path(tempfile.gettempdir()) / "longbow_graphs"
-                    graph_disk_path = base / "graphs" / f"{name.replace('/', '_')}.edges"
+                    graph_disk_path = self._graph_disk_path(name)
                 ds = Dataset(
                     name,
                     dim,
@@ -136,24 +157,95 @@ class VectorStore:
                 )
             return ds
 
+    def _graph_disk_path(self, name: str) -> Path:
+        """A disk-backed edge store's log: beside the WAL, or under the
+        temp directory when the store persists nothing."""
+        base = (
+            self.engine.dir if self.engine is not None
+            else Path(tempfile.gettempdir()) / "longbow_graphs"
+        )
+        return Path(base) / "graphs" / f"{name.replace('/', '_')}.edges"
+
+    def restore_dataset(self, name: str, blob: dict) -> Dataset:
+        """A dataset from a version 2 snapshot blob (this package's or
+        longbow_tpu's): the index state imported (no rebuild, no
+        retraining), the metadata columns, the id maps and the LWW
+        timestamps. A disk-backed edge store is re-attached to its log."""
+        from longbow_tpu_torch.index.factory import import_index
+        from longbow_tpu_torch.index.flat import storage_dtype
+        from longbow_tpu_torch.query.filters import ColumnStore
+
+        meta = blob["meta"]
+        js = blob.get("json") or {}
+        aux = blob.get("aux") or {}
+        try:
+            dtype = storage_dtype(meta.get("dtype", "bfloat16"))
+        except ValueError:
+            dtype = self.dtype
+        params = meta.get("index_params") or {}
+        ds = Dataset(
+            name,
+            meta["dim"],
+            meta["metric"],
+            dtype=dtype,
+            hnsw_config=self.hnsw_config,
+            migration_threshold=meta.get("migration_threshold", self.migration_threshold),
+            index_kind=meta.get("index_kind", "adaptive"),
+            index_params=params,
+            graph_disk_path=(
+                self._graph_disk_path(name)
+                if params.get("graph_disk") and self.engine is not None else None
+            ),
+            device=self.device,
+        )
+        ds.index = import_index(blob["index_state"], device=self.device)
+        ds.columns = ColumnStore.import_state(
+            {
+                "count": js.get("col_count", 0),
+                "numeric": {k[len("colnum:"):]: v for k, v in aux.items()
+                            if k.startswith("colnum:")},
+                "str_codes": {k[len("colstr:"):]: v for k, v in aux.items()
+                              if k.startswith("colstr:")},
+                "str_dicts": js.get("str_dicts", {}),
+            },
+            ds.index.capacity,
+            device=self.device,
+        )
+        ds._row_to_id = list(js.get("row_to_id", []))
+        ds._id_to_row = {uid: r for r, uid in enumerate(ds._row_to_id) if uid is not None}
+        ds._lww = {k: ts for k, ts in js.get("lww", [])}
+        with self._lock:
+            self._datasets[name] = ds
+            ns = name.split("/", 1)[0] if "/" in name else "default"
+            self._namespaces.setdefault(ns, set()).add(name)
+            get_registry().set("longbow_store_active_datasets", len(self._datasets))
+        return ds
+
+    def _guard(self, log: bool):
+        """The commit guard of a logged write; nothing without a WAL."""
+        return self.engine.commit_guard() if self.engine is not None and log else nullcontext()
+
     def get(self, name: str) -> Dataset:
         ds = self._datasets.get(name)
         if ds is None:
             raise KeyError(f"dataset {name!r} not found")
         return ds
 
-    def drop(self, name: str) -> bool:
+    def drop(self, name: str, *, _log: bool = True) -> bool:
         """The 'delete-dataset' action."""
-        with self._lock:
-            ds = self._datasets.pop(name, None)
-            for members in self._namespaces.values():
-                members.discard(name)
-            self.query_cache.clear()
-            if ds is not None:
-                reg = get_registry()
-                reg.inc("longbow_store_dropped_datasets_total")
-                reg.set("longbow_store_active_datasets", len(self._datasets))
-            return ds is not None
+        with self._guard(_log):
+            if self.engine is not None and _log:
+                self.engine.log_drop(name)
+            with self._lock:
+                ds = self._datasets.pop(name, None)
+                for members in self._namespaces.values():
+                    members.discard(name)
+                self.query_cache.clear()
+                if ds is not None:
+                    reg = get_registry()
+                    reg.inc("longbow_store_dropped_datasets_total")
+                    reg.set("longbow_store_active_datasets", len(self._datasets))
+                return ds is not None
 
     def list_datasets(self) -> list[str]:
         return sorted(self._datasets)
@@ -176,13 +268,19 @@ class VectorStore:
         columns: Optional[dict] = None,
         metric: Optional[str] = None,
         *,
+        _log: bool = True,
         timestamp=None,
     ) -> None:
         """Upsert rows (the DoPut path). vectors: a numpy array, a list
         of numpy blocks of one dim, or a tensor (kept on its device).
         With a `backpressure` controller its hard limit may raise
-        MemoryPressureError before anything is stored."""
+        MemoryPressureError before anything is stored. With a WAL the put
+        is logged, after its columns' types are checked, and applied under
+        the commit guard; _log=False (the replay) logs nothing."""
+        logged = self.engine is not None and _log
         dtype_hint = None
+        if isinstance(vectors, list) and logged:
+            vectors = np.concatenate(vectors)  # a frame holds one array
         if isinstance(vectors, list):
             dim = vectors[0].shape[1]
             if vectors[0].dtype in NATIVE_VECTOR_DTYPES:
@@ -198,12 +296,21 @@ class VectorStore:
         if self.backpressure is not None:
             self.backpressure.check_admit(self)
         ds = self.get_or_create(dataset, dim, metric, dtype_hint=dtype_hint)
-        ds.put(np.asarray(ids), vectors, columns, timestamp=timestamp)
+        # checked before the WAL append: a rejected frame in the log would
+        # be rejected again on every restart
+        ds.columns.check_types(columns or {})
+        with self._guard(_log):
+            if logged:
+                self.engine.log_put(dataset, ids, vectors, columns, metric,
+                                    timestamp=timestamp)
+            ds.put(np.asarray(ids), vectors, columns, timestamp=timestamp)
         if self.backpressure is not None:
             # the admission slot is held only for the apply
             get_registry().inc("longbow_memory_backpressure_releases_total")
         self.query_cache.clear()
         self._observe_dataset(ds)
+        if logged:
+            self.engine.maybe_snapshot(self)
 
     def _observe_dataset(self, ds) -> None:
         """Refresh the per-dataset gauges after a mutation."""
@@ -296,10 +403,13 @@ class VectorStore:
                 self.eviction.record_access(found)
         return out
 
-    def delete(self, dataset: str, ids) -> int:
+    def delete(self, dataset: str, ids, *, _log: bool = True) -> int:
         """The 'delete' action: tombstone rows by user id."""
         ds = self.get(dataset)
-        n = ds.delete(ids)
+        with self._guard(_log):
+            if self.engine is not None and _log:
+                self.engine.log_delete(dataset, ids)
+            n = ds.delete(ids)
         self.query_cache.clear()
         self._observe_dataset(ds)
         return n
@@ -434,8 +544,12 @@ class VectorStore:
 
     # -- GraphRAG actions ---------------------------------------------
 
-    def add_edge(self, dataset, src, dst, edge_type="", weight=1.0):
-        self.get(dataset).graph.add_edge(src, dst, edge_type, weight)
+    def add_edge(self, dataset, src, dst, edge_type="", weight=1.0, *, _log=True):
+        graph = self.get(dataset).graph
+        with self._guard(_log):
+            if self.engine is not None and _log:
+                self.engine.log_edge(dataset, src, dst, edge_type, weight)
+            graph.add_edge(src, dst, edge_type, weight)
 
     def traverse_graph(self, dataset, src, dst=None, max_hops=3, strategy="bfs"):
         """Strategies bfs | weighted | astar | parallel. astar is guided by
@@ -459,3 +573,17 @@ class VectorStore:
     def graph_analytics(self, dataset: str) -> dict:
         """Degree stats, hubs and weakly connected components."""
         return self.get(dataset).graph.analytics()
+
+    # -- persistence --------------------------------------------------
+
+    def snapshot(self) -> None:
+        """Write every dataset's full state and drop the WAL it covers."""
+        if self.engine is None:
+            raise RuntimeError("store has no persist_dir")
+        self.engine.snapshot(self)
+
+    def close(self) -> None:
+        """A final snapshot, then the WAL closed (a graceful shutdown)."""
+        if self.engine is not None:
+            self.engine.snapshot(self)
+            self.engine.close()
