@@ -151,7 +151,45 @@ Phases, each of which passes or ends the run with a non-zero exit:
                histogram's count equal to the snapshots taken, warm-up at 100.
                Launch counts are set to 0 just before the phase and read just after
                it; then K1 is held against its plain version on the recovered flat
-               dataset's search arguments and K2 on the restored sq8 dataset's.
+               dataset's search arguments and K2 on the restored sq8 dataset's;
+ 11. serving core - on phase 4's rows and queries, k = 10, phase 4's flat dataset
+               put again the same way: 11.1 64 threads send 16 single-query
+               searches each (the 1,000 queries and 24 more; every fourth with a
+               category filter of three values) through SearchCoalescer(store):
+               each answer equal to the same query searched alone (scores within
+               rtol 1e-6, ids where no score ties), recall@10 >= 0.95, no filter
+               violation, K1 launched once a dispatch and fewer times than the
+               requests; requests/s against the same requests one by one, p50 and
+               p99 of a request, the mean group; 11.3 load_config() under a
+               deployment's environment in the reference's own names (Go
+               durations, byte sizes, an address) builds 11.2's store; 11.2 the
+               rows in 65,536-row jobs from 4 threads through IngestQueue, then
+               drain: 1,000,000 rows, answers equal to the direct dataset's, the
+               queue-depth gauge at 0, rows/s against direct puts; HealthManager
+               with the store, storage and device checkers healthy on the card.
+               Launch counts are set to 0 just before the phase and read just
+               after it; then K1 is held against its plain version on the
+               arguments of the largest coalesced dispatch;
+ 12. mesh tier - on the same rows and queries, k = 10: 12.1 mesh_flat through
+               the store on the host's mesh (one shard here), and a mesh_flat
+               dataset on 8 logical shards of the card (Mesh((cuda:0,) * 8)):
+               answers equal to phase 11's flat dataset (rtol 1e-6, ids where
+               untied), recall@10 >= 0.95, K1 launched once a shard a search,
+               longbow_hnsw_parallel_search_splits_total up by 8 a search on the
+               8 shards, no filter violation, 10,000 deletes none of which comes
+               back; 1,000-query and single-query times against the flat
+               dataset's, ingest rows/s; on 8 shards K1 held against its plain
+               version on one shard's arguments (the variant scan_variant picks
+               at that size), the merge's time and the local searches'; 12.2 a
+               StorageEngine snapshot of the store, restored in a new store:
+               shard_counts, valid, norms and rows bit for bit, answers equal;
+               12.3 mesh_graph on 8 logical shards, 1,000,000 rows: build
+               seconds a shard, K1 launched in the builds, recall@10 at ef 100
+               and 150 (gate 0.95 at 150), 1,000-query and single-query times
+               beside phase 7's graph, 20,000 rows added live (the interim
+               segment) each finding itself first; the store's mesh_graph (one
+               shard) at 100,000 rows, recall@10 >= 0.90. Launch counts are set
+               to 0 just before the phase and read just after it.
 The last line of standard output is {"ok": true, "device": {...}}.
 
 Imports torch, numpy and longbow_tpu_torch only.
@@ -162,6 +200,7 @@ import json
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -856,15 +895,16 @@ def sq8r_stages(inner, queries, reps: int = 5) -> dict:
 
 # -- 7. graph tier (this slice's path) ----------------------------------------
 
-def first_call(module, attr: str, run, what: str) -> tuple:
+def first_call(module, attr: str, run, what: str, largest: bool = False) -> tuple:
     """Run `run` and keep the arguments of the first call it makes to
-    module.attr, a kernel's wrapper (the call itself goes through)."""
+    module.attr, a kernel's wrapper (the calls themselves go through);
+    largest: of the call with the most queries instead."""
     calls = []
     real = getattr(module, attr)
 
     def record(*args, **kw):
-        if not calls:
-            calls.append((args, kw))
+        if not calls or largest and args[0].shape[0] > calls[0][0][0].shape[0]:
+            calls[:] = [(args, kw)]
         return real(*args, **kw)
 
     setattr(module, attr, record)
@@ -2311,6 +2351,520 @@ def phase_persistence(bw: float, flops: float, reps: int, card: str, flat_rate: 
     return out
 
 
+# -- 11. the serving core (this slice's path) -----------------------------------
+
+SERVE_THREADS, SERVE_PER_THREAD = 64, 16   # 1,024 single-query requests
+SERVE_RTOL = 1e-6                          # coalesced against alone, and mesh against flat
+INGEST_JOBS_THREADS = 4
+# a deployment's environment in the reference's own names: Go durations and
+# byte sizes beside longbow's names
+REFERENCE_ENV = {
+    "LONGBOW_INDEX_KIND": "flat",
+    "LONGBOW_STORAGE_DTYPE": "bfloat16",
+    "LONGBOW_INGEST_QUEUE_DEPTH": "64",
+    "LONGBOW_AUTO_SHARDING_THRESHOLD": "200000",
+    "LONGBOW_MAX_MEMORY": "64GiB",
+    "LONGBOW_MAX_WAL_SIZE": "100MB",
+    "LONGBOW_TTL": "1h",
+    "LONGBOW_SNAPSHOT_INTERVAL": "30m",
+    "LONGBOW_LISTEN_ADDR": "127.0.0.1:3000",
+}
+
+
+def same_answers(label: str, got, want) -> dict:
+    """Two stores' (ids, scores, ok) for the same queries: the same slots
+    filled, scores within SERVE_RTOL, ids equal wherever no score ties."""
+    gi, gs, gok = got
+    wi, ws, wok = want
+    if not np.array_equal(gok, wok):
+        fail(f"{label}: different slots filled")
+    if not np.allclose(gs[wok], ws[wok], rtol=SERVE_RTOL, atol=0):
+        worst = np.max(np.abs(gs[wok] - ws[wok]) / np.maximum(np.abs(ws[wok]), 1e-30))
+        fail(f"{label}: scores differ by {worst} relative (limit {SERVE_RTOL})")
+    sure = ids_where_untied(wi, ws) & wok
+    if not np.array_equal(gi[sure], wi[sure]):
+        fail(f"{label}: {int((gi[sure] != wi[sure]).sum())} untied ids differ")
+    return {"slots": int(wok.sum()), "untied_slots": int(sure.sum())}
+
+
+def serving_requests(queries: np.ndarray):
+    """The 1,024 requests of 11.1: the 1,000 held-out queries and the first
+    24 moved by N(0, 0.05^2) noise; every fourth carries a category filter
+    (three values, so that groups split by the filter's cache key)."""
+    from longbow_tpu_torch.query.parser import Filter
+
+    rng = np.random.default_rng(11)
+    n = SERVE_THREADS * SERVE_PER_THREAD
+    extra = queries[: n - len(queries)] + rng.normal(0, 0.05, (n - len(queries), queries.shape[1]))
+    qs = np.concatenate([queries, extra.astype(np.float32)])
+    filters = [[Filter("category", "eq", str(i % 3))] if i % 4 == 0 else None for i in range(n)]
+    return qs, filters
+
+
+def phase_serving(bw: float, flops: float, reps: int, flat_rate: float) -> dict:
+    """11. the serving core on phase 4's rows: concurrent callers through
+    the coalescer, puts through the ingest queue, health and config."""
+    import os
+
+    from longbow_tpu_torch.config import load_config
+    from longbow_tpu_torch.index.hnsw import HNSWConfig
+    from longbow_tpu_torch.metrics import get_registry
+    from longbow_tpu_torch.ops import _kernels
+    from longbow_tpu_torch.ops import scan as scan_mod
+    from longbow_tpu_torch.ops.distance import Metric, exact_search
+    from longbow_tpu_torch.serving.coalescer import SearchCoalescer
+    from longbow_tpu_torch.serving.ingest import IngestQueue
+    from longbow_tpu_torch.store.vector_store import VectorStore
+    from longbow_tpu_torch.utils.health import (
+        HealthManager, device_checker, storage_checker, store_checker,
+    )
+
+    t_phase = time.perf_counter()
+    allv = make_corpus(N_STORE + N_QUERIES, D_STORE, seed=0)
+    corpus, queries = allv[:N_STORE], allv[N_STORE:]
+    ids = np.arange(N_STORE, dtype=np.int64)
+    category = ids % 10
+    out: dict = {}
+    _kernels.reset_launch_counts()
+
+    # phase 4's flat dataset, put the same way (direct 65,536-row puts)
+    store = VectorStore(device=DEVICE, dtype=torch.bfloat16, default_index_kind="flat")
+    t0 = time.perf_counter()
+    for s in range(0, N_STORE, PUT_BATCH):
+        store.put("sift", ids[s:s + PUT_BATCH], corpus[s:s + PUT_BATCH],
+                  {"category": category[s:s + PUT_BATCH]})
+    store.get("sift").index.flush()
+    torch.cuda.synchronize()
+    out["direct_ingest_rows_per_s"] = N_STORE / (time.perf_counter() - t0)
+    store.get("sift").warm()
+
+    # 11.1 the coalescer: 64 threads x 16 single-query requests
+    qs, filters = serving_requests(queries)
+    n_req = len(qs)
+    alone = []
+    t0 = time.perf_counter()
+    for i in range(n_req):
+        alone.append(store.search("sift", qs[i:i + 1], 10, filters=filters[i], use_cache=False))
+    serial_s = time.perf_counter() - t0
+    store.query_cache.clear()
+    co = SearchCoalescer(store)
+    got: dict = {}
+    lat: list = []
+    errors: list = []
+    lock = threading.Lock()
+
+    def caller(t: int) -> None:
+        try:
+            for j in range(SERVE_PER_THREAD):
+                i = t * SERVE_PER_THREAD + j
+                t1 = time.perf_counter()
+                r = co.search("sift", qs[i:i + 1], 10, filters=filters[i], timeout=60)
+                dt = time.perf_counter() - t1
+                with lock:
+                    got[i] = r
+                    lat.append(dt)
+        except Exception as e:  # reported below: the phase fails
+            errors.append(repr(e))
+
+    k1_0 = _kernels.FUSED_SCAN.launches
+    threads = [threading.Thread(target=caller, args=(t,)) for t in range(SERVE_THREADS)]
+
+    def run_callers():
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(120)
+
+    t0 = time.perf_counter()
+    call = first_call(scan_mod, "fused_flat_search", run_callers, "the coalesced searches",
+                      largest=True)
+    concurrent_s = time.perf_counter() - t0
+    co.stop()
+    k1_served = _kernels.FUSED_SCAN.launches - k1_0
+    if errors or any(th.is_alive() for th in threads) or len(got) != n_req:
+        fail(f"coalescer: {len(got)} of {n_req} answered; errors {errors[:3]}")
+    d1 = {"requests": n_req, "dispatches": co.dispatches, "coalesced": co.coalesced,
+          "mean_group": n_req / co.dispatches, "k1_launches": k1_served}
+    if k1_served >= n_req or k1_served != co.dispatches:
+        fail(f"coalescer: K1 launched {k1_served} times for {n_req} requests in "
+             f"{co.dispatches} dispatches")
+    merged = tuple(np.concatenate([got[i][j] for i in range(n_req)]) for j in range(3))
+    alone_all = tuple(np.concatenate([a[j] for a in alone]) for j in range(3))
+    d1.update(same_answers("coalesced against alone", merged, alone_all))
+    _, truth = exact_search(qs[:N_QUERIES], corpus, 10, Metric.L2, device=DEVICE)
+    plain_rows = [i for i in range(N_QUERIES) if filters[i] is None]
+    d1["recall_at_10"] = recall_at(merged[0][plain_rows], truth.cpu().numpy()[plain_rows])
+    gate("coalesced 1M x 128", d1["recall_at_10"], RECALL_GATE)
+    violations = sum(int(x) % 10 != int(f[0].value)
+                     for i, f in enumerate(filters) if f is not None
+                     for x in merged[0][i][merged[2][i]])
+    if violations:
+        fail(f"coalescer: {violations} filter violations")
+    d1.update(filter_violations=0, concurrent_s=concurrent_s, serial_s=serial_s,
+              requests_per_s=n_req / concurrent_s, serial_requests_per_s=n_req / serial_s,
+              p50_ms=1e3 * float(np.percentile(lat, 50)),
+              p99_ms=1e3 * float(np.percentile(lat, 99)))
+    print(f"11.1 coalescer: {n_req} requests from {SERVE_THREADS} threads in {co.dispatches} "
+          f"dispatches (mean group {d1['mean_group']:.2f}, K1 {k1_served} launches); "
+          f"{d1['requests_per_s']:.0f} requests/s against {d1['serial_requests_per_s']:.0f} one "
+          f"by one; p50 {d1['p50_ms']:.3f} ms, p99 {d1['p99_ms']:.3f} ms; recall@10 "
+          f"{d1['recall_at_10']:.4f}", flush=True)
+    out["coalescer"] = d1
+
+    # 11.3 the config: a reference-style environment read into the Config
+    # that builds 11.2's store
+    saved = {k: os.environ.get(k) for k in REFERENCE_ENV}
+    os.environ.update(REFERENCE_ENV)
+    try:
+        cfg = load_config()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    want = {"index_kind": "flat", "hbm_hard_limit_mb": 65536, "max_wal_mb": 95,
+            "dataset_ttl_s": 3600.0, "snapshot_interval_s": 1800.0, "host": "127.0.0.1",
+            "data_port": 3000, "migration_threshold": 200_000, "ingest_queue_depth": 64}
+    wrong = {k: getattr(cfg, k) for k, v in want.items() if getattr(cfg, k) != v}
+    if wrong:
+        fail(f"load_config under the reference's environment: {wrong}")
+    qstore = VectorStore(
+        device=DEVICE, dtype=getattr(torch, cfg.storage_dtype),
+        default_index_kind=cfg.index_kind, migration_threshold=cfg.migration_threshold,
+        query_cache_size=cfg.query_cache_size, query_cache_ttl=cfg.query_cache_ttl_s,
+        hnsw_config=HNSWConfig(m=cfg.hnsw_m, m_max=cfg.hnsw_m_max,
+                               ef_construction=cfg.hnsw_ef_construction,
+                               ef_search=cfg.hnsw_ef_search),
+    )
+
+    # 11.2 the ingest queue: 65,536-row jobs from 4 submitting threads
+    q = IngestQueue(qstore, max_depth=cfg.ingest_queue_depth)
+    jobs = list(range(0, N_STORE, PUT_BATCH))
+    sub_errors: list = []
+
+    def submitter(t: int) -> None:
+        try:
+            for s in jobs[t::INGEST_JOBS_THREADS]:
+                q.submit("queued", ids[s:s + PUT_BATCH], corpus[s:s + PUT_BATCH],
+                         {"category": category[s:s + PUT_BATCH]}, None, None)
+        except Exception as e:  # reported below: the phase fails
+            sub_errors.append(repr(e))
+
+    t0 = time.perf_counter()
+    subs = [threading.Thread(target=submitter, args=(t,)) for t in range(INGEST_JOBS_THREADS)]
+    for th in subs:
+        th.start()
+    for th in subs:
+        th.join(300)
+    drained = q.drain(timeout_s=300)
+    qstore.get("queued").index.flush()
+    torch.cuda.synchronize()
+    queue_s = time.perf_counter() - t0
+    q.close()
+    depth = get_registry().gauge("longbow_index_queue_depth")._only().value
+    if sub_errors or not drained or q.errors or depth != 0:
+        fail(f"ingest queue: drained {drained}, errors {sub_errors[:2]} {q.errors[:2]}, "
+             f"depth metric {depth}")
+    live = qstore.get("queued").live_count
+    if live != N_STORE:
+        fail(f"ingest queue: {live} rows, not {N_STORE}")
+    d2 = {"rows": live, "seconds": queue_s, "rows_per_s": N_STORE / queue_s,
+          "direct_rows_per_s": out["direct_ingest_rows_per_s"],
+          "phase4_rows_per_s": flat_rate, "depth_metric": depth}
+    d2.update(same_answers("queued against direct puts",
+                           qstore.search("queued", queries, 10, use_cache=False),
+                           store.search("sift", queries, 10, use_cache=False)))
+    print(f"11.2 ingest queue: {N_STORE} rows in {queue_s:.3f} s ({d2['rows_per_s']:.0f} rows/s "
+          f"against {d2['direct_rows_per_s']:.0f} by direct puts here, {flat_rate:.0f} in "
+          f"phase 4); answers equal to the direct dataset's", flush=True)
+    out["ingest_queue"] = d2
+
+    hm = HealthManager()
+    hm.register("store", store_checker(qstore))
+    hm.register("storage", storage_checker(qstore))
+    hm.register("device", device_checker())
+    health = hm.check()
+    if health["status"] != "healthy" or \
+            health["checks"]["device"]["devices"][0] != torch.cuda.get_device_name(0):
+        fail(f"health: {health}")
+    out["health"] = {"status": health["status"], "devices": health["checks"]["device"]["devices"]}
+    out["config"] = {k: getattr(cfg, k) for k in want}
+    print(f"11.3 health {health['status']} on {health['checks']['device']['devices']}; the "
+          f"config read the reference's environment ({len(REFERENCE_ENV)} names)", flush=True)
+
+    torch.cuda.synchronize()
+    out["launches"] = {k.name: k.launches for k in _kernels.KERNELS}
+    out["k1_serving"] = check_build_scan("serving coalesced group", call, bw, flops, reps,
+                                         finds_itself=False)
+    out["seconds"] = time.perf_counter() - t_phase
+    emit({"serving": out})
+    out["_store"] = store  # phase 12 compares the mesh kinds with its flat dataset
+    return out
+
+
+# -- 12. the mesh tier (this slice's path) -------------------------------------------
+
+MESH_SHARDS = 8          # logical shards on the one card
+MESH_DELETES = 10_000
+MESH_GRAPH_ADD = 20_000  # rows added after the build: the interim segment
+MESH_GRAPH_STORE_ROWS = 100_000
+
+
+def mesh_dataset(store, name: str, mesh, dim: int):
+    """A mesh_flat dataset whose index lies on an explicit mesh (the store
+    makes its mesh with make_mesh, which never repeats a card)."""
+    from longbow_tpu_torch.index.factory import _MeshAdapter
+    from longbow_tpu_torch.parallel.sharded import ShardedFlatIndex
+    from longbow_tpu_torch.query.filters import ColumnStore
+
+    ds = store.get_or_create(name, dim, index_kind="mesh_flat")
+    ds.index = _MeshAdapter(ShardedFlatIndex(dim, mesh, "l2", dtype=torch.bfloat16), "mesh_flat")
+    ds.columns = ColumnStore(ds.index.capacity, device=ds.device)
+    return ds
+
+
+def phase_mesh(bw: float, flops: float, reps: int, flat_store, graph_store,
+               graph_stats: dict) -> dict:
+    """12. the mesh tier on phase 4's rows: mesh_flat through the store (the
+    host's mesh) and on 8 logical shards of the card, a snapshot of the
+    store's mesh_flat dataset, mesh_graph on 8 logical shards."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from longbow_tpu_torch.device import resolve_device
+    from longbow_tpu_torch.index.hnsw import HNSWConfig, HNSWIndex
+    from longbow_tpu_torch.metrics import get_registry
+    from longbow_tpu_torch.ops import _kernels
+    from longbow_tpu_torch.ops import scan as scan_mod
+    from longbow_tpu_torch.ops.distance import Metric, exact_search
+    from longbow_tpu_torch.ops.scan import scan_variant
+    from longbow_tpu_torch.parallel import sharded_graph
+    from longbow_tpu_torch.parallel.mesh import Mesh
+    from longbow_tpu_torch.parallel.sharded import merge_shards
+    from longbow_tpu_torch.query.parser import Filter
+    from longbow_tpu_torch.storage.engine import StorageEngine
+    from longbow_tpu_torch.store.vector_store import VectorStore
+
+    t_phase = time.perf_counter()
+    allv = make_corpus(N_STORE + N_QUERIES, D_STORE, seed=0)
+    corpus, queries = allv[:N_STORE], allv[N_STORE:]
+    ids = np.arange(N_STORE, dtype=np.int64)
+    category = ids % 10
+    _, truth = exact_search(queries, corpus, 10, Metric.L2, device=DEVICE)
+    truth = truth.cpu().numpy()
+    reg = get_registry()
+    splits = reg.counter("longbow_hnsw_parallel_search_splits_total", ("dataset",))
+    out: dict = {}
+    _kernels.reset_launch_counts()
+    flat_ms = 1e3 * timed(lambda: flat_store.search("sift", queries, 10, use_cache=False), 5)
+    flat_answer = flat_store.search("sift", queries, 10, use_cache=False)
+    mesh8 = Mesh((resolve_device(DEVICE),) * MESH_SHARDS)
+    store = VectorStore(device=DEVICE, dtype=torch.bfloat16)
+
+    # 12.1 mesh_flat: the host's mesh through the store, then 8 logical shards
+    rows_1 = None
+    for name, n_shards in (("mesh1", None), ("mesh8", MESH_SHARDS)):
+        if n_shards is None:
+            ds = store.get_or_create(name, D_STORE, index_kind="mesh_flat")
+        else:
+            ds = mesh_dataset(store, name, mesh8, D_STORE)
+        n_shards = ds.index.n_shards
+        t0 = time.perf_counter()
+        for s in range(0, N_STORE, PUT_BATCH):
+            store.put(name, ids[s:s + PUT_BATCH], corpus[s:s + PUT_BATCH],
+                      {"category": category[s:s + PUT_BATCH]})
+        torch.cuda.synchronize()
+        d = {"n_shards": n_shards, "ingest_rows_per_s": N_STORE / (time.perf_counter() - t0)}
+        d["shard_capacity"] = ds.index._inner.shard_capacity
+        ds.warm()
+        k1_0, sp_0 = _kernels.FUSED_SCAN.launches, splits.labels(dataset=name).value
+        served = store.search(name, queries, 10, use_cache=False)
+        d["k1_launches_per_search"] = _kernels.FUSED_SCAN.launches - k1_0
+        d["splits_per_search"] = splits.labels(dataset=name).value - sp_0
+        if d["k1_launches_per_search"] != n_shards:
+            fail(f"{name}: K1 launched {d['k1_launches_per_search']} times in one search "
+                 f"over {n_shards} shards")
+        if d["splits_per_search"] != (n_shards if n_shards > 1 else 0):
+            fail(f"{name}: the search splits counter rose by {d['splits_per_search']}")
+        d.update(same_answers(f"{name} against the flat dataset", served, flat_answer))
+        d["recall_at_10"] = recall_at(served[0], truth)
+        gate(f"{name} 1M x 128", d["recall_at_10"], RECALL_GATE)
+        d["batch_1000_ms"] = 1e3 * timed(
+            lambda: store.search(name, queries, 10, use_cache=False), 5)
+        d["flat_batch_1000_ms"] = flat_ms
+        lat = [timed(lambda j=j: store.search(name, queries[j:j + 1], 10, use_cache=False), 1)
+               for j in range(16)]
+        d["p50_single_query_ms"] = 1e3 * statistics.median(lat)
+        fids, _, fok = store.search(name, queries[:100], 10,
+                                    filters=[Filter("category", "eq", "3")], use_cache=False)
+        if not fok.any() or any(x % 10 != 3 for x in fids[fok].tolist()):
+            fail(f"{name}: the category filter let another category through")
+        d["filter_violations"] = 0
+        if n_shards > 1:
+            # K1 on one shard's arguments: the variant scan_variant picks at
+            # the shard's size, and the merge alone
+            inner = ds.index._inner
+            call = first_call(scan_mod, "fused_flat_search",
+                              lambda: inner.search(queries, 10), "the sharded search")
+            d["k1_shard"] = check_build_scan(f"mesh_flat shard of {n_shards}", call, bw, flops,
+                                             reps, finds_itself=False)
+            d["shard_variant"] = scan_variant(N_QUERIES, inner.shard_capacity, D_STORE, 64, True)
+            q_t = torch.from_numpy(queries).to(DEVICE)
+            with inner._mu:
+                parts = [inner.local_search(j, q_t, 10, None, "l2", False)
+                         for j in range(n_shards)]
+            ds_, rs_ = [p[0] for p in parts], [p[1] for p in parts]
+            d["merge_ms"] = time_ms(lambda: merge_shards(ds_, rs_, 10), reps)
+            held = _kernels.FUSED_SCAN.launches  # timing launches do not count
+            with inner._mu:
+                d["local_searches_ms"] = time_ms(
+                    lambda: [inner.local_search(j, q_t, 10, None, "l2", False)
+                             for j in range(n_shards)], 3)
+            _kernels.FUSED_SCAN.launches = held
+        dead = np.random.default_rng(2).choice(N_STORE, MESH_DELETES, replace=False)
+        if store.delete(name, dead) != MESH_DELETES:
+            fail(f"{name}: delete did not remove {MESH_DELETES} ids")
+        did, _, dok = store.search(name, corpus[dead[:1000]], 10, use_cache=False)
+        if set(did[dok].tolist()) & set(dead.tolist()):
+            fail(f"{name}: deleted ids came back")
+        d["deleted_returned"] = 0
+        extra = "" if n_shards == 1 else (
+            f"; K1 a shard {d['k1_shard']['ms']:.3f} ms ({d['shard_variant']}), merge "
+            f"{d['merge_ms']:.3f} ms, the {n_shards} local searches {d['local_searches_ms']:.3f} ms")
+        print(f"12.1 {name}: {n_shards} shard(s), 1,000 queries {d['batch_1000_ms']:.3f} ms "
+              f"(flat {flat_ms:.3f} ms), p50 1 query {d['p50_single_query_ms']:.3f} ms, recall@10 "
+              f"{d['recall_at_10']:.4f}, ingest {d['ingest_rows_per_s']:.0f} rows/s{extra}",
+              flush=True)
+        out[name] = d
+        emit({"mesh_flat": d})
+    store.drop("mesh8")  # a snapshot of it would need 8 cards to restore
+
+    # 12.2 a snapshot of the store's mesh_flat dataset, restored in a new store
+    root = Path(tempfile.mkdtemp(prefix="longbow_mesh_"))
+    try:
+        before = store.search("mesh1", queries, 10, use_cache=False)
+        st_before = store.get("mesh1").index.export_state()
+        eng = StorageEngine(root, sync="never")
+        t0 = time.perf_counter()
+        eng.snapshot(store)
+        snap_s = time.perf_counter() - t0
+        eng.close()
+        t0 = time.perf_counter()
+        restored = VectorStore(persist_dir=root, device=DEVICE)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        st_after = restored.get("mesh1").index.export_state()
+        for key in ("shard_counts", "valid", "norms_sq", "vectors"):
+            if not np.array_equal(st_before[key], st_after[key]):
+                fail(f"mesh1 snapshot: {key} differ after the restore")
+        after = restored.search("mesh1", queries, 10, use_cache=False)
+        out["snapshot"] = {"snapshot_s": snap_s, "restore_s": restore_s,
+                           "bytes": dir_bytes(root / "snapshot"), "state_bit_for_bit": True,
+                           **same_answers("mesh1 after its restore", after, before)}
+        print(f"12.2 mesh1 snapshot {snap_s:.3f} s, {out['snapshot']['bytes']} bytes (every "
+              f"dataset of the store); restore {restore_s:.3f} s; shard_counts, valid, rows "
+              f"and results equal", flush=True)
+        restored.engine.close()
+        del restored
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    store.drop("mesh1")
+    torch.cuda.empty_cache()
+
+    # 12.3 mesh_graph: 8 logical shards of the card, 1M rows
+    graph = sharded_graph.ShardedGraphIndex(D_STORE, mesh8, "l2", config=HNSWConfig(),
+                                            dtype=torch.bfloat16)
+    shard_s: list = []
+    real_add = HNSWIndex.add
+
+    def timed_add(self, vecs):
+        t1 = time.perf_counter()
+        r = real_add(self, vecs)
+        torch.cuda.synchronize()
+        shard_s.append(time.perf_counter() - t1)
+        return r
+
+    graph.add(corpus)
+    k1_0 = _kernels.FUSED_SCAN.launches
+    HNSWIndex.add = timed_add
+    try:
+        t0 = time.perf_counter()
+        graph.build()
+        build_s = time.perf_counter() - t0
+    finally:
+        HNSWIndex.add = real_add
+    d3 = {"shards": MESH_SHARDS, "build_s": build_s, "build_s_per_shard": shard_s,
+          "k1_launches_in_build": _kernels.FUSED_SCAN.launches - k1_0,
+          "shard_rows": graph.shard_rows}
+    if d3["k1_launches_in_build"] == 0:
+        fail("the 8 shard builds did not launch K1")
+    for ef in (100, 150):
+        dist, rows = graph.search(queries, 10, ef_search=ef)
+        d3[f"recall_at_10_ef{ef}"] = recall_at(rows, truth)
+        d3[f"batch_1000_ef{ef}_ms"] = 1e3 * timed(
+            lambda: graph.search(queries, 10, ef_search=ef), 3)
+        d3[f"p50_single_query_ef{ef}_ms"] = 1e3 * statistics.median(
+            [timed(lambda j=j: graph.search(queries[j:j + 1], 10, ef_search=ef), 1)
+             for j in range(16)])
+        d3[f"phase7_p50_single_query_ef{ef}_ms"] = 1e3 * statistics.median(
+            [timed(lambda j=j: graph_store.search("graph", queries[j:j + 1], 10, ef_search=ef,
+                                                  use_cache=False), 1) for j in range(16)])
+        d3[f"phase7_batch_1000_ef{ef}_ms"] = graph_stats[f"batch_1000_ef{ef}_ms"]
+    gate("mesh_graph 8 shards 1M x 128, ef 150", d3["recall_at_10_ef150"], GRAPH_RECALL_GATE)
+    rng = np.random.default_rng(12)
+    extra = corpus[rng.integers(0, N_STORE, MESH_GRAPH_ADD)] + \
+        0.1 * rng.standard_normal((MESH_GRAPH_ADD, D_STORE)).astype(np.float32)
+    t0 = time.perf_counter()
+    new_rows = graph.add(extra)
+    torch.cuda.synchronize()
+    d3["interim_add_rows_per_s"] = MESH_GRAPH_ADD / (time.perf_counter() - t0)
+    if graph.built_count != N_STORE or graph._interim is None:
+        fail("the live add folded the interim segment")
+    found = 0
+    for s in range(0, MESH_GRAPH_ADD, 2000):
+        _, r = graph.search(extra[s:s + 2000], 1, ef_search=10)
+        found += int((r[:, 0] == new_rows[s:s + 2000]).sum())
+    if found != MESH_GRAPH_ADD:
+        fail(f"mesh_graph: {MESH_GRAPH_ADD - found} of the {MESH_GRAPH_ADD} rows added live "
+             "did not find themselves first")
+    d3["interim_rows_found"] = found
+    print(f"12.3 mesh_graph {MESH_SHARDS} shards: build {build_s:.3f} s (a shard "
+          f"{statistics.median(shard_s):.3f} s, K1 {d3['k1_launches_in_build']} launches); "
+          f"recall@10 ef 100 {d3['recall_at_10_ef100']:.4f}, ef 150 "
+          f"{d3['recall_at_10_ef150']:.4f}; 1,000 queries ef 100 / 150 "
+          f"{d3['batch_1000_ef100_ms']:.3f} / {d3['batch_1000_ef150_ms']:.3f} ms (phase 7 "
+          f"{d3['phase7_batch_1000_ef100_ms']:.3f} / {d3['phase7_batch_1000_ef150_ms']:.3f}); "
+          f"1 query {d3['p50_single_query_ef100_ms']:.3f} / {d3['p50_single_query_ef150_ms']:.3f}"
+          f" ms (phase 7's graph {d3['phase7_p50_single_query_ef100_ms']:.3f} / "
+          f"{d3['phase7_p50_single_query_ef150_ms']:.3f}); {found} live rows found", flush=True)
+    out["mesh_graph_8"] = d3
+    emit({"mesh_graph": d3})
+    del graph
+    torch.cuda.empty_cache()
+
+    # the store's mesh_graph (the host's mesh) at 100,000 rows
+    n = MESH_GRAPH_STORE_ROWS
+    store.get_or_create("mg", D_STORE, index_kind="mesh_graph")
+    store.put("mg", ids[:n], corpus[:n])
+    _, small_truth = exact_search(queries, corpus[:n], 10, Metric.L2, device=DEVICE)
+    got, _, _ = store.search("mg", queries, 10, use_cache=False)
+    d4 = {"rows": n, "n_shards": store.get("mg").index.n_shards,
+          "recall_at_10": recall_at(got, small_truth.cpu().numpy())}
+    gate("store mesh_graph 100k", d4["recall_at_10"], SMALL_GRAPH_GATE)
+    print(f"12.3 store mesh_graph: {n} rows on {d4['n_shards']} shard(s), recall@10 "
+          f"{d4['recall_at_10']:.4f}", flush=True)
+    out["store_mesh_graph"] = d4
+    store.drop("mg")
+
+    torch.cuda.synchronize()
+    out["launches"] = {k.name: k.launches for k in _kernels.KERNELS}
+    out["seconds"] = time.perf_counter() - t_phase
+    emit({"mesh": {k: v for k, v in out.items() if k in ("launches", "seconds")}})
+    return out
+
+
 def recorded_fields(prefix: str, row: dict) -> dict:
     """A kernel's check on a path's recorded arguments, for the kernels line."""
     return {f"{prefix}_{key}": row[src] for key, src in (
@@ -2342,8 +2896,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     persist = phase_persistence(bw, flops, TIMED_LAUNCHES, card, store["ingest_rows_per_s"],
                                 graph_store, graph["default_store_1m_x_128"])
+    torch.cuda.empty_cache()
+    serving = phase_serving(bw, flops, TIMED_LAUNCHES, store["ingest_rows_per_s"])
+    flat_store = serving.pop("_store")
+    mesh = phase_mesh(bw, flops, TIMED_LAUNCHES, flat_store, graph_store,
+                      graph["default_store_1m_x_128"])
     graph_store.drop("graph")
-    del graph_store
+    del graph_store, flat_store
 
     served = next(c for c in kern["cases"] if c["tag"] == "served_batch")
     served2 = next(c for c in codes["cases"] if c["tag"] == "served_batch")
@@ -2357,9 +2916,12 @@ def main() -> int:
         "launches_index_kinds": kinds["launches"]["fused_scan"],
         "launches_services": services["launches"]["fused_scan"],
         "launches_persistence": persist["launches"]["fused_scan"],
+        "launches_serving": serving["launches"]["fused_scan"],
+        "launches_mesh": mesh["launches"]["fused_scan"],
         "max_abs_err": max(c["max_abs_err"] for c in
                            kern["cases"] + graph["self_knn_cases"] + [kinds["k1_spill"]]
-                           + [services["k1_services"], persist["k1_persistence"]]),
+                           + [services["k1_services"], persist["k1_persistence"],
+                              serving["k1_serving"], mesh["mesh8"]["k1_shard"]]),
         "graph_tier_shape": knn["case"],
         "graph_tier_variant": knn["variant"],
         "graph_tier_ms": knn["ms"],
@@ -2369,6 +2931,8 @@ def main() -> int:
         **recorded_fields("index_kinds", kinds["k1_spill"]),
         **recorded_fields("services", services["k1_services"]),
         **recorded_fields("persistence", persist["k1_persistence"]),
+        **recorded_fields("serving", serving["k1_serving"]),
+        **recorded_fields("mesh", mesh["mesh8"]["k1_shard"]),
         "ms": served["ms"],
         "variant": served["variant"],
         "prev_ms": served["prev_ms"],
@@ -2388,6 +2952,8 @@ def main() -> int:
         "launches_index_kinds": kinds["launches"]["fused_codes_scan"],
         "launches_services": services["launches"]["fused_codes_scan"],
         "launches_persistence": persist["launches"]["fused_codes_scan"],
+        "launches_serving": serving["launches"]["fused_codes_scan"],
+        "launches_mesh": mesh["launches"]["fused_codes_scan"],
         "max_abs_err": max(c["max_abs_err"] for c in
                            codes["cases"] + [kinds["k2_disk"], services["k2_services"],
                                              persist["k2_persistence"]]),

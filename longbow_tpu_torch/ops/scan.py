@@ -509,14 +509,44 @@ def fused_codes_search(
     return _plain_scan(codes_t, qs_t, qn, vn, k, True, group_term=gt, clamp_zero=clamp_zero)
 
 
+def row_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis in a fixed pairwise order (zero-padded to a
+    power of two), by elementwise adds only: a row's sum is the same bits
+    whatever batch it is computed in, where a reduction kernel's or a
+    matmul's order depends on the tensor's shape."""
+    w = x.shape[-1]
+    p = 1 << max(w - 1, 0).bit_length()
+    if p != w:
+        x = torch.nn.functional.pad(x, (0, p - w))
+    while x.shape[-1] > 1:
+        h = x.shape[-1] // 2
+        x = x[..., :h] + x[..., h:]
+    return x[..., 0]
+
+
+def rerank_distances(qf: torch.Tensor, cand: torch.Tensor, l2: bool) -> torch.Tensor:
+    """Exact f32 distances of queries [B, D] to their candidates [B, P, D]:
+    l2 as the sum of squared differences, else -q.v, summed by row_sum.
+    A query's distances are then the same bits alone and inside a
+    coalesced batch; |q|^2 - 2 q.v + |v|^2 through einsum (the
+    reference's form) differed by 8e-6 relative between the two on an
+    H100, its rounding magnified by the cancellation
+    (tools/probe_rerank.py)."""
+    if l2:
+        diff = qf[:, None, :] - cand
+        return row_sum(diff * diff)
+    return -row_sum(qf[:, None, :] * cand)
+
+
 def flat_search_rerank(
     queries, corpus, corpus_norms_sq, valid, k, metric=Metric.L2, *,
     pool: int = 64, extra_mask=None, normalize=False, device=None,
 ):
     """Fused scan for a pool of max(pool, k) candidates, then an exact
-    float32 re-rank of the pool against the stored rows (TF32 off). The
-    re-rank removes the bf16 query rounding of the scan; what remains is
-    the bf16 rounding of the stored rows."""
+    float32 re-rank of the pool against the stored rows. The re-rank
+    removes the bf16 query rounding of the scan; what remains is the bf16
+    rounding of the stored rows. A query's distances do not depend on
+    the batch it came in (rerank_distances)."""
     pool = max(pool, k)
     dev = resolve_device(device)
     corpus = torch.as_tensor(corpus, device=dev)
@@ -530,14 +560,7 @@ def flat_search_rerank(
         qf = qf[None, :]
     if normalize:
         qf = normalize_rows(qf)
-    full_f32_matmul()
-    ip = torch.einsum("bd,bkd->bk", qf, cand)
-    if Metric.validate(metric) == Metric.L2:
-        qn = (qf * qf).sum(dim=1, keepdim=True)
-        cn = (cand * cand).sum(dim=2)
-        ed = torch.clamp_min(qn - 2.0 * ip + cn, 0.0)
-    else:
-        ed = -ip
+    ed = rerank_distances(qf, cand, Metric.validate(metric) == Metric.L2)
     ed = torch.where(d < MASKED_GUARD, ed, torch.full_like(ed, MASKED))
     vals, pos = torch.topk(ed, k, dim=1, largest=False)
     return vals, torch.gather(i, 1, pos)

@@ -2,9 +2,9 @@
 
 Counterpart of longbow_tpu/storage/native.py, with its own copy of the
 source. The library holds CRC32C, the WAL frame encode and scan, the
-io_uring WAL backend, the JSON float parse and the bf16 converts; the
-first three are bound here (the others serve the Flight edge). It is
-built at first use with `g++ -O3 -shared -fPIC -std=c++17` into
+io_uring WAL backend, the JSON float parse and the bf16 converts; all
+but the bf16 converts (the Flight edge's scan mirror) are bound here. It
+is built at first use with `g++ -O3 -shared -fPIC -std=c++17` into
 `.native_build/<hash>/` at the repository root, keyed by a hash of the
 source and the flags, and loaded from there afterwards. Nothing is built
 at import time.
@@ -90,6 +90,11 @@ def _bind(lib: ctypes.CDLL) -> None:
         "lb_uring_fsync": (c.c_int64, [c.c_uint64]),
         "lb_uring_truncate": (c.c_int64, [c.c_uint64]),
         "lb_uring_close": (None, [c.c_uint64]),
+        # the query-vector span of a ticket (query/parser.py::_fast_parse)
+        "lb_json_f32": (c.c_int64, [
+            c.c_char_p, c.c_uint64, c.POINTER(c.c_float), c.c_int64,
+            c.POINTER(c.c_int64), c.POINTER(c.c_uint64),
+        ]),
     }
     for name, (res, args) in sigs.items():
         fn = getattr(lib, name)

@@ -330,6 +330,16 @@ class VectorStore:
                 codes = graph.state.vectors
                 reg.set("longbow_hnsw_pq_compressed_bytes_total",
                         codes.numel() * codes.element_size(), dataset=ds.name)
+        n_shards = getattr(ds.index, "n_shards", 0)  # the mesh kinds
+        if n_shards:
+            counts = ds.index._shard_counts
+            per_cap = max(ds.index.capacity // n_shards, 1)
+            for s in range(n_shards):
+                # mesh_graph keeps no counts: its rows stripe round-robin
+                c = int(counts[s]) if counts is not None else len(ds.index) // n_shards
+                reg.set("longbow_sharded_hnsw_shard_size", c, dataset=ds.name, shard=str(s))
+                reg.set("longbow_sharded_hnsw_load_factor", c / per_cap,
+                        dataset=ds.name, shard=str(s))
 
     def search(
         self,
@@ -367,6 +377,11 @@ class VectorStore:
         ds = self.get(dataset)
         kind = ds.index.kind
         graph_search = not exact and kind not in ("flat", "mesh_flat")
+        n_shards = getattr(ds.index, "n_shards", 0)
+        if n_shards > 1:
+            # one logical search fans out over every shard (the reference
+            # counts per-shard splits, hnsw_parallel.go)
+            reg.inc("longbow_hnsw_parallel_search_splits_total", n_shards, dataset=dataset)
         if graph_search:
             reg.inc("longbow_hnsw_searches_total")
             reg.gauge("longbow_hnsw_active_readers", ("dataset",)).labels(dataset=dataset).inc()
