@@ -189,7 +189,43 @@ Phases, each of which passes or ends the run with a non-zero exit:
                beside phase 7's graph, 20,000 rows added live (the interim
                segment) each finding itself first; the store's mesh_graph (one
                shard) at 100,000 rows, recall@10 >= 0.90. Launch counts are set
-               to 0 just before the phase and read just after it.
+               to 0 just before the phase and read just after it;
+ 13. Flight edge - the serving process's runtime (longbow_tpu_torch.serve.build_runtime,
+               from a Config read from the environment: a temporary data path, the
+               default kind held flat, async ingest, the coalescer, a 5 s periodic
+               snapshot, the middleware chain) and its FlightHandlers, driven with
+               requests as the wire carries them (put batches, answers and scan
+               batches across the port's Arrow IPC codec; tickets, exchange
+               commands and actions as longbow_tpu's client writes them), on phase
+               4's rows and queries, k = 10: 13.1 16 DoPut streams of 65,536 rows
+               (id, vector as FixedSizeList<f32>[128], category = id mod 1000) through
+               the ingest queue, check_readiness polled until not BUSY, rows/s
+               against phase 4's; 13.2 the 1,000 queries as one ticket (equal to
+               store.search: scores rtol 1e-6, ids where untied; query_index right;
+               recall@10 >= 0.95) and as 1,000 single tickets from 64 threads through
+               the coalescer (a quarter with a category filter of three values: 0
+               violations; each equal to the query searched alone), requests/s, p50
+               and p99 a ticket, the mean group, K1's launches and variant;
+               include_vectors f32 (equal to get_vectors), f16 (its f16 cast) and
+               quantized (within vector_scale / 2) on 100 queries; 13.3 DoExchange
+               with the queries in 8 batches, equal to 13.2; 13.4 a full scan in
+               ~2 MB batches through the host mirror (every id once, every vector bit
+               for bit the device's stored row), GB/s of the f32 payload, a filtered
+               scan with a limit, 1% of the ids deleted by the delete action (none
+               back from searches or a scan); 13.5 every single-node action, answers
+               held to what the phase did, ForceSnapshot ok, at least one periodic
+               snapshot, then a second runtime on the same data path answers equal
+               with no deleted id; 13.6 100,000 int8 rows as FixedSizeList<int8>: an
+               identity sq8 dataset (the codes are the bytes put), searched through
+               K2, recall@10 >= 0.99 against exact search over the codes; 13.7 a rate
+               limiter refusing a burst's excess as unavailable, and a breaker that
+               opens after 3 failures and closes after its cooldown. Launch counts
+               are set to 0 just before the phase and read just after it; then K1 is
+               held against its plain version on the largest coalesced ticket group's
+               arguments and K2 on the int8 dataset's; 13.8, where pyarrow.flight
+               imports, the gRPC binding over loopback with the port's client
+               (answers equal to the handlers', a scan bit for bit, puts, an
+               unknown dataset's error); where it does not, a line says why.
 The last line of standard output is {"ok": true, "device": {...}}.
 
 Imports torch, numpy and longbow_tpu_torch only.
@@ -2865,6 +2901,765 @@ def phase_mesh(bw: float, flops: float, reps: int, flat_store, graph_store,
     return out
 
 
+# -- 13. the Flight edge's handlers (this slice's path) ------------------------------
+
+FLIGHT_THREADS = 64            # callers of the single-query tickets
+FLIGHT_EXCHANGE_BATCHES = 8
+FLIGHT_VECTORS = 100           # queries of the include_vectors checks
+FLIGHT_DELETES = N_STORE // 100
+FLIGHT_DEADLINE_S = 300.0      # every wait of the phase
+INT8_GATE = 0.99               # against exact search over the stored codes (PERF.md §2)
+FLIGHT_ENV = {
+    "LONGBOW_STORAGE_DTYPE": "bfloat16",
+    # the default kind, held on its flat tier: an int8 put then makes the
+    # identity sq8 dataset of 13.6
+    "LONGBOW_INDEX_KIND": "adaptive",
+    "LONGBOW_AUTOSHARD_THRESHOLD": str(10 * N_STORE),
+    "LONGBOW_ASYNC_INGEST": "1",
+    "LONGBOW_SEARCH_COALESCE": "1",
+    "LONGBOW_SNAPSHOT_INTERVAL": "5s",
+    "LONGBOW_METRICS_PORT": "0",
+}
+
+
+def wire(table):
+    """A Table across the port's Arrow IPC codec, as a client would see it."""
+    from longbow_tpu_torch.storage.arrow_ipc import decode_stream, encode_stream
+
+    return decode_stream(encode_stream(table))
+
+
+def ticket_search(name: str, q: np.ndarray, k: int = 10, **extra) -> bytes:
+    """A search ticket as longbow_tpu/serving/client.py writes it."""
+    body = {"dataset": name, "k": k, **extra}
+    if q.ndim == 2:
+        body["vectors"] = q.tolist()
+    else:
+        body["vector"] = q.tolist()
+    return json.dumps({"search": body}).encode()
+
+
+def answer_arrays(tbl, b: int, k: int) -> tuple:
+    """A search answer's columns -> (ids [b, k] object, scores, ok), checking
+    query_index: ascending, each query's rows in rank order."""
+    qi = np.asarray(tbl.column("query_index"), np.int64)
+    if len(qi) and (np.any(np.diff(qi) < 0) or qi.min() < 0 or qi.max() >= b):
+        fail("a search answer's query_index is not ascending within [0, B)")
+    pos = np.arange(len(qi)) - np.searchsorted(qi, qi, side="left")
+    if len(pos) and pos.max() >= k:
+        fail(f"a search answer has more than k = {k} rows for one query")
+    ids = np.empty((b, k), dtype=object)
+    scores = np.zeros((b, k), np.float32)
+    ok = np.zeros((b, k), bool)
+    ids[qi, pos] = np.asarray(tbl.column("id"), np.int64)
+    scores[qi, pos] = tbl.column("score")
+    ok[qi, pos] = True
+    return ids, scores, ok
+
+
+def flight_put(handlers, name, ids, vecs, category=None) -> None:
+    from longbow_tpu_torch.storage.arrow_ipc import Table
+
+    cols = {"id": ids, "vector": vecs}
+    if category is not None:
+        cols["category"] = category
+    tbl = wire(Table(cols, {"longbow.metric": "l2"}))
+    handlers.do_put(name, tbl.schema_metadata, [tbl])
+
+
+def wait_ready(handlers, what: str) -> float:
+    """Polls check_readiness until the ingest queue has drained."""
+    t0 = time.perf_counter()
+    while True:
+        r = json.loads(handlers.do_action("check_readiness", b"{}")[0])
+        if r["status"] != "BUSY":
+            if r.get("index_queue_depth", 0) != 0 or r["status"] != "READY":
+                fail(f"{what}: readiness {r}")
+            return time.perf_counter() - t0
+        if time.perf_counter() - t0 > FLIGHT_DEADLINE_S:
+            fail(f"{what}: still BUSY after {FLIGHT_DEADLINE_S} s")
+        time.sleep(0.05)
+
+
+def flight_scan(handlers, ticket: bytes, dim: int) -> tuple:
+    """A DoGet table scan's ids, vectors and columns, every batch across
+    the codec; the seconds spent pulling batches and in the codec."""
+    from longbow_tpu_torch.serving.flight_handlers import ScanStream
+
+    stream = handlers.do_get(ticket)
+    if not isinstance(stream, ScanStream):
+        fail("a scan ticket did not answer with a stream")
+    ids, vecs, cats, sizes = [], [], [], []
+    t_pull = t_codec = 0.0
+    it = iter(stream.batches)
+    while True:
+        t0 = time.perf_counter()
+        b = next(it, None)
+        t1 = time.perf_counter()
+        t_pull += t1 - t0
+        if b is None:
+            break
+        b = wire(b)
+        t_codec += time.perf_counter() - t1
+        v = b.column("vector")
+        if v.dtype != np.float32 or v.shape[1] != dim:
+            fail(f"scan batch vector column {v.dtype} {v.shape}")
+        ids.append(b.column("id"))
+        vecs.append(v)
+        cats.append(b.column("category"))
+        sizes.append(v.nbytes)
+    return (np.concatenate(ids), np.concatenate(vecs), np.concatenate(cats),
+            {"batches": len(sizes), "max_batch_bytes": max(sizes), "pull_s": t_pull,
+             "codec_s": t_codec})
+
+
+def record_snapshots(engine) -> list:
+    """Wraps a storage engine's snapshot() to keep each snapshot's (start,
+    end) on the host clock: a snapshot's capture holds every dataset's lock,
+    and the phase reports which requests ran beside one."""
+    spans: list = []
+    real = engine.snapshot
+
+    def timed(store):
+        span = [time.perf_counter(), float("inf")]  # running until it returns
+        spans.append(span)
+        try:
+            return real(store)
+        finally:
+            span[1] = time.perf_counter()
+
+    engine.snapshot = timed
+    return spans
+
+
+def beside(windows, spans) -> np.ndarray:
+    """For each (start, end) window, whether a snapshot overlapped it."""
+    return np.asarray([any(a < e and s < b for a, b in list(spans)) for s, e in windows], bool)
+
+
+def split_p50(lat, windows, spans) -> dict:
+    """p50 of the requests that ran beside a snapshot and of the others."""
+    lat, hit = np.asarray(lat), beside(windows, spans)
+    return {"beside_snapshot": int(hit.sum()),
+            "p50_beside_ms": 1e3 * float(np.median(lat[hit])) if hit.any() else None,
+            "p50_clear_ms": 1e3 * float(np.median(lat[~hit])) if (~hit).any() else None}
+
+
+def fmt_ms(x) -> str:
+    return "none" if x is None else f"{x:.3f} ms"
+
+
+def flight_binding(rt, name: str, corpus, queries, spans) -> dict:
+    """13.8 the gRPC binding over loopback, where pyarrow.flight imports:
+    the port's client against serving/flight_server.py over the runtime's
+    handlers, answers held to the handlers' own."""
+    try:
+        import pyarrow.flight  # noqa: F401
+    except ImportError as e:
+        return {"ran": False, "why": f"pyarrow is not installed on this host ({e})"}
+    import pyarrow as pa
+
+    from longbow_tpu_torch.serving.client import LongbowClient
+    from longbow_tpu_torch.serving.flight_server import serve, to_table
+
+    h = rt.handlers
+    handle = serve(rt.store, data_port=0, meta_port=0, host="127.0.0.1", handlers=h)
+    c = LongbowClient("127.0.0.1", handle.data_server.port, handle.meta_server.port,
+                      call_timeout_s=120.0).connect()
+    try:
+        out: dict = {"ran": True, "pyarrow": pa.__version__}
+        n_q = len(queries)
+        want = answer_arrays(wire(h.do_get(ticket_search(name, queries))), n_q, 10)
+        t0 = time.perf_counter()
+        got = answer_arrays(to_table(c.search(name, queries, k=10)), n_q, 10)  # via DoExchange
+        t1 = time.perf_counter()
+        out["first_batch_ms"] = 1e3 * (t1 - t0)  # the connection's first DoExchange
+        out["first_batch_beside_snapshot"] = bool(beside([(t0, t1)], spans)[0])
+        same_answers("13.8 the client's batch against the handlers'", got, want)
+        moved = queries + np.float32(1e-3)  # not in the query cache
+        t0 = time.perf_counter()
+        c.search(name, moved, k=10)
+        t1 = time.perf_counter()
+        out["batch_ms"] = 1e3 * (t1 - t0)
+        out["batch_beside_snapshot"] = bool(beside([(t0, t1)], spans)[0])
+        lat, windows = [], []
+        for i in range(100):
+            t0 = time.perf_counter()
+            one = answer_arrays(to_table(c.search(name, queries[i], k=10)), 1, 10)
+            lat.append(time.perf_counter() - t0)
+            windows.append((t0, t0 + lat[-1]))
+            same_answers("13.8 a single query over gRPC", one, tuple(a[i:i + 1] for a in want))
+        out["p50_single_ms"] = 1e3 * statistics.median(lat)
+        out["single"] = split_p50(lat, windows, spans)
+        t0 = time.perf_counter()
+        scanned = c.scan(name)
+        scan_s = time.perf_counter() - t0
+        out["scan_beside_snapshot"] = bool(beside([(t0, t0 + scan_s)], spans)[0])
+        live = rt.store.get(name).live_count
+        if scanned.num_rows != live:
+            fail(f"13.8: the scan over gRPC returned {scanned.num_rows} of {live} rows")
+        sv = np.asarray(scanned.column("vector").combine_chunks().flatten()).reshape(-1, corpus.shape[1])
+        sid = scanned.column("id").to_numpy()
+        pick = np.random.default_rng(15).choice(len(sid), 1000, replace=False)
+        ds = rt.store.get(name)
+        rows = np.asarray([ds._id_to_row[int(i)] for i in sid[pick]])
+        if not np.array_equal(sv[pick].view(np.uint32),
+                              ds.index.get_vectors_device(rows).cpu().numpy().view(np.uint32)):
+            fail("13.8: scanned vectors over gRPC differ from the stored rows")
+        out["scan_gb_per_s"] = sv.nbytes / scan_s / 1e9
+        n_put = PUT_BATCH
+        t0 = time.perf_counter()
+        c.write("wire", np.arange(n_put), corpus[:n_put], columns={"category": np.arange(n_put) % 1000})
+        while c.check_readiness()["status"] == "BUSY":
+            if time.perf_counter() - t0 > FLIGHT_DEADLINE_S:
+                fail("13.8: the put over gRPC never drained")
+            time.sleep(0.05)
+        out["put_rows_per_s"] = n_put / (time.perf_counter() - t0)
+        q8 = queries[:300]  # past the client's 256: through DoExchange
+        same_answers("13.8 rows put over gRPC",
+                     answer_arrays(to_table(c.search("wire", q8, k=10)), len(q8), 10),
+                     rt.store.search("wire", q8, 10, use_cache=False))
+        try:
+            c.search("nope", queries[0], k=10)
+            fail("13.8: an unknown dataset answered")
+        except pyarrow.flight.FlightServerError as e:
+            if "not found:" not in str(e):
+                raise
+        out["scan_rows"] = int(scanned.num_rows)
+        return out
+    finally:
+        c.close()
+        handle.shutdown()
+
+
+def phase_flight(bw: float, flops: float, reps: int, flat_rate: float) -> dict:
+    """13. the Flight edge's handlers on phase 4's rows: a serve runtime
+    built from the environment, requests as the wire carries them."""
+    import os
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from longbow_tpu_torch.config import load_config
+    from longbow_tpu_torch.index import sq8 as sq8_mod
+    from longbow_tpu_torch.ops import _kernels
+    from longbow_tpu_torch.ops import scan as scan_mod
+    from longbow_tpu_torch.ops.distance import Metric, exact_search
+    from longbow_tpu_torch.query.parser import parse_ticket
+    from longbow_tpu_torch.serve import build_runtime
+    from longbow_tpu_torch.serving.errors import ServerError, UnavailableError
+    from longbow_tpu_torch.serving.flight_handlers import (
+        CLUSTER_ACTIONS, CollectingWriter, ExchangeChunk, FlightHandlers,
+    )
+    from longbow_tpu_torch.serving.middleware import MiddlewareChain
+    from longbow_tpu_torch.storage import native
+    from longbow_tpu_torch.storage.arrow_ipc import Table
+
+    t_phase = time.perf_counter()
+    allv = make_corpus(N_STORE + N_QUERIES, D_STORE, seed=0)
+    corpus, queries = allv[:N_STORE], allv[N_STORE:]
+    ids = np.arange(N_STORE, dtype=np.int64)
+    category = ids % 1000
+    name = "flight"
+    out: dict = {}
+    root = Path(tempfile.mkdtemp(prefix="longbow_flight_"))
+    saved = {k: os.environ.get(k) for k in FLIGHT_ENV}
+    os.environ.update(FLIGHT_ENV, LONGBOW_DATA_PATH=str(root / "data"))
+    saved.setdefault("LONGBOW_DATA_PATH", None)
+    rt = rt2 = None
+    try:
+        cfg = load_config()
+        _kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        rt = build_runtime(cfg, device=DEVICE)
+        out["build_runtime_s"] = time.perf_counter() - t0
+        spans = record_snapshots(rt.store.engine)
+        h = rt.handlers
+        ds_snap0 = rt.snapshots_taken
+
+        # 13.1 puts: 65,536-row DoPut streams through the ingest queue
+        t0 = time.perf_counter()
+        for s in range(0, N_STORE, PUT_BATCH):
+            flight_put(h, name, ids[s:s + PUT_BATCH], corpus[s:s + PUT_BATCH],
+                       category[s:s + PUT_BATCH])
+        acked_s = time.perf_counter() - t0
+        drain_s = wait_ready(h, "13.1 puts")
+        ds = rt.store.get(name)
+        ds.index.flush()
+        torch.cuda.synchronize()
+        put_s = time.perf_counter() - t0
+        if ds.live_count != N_STORE or ds.index.kind != "flat":
+            fail(f"13.1: {ds.live_count} rows of kind {ds.index.kind}")
+        d1 = {"streams": -(-N_STORE // PUT_BATCH), "rows": N_STORE, "acked_s": acked_s,
+              "drained_after_s": drain_s, "seconds": put_s, "rows_per_s": N_STORE / put_s,
+              "phase4_rows_per_s": flat_rate, "snapshots": len(spans),
+              "snapshot_s": sum(min(b, time.perf_counter()) - a for a, b in spans)}
+        print(f"13.1 puts: {d1['streams']} DoPut streams, {N_STORE} rows in {put_s:.3f} s "
+              f"({d1['rows_per_s']:.0f} rows/s with the WAL, against {flat_rate:.0f} by direct "
+              f"puts in phase 4); acknowledged after {acked_s:.3f} s; {len(spans)} snapshots "
+              f"({d1['snapshot_s']:.3f} s) meanwhile", flush=True)
+        out["puts"] = d1
+
+        # 13.2 DoGet: the 1,000 queries as one ticket, then as single tickets
+        want = rt.store.search(name, queries, 10, use_cache=False)
+        got = answer_arrays(wire(h.do_get(ticket_search(name, queries))), N_QUERIES, 10)
+        d2 = dict(same_answers("13.2 batch ticket against store.search", got, want))
+        _, truth = exact_search(queries, corpus, 10, Metric.L2, device=DEVICE)
+        truth = truth.cpu().numpy()
+        d2["recall_at_10"] = recall_at(got[0], truth)
+        gate("13.2 batch ticket", d2["recall_at_10"], RECALL_GATE)
+        batch_answer = got
+
+        tickets, flts = [], []
+        for i in range(N_QUERIES):
+            extra = {}
+            if i % 4 == 0:
+                vals = [str((i + j) % 1000) for j in (0, 7, 13)]
+                extra["filters"] = [{"field": "category", "op": "in", "value": vals}]
+            tickets.append(ticket_search(name, queries[i], **extra))
+            flts.append(set(int(v) for v in extra["filters"][0]["value"]) if extra else None)
+        alone = [rt.store.search(name, queries[i:i + 1], 10,
+                                 filters=parse_ticket(tickets[i]).search.filters, use_cache=False)
+                 for i in range(N_QUERIES)]
+        rt.store.query_cache.clear()
+        answers: dict = {}
+        lat: list = []
+        windows: list = []
+        errors: list = []
+        lock = threading.Lock()
+
+        def caller(t: int) -> None:
+            try:
+                for i in range(t, N_QUERIES, FLIGHT_THREADS):
+                    t1 = time.perf_counter()
+                    a = wire(h.do_get(tickets[i]))
+                    dt = time.perf_counter() - t1
+                    with lock:
+                        answers[i] = a
+                        lat.append(dt)
+                        windows.append((t1, t1 + dt))
+            except Exception as e:  # reported below: the phase fails
+                errors.append(repr(e))
+
+        threads = [threading.Thread(target=caller, args=(t,)) for t in range(FLIGHT_THREADS)]
+
+        def run_callers():
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(FLIGHT_DEADLINE_S)
+
+        k1_0, disp0 = _kernels.FUSED_SCAN.launches, rt.coalescer.dispatches
+        t0 = time.perf_counter()
+        k1_call = first_call(scan_mod, "fused_flat_search", run_callers,
+                             "the single-query tickets", largest=True)
+        conc_s = time.perf_counter() - t0
+        if errors or any(th.is_alive() for th in threads) or len(answers) != N_QUERIES:
+            fail(f"13.2: {len(answers)} of {N_QUERIES} tickets answered; errors {errors[:3]}")
+        k1_n = _kernels.FUSED_SCAN.launches - k1_0
+        dispatches = rt.coalescer.dispatches - disp0
+        single = [answer_arrays(answers[i], 1, 10) for i in range(N_QUERIES)]
+        merged = tuple(np.concatenate([s[j] for s in single]) for j in range(3))
+        alone_all = tuple(np.concatenate([a[j] for a in alone]) for j in range(3))
+        d2["single_tickets"] = same_answers("13.2 single tickets against store.search",
+                                            merged, alone_all)
+        plain = [i for i in range(N_QUERIES) if flts[i] is None]
+        d2["single_recall_at_10"] = recall_at(merged[0][plain], truth[plain])
+        gate("13.2 single tickets", d2["single_recall_at_10"], RECALL_GATE)
+        violations = sum(int(x) % 1000 not in flts[i]
+                         for i in range(N_QUERIES) if flts[i] is not None
+                         for x in merged[0][i][merged[2][i]])
+        if violations:
+            fail(f"13.2: {violations} filter violations")
+        q, cpu_k = k1_call[0][0], k1_call[0][4]
+        variant = scan_mod.scan_variant(q.shape[0], k1_call[0][1].shape[0], q.shape[1], cpu_k,
+                                        k1_call[0][1].data_ptr() % 16 == 0)
+        d2.update(filter_violations=0, requests=N_QUERIES, seconds=conc_s,
+                  requests_per_s=N_QUERIES / conc_s,
+                  p50_ms=1e3 * float(np.percentile(lat, 50)),
+                  p99_ms=1e3 * float(np.percentile(lat, 99)),
+                  dispatches=dispatches, mean_group=N_QUERIES / max(dispatches, 1),
+                  k1_launches=k1_n, k1_largest_group=int(q.shape[0]), k1_variant=variant,
+                  **split_p50(lat, windows, spans))
+        if k1_n == 0 or k1_n >= N_QUERIES:
+            fail(f"13.2: K1 launched {k1_n} times for {N_QUERIES} tickets")
+
+        # one ticket at a time, stage by stage (host clocks; queries moved off
+        # the query cache): the ticket's JSON parse, the store's search alone,
+        # the whole handler (parse, coalescer, search, answer columns), the
+        # answer across the codec
+        stages: dict = {"parse": [], "store_search": [], "do_get": [], "codec": []}
+        for i in range(1, min(N_QUERIES, 400), 4):
+            tk = ticket_search(name, queries[i] + np.float32(1e-3))
+            t0 = time.perf_counter()
+            parse_ticket(tk)
+            t1 = time.perf_counter()
+            rt.store.search(name, queries[i:i + 1] + np.float32(2e-3), 10, use_cache=False)
+            t2 = time.perf_counter()
+            a = h.do_get(tk)
+            t3 = time.perf_counter()
+            wire(a)
+            t4 = time.perf_counter()
+            for key, dt in zip(stages, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+                stages[key].append(dt)
+        d2["one_ticket_ms"] = {k: 1e3 * statistics.median(v) for k, v in stages.items()}
+
+        fmts = {}
+        for fmt in ("f32", "f16", "quantized"):
+            tbl = wire(h.do_get(ticket_search(name, queries[:FLIGHT_VECTORS],
+                                              include_vectors=True, vector_format=fmt)))
+            rows = np.asarray([ds._id_to_row[int(i)] for i in tbl.column("id")])
+            stored = ds.get_vectors_by_rows(rows)
+            v = tbl.column("vector")
+            if fmt == "f32":
+                good = v.dtype == np.float32 and np.array_equal(v, stored)
+            elif fmt == "f16":
+                good = v.dtype == np.float16 and np.array_equal(v, stored.astype(np.float16))
+            else:
+                scale = tbl.column("vector_scale")
+                err = np.abs(v.astype(np.float32) * scale[:, None] - stored)
+                good = v.dtype == np.int8 and bool(np.all(err <= scale[:, None] * (0.5 + 1e-5)))
+            if not good:
+                fail(f"13.2 include_vectors {fmt}: the vectors are not the stored rows")
+            fmts[fmt] = int(tbl.num_rows)
+        d2["include_vectors_rows"] = fmts
+        print(f"13.2 DoGet: the batch ticket equal to store.search ({d2['untied_slots']} untied "
+              f"slots), recall@10 {d2['recall_at_10']:.4f}; {N_QUERIES} single tickets from "
+              f"{FLIGHT_THREADS} threads: {d2['requests_per_s']:.0f} requests/s, p50 "
+              f"{d2['p50_ms']:.3f} ms, p99 {d2['p99_ms']:.3f} ms ({d2['beside_snapshot']} beside a "
+              f"snapshot, p50 {fmt_ms(d2['p50_beside_ms'])}; the rest p50 "
+              f"{fmt_ms(d2['p50_clear_ms'])}), "
+              f"{dispatches} dispatches (mean "
+              f"group {d2['mean_group']:.2f}), K1 {k1_n} launches ({variant} at the largest group, "
+              f"B = {d2['k1_largest_group']}); answers equal to each query alone; "
+              f"include_vectors f32/f16/quantized right; one ticket at a time (median ms): "
+              f"{', '.join(f'{k} {v:.3f}' for k, v in d2['one_ticket_ms'].items())}", flush=True)
+        out["doget"] = d2
+
+        # 13.3 DoExchange: the same queries in 8 batches
+        per = -(-N_QUERIES // FLIGHT_EXCHANGE_BATCHES)
+        reader = [ExchangeChunk(wire(Table({"vector": queries[s:s + per]})))
+                  for s in range(0, N_QUERIES, per)]
+        w = CollectingWriter()
+        cmd = json.dumps({"protocol": "search", "dataset": name, "k": 10}).encode()
+        t0 = time.perf_counter()
+        h.do_exchange(cmd, None, reader, w)
+        ex_s = time.perf_counter() - t0
+        parts = []
+        for j, b in enumerate(w.batches):
+            b = wire(b)
+            if np.any(b.column("batch_index") != j):
+                fail("13.3: a result batch carries another batch's index")
+            parts.append(answer_arrays(b, len(reader[j].data.column("vector")), 10))
+        if len(parts) != len(reader) or w.schema.schema_metadata.get("longbow.metric") != "l2":
+            fail(f"13.3: {len(parts)} result batches for {len(reader)}")
+        ex = tuple(np.concatenate([p[j] for p in parts]) for j in range(3))
+        d3 = {"batches": len(parts), "seconds": ex_s,
+              **same_answers("13.3 exchange against the batch ticket", ex, batch_answer)}
+        print(f"13.3 DoExchange: {len(parts)} batches in {ex_s * 1e3:.3f} ms, answers equal to "
+              f"13.2's", flush=True)
+        out["exchange"] = d3
+
+        # 13.4 scans, through the host mirror
+        if ds.index.mirror_rows(np.arange(1)) is None:
+            fail("13.4: the flat dataset has no host scan mirror")
+        t0 = time.perf_counter()
+        s_ids, s_vecs, s_cats, sinfo = flight_scan(h, json.dumps({"name": name}).encode(),
+                                                   D_STORE)
+        scan_s = time.perf_counter() - t0
+        order = np.argsort(s_ids)
+        if not np.array_equal(s_ids[order], ids):
+            fail("13.4: the full scan did not return every id exactly once")
+        if not np.array_equal(s_cats, s_ids % 1000):
+            fail("13.4: the scan's category column is not the rows' own")
+        rows = np.fromiter((ds._id_to_row[int(i)] for i in s_ids), np.int64, len(s_ids))
+        dev = ds.index.get_vectors_device(rows).cpu().numpy()
+        if not np.array_equal(s_vecs.view(np.uint32), dev.view(np.uint32)):
+            fail("13.4: scanned vectors differ from the device's stored rows")
+        del dev
+        # the mirror's native rounding against the card's own cast on every
+        # class of value: zeros, subnormals, infinities, ties, NaNs
+        rng = np.random.default_rng(14)
+        bits = np.concatenate([np.array(
+            [0, 0x80000000, 0x7F800000, 0xFF800000, 0x00000001, 0x807FFFFF, 0x00008000,
+             0x00018000, 0x3F808000, 0x3F818000, 0x7F7FFFFF, 0xFF7F8000, 0x7F800001,
+             0xFFC00001, 0x7FFFFFFF], np.uint32),
+            rng.integers(0, 2**32, 1 << 20, dtype=np.uint64).astype(np.uint32)])
+        x = bits.view(np.float32)
+        host = native.f32_to_bf16_bits(x)
+        card = torch.from_numpy(x).to(DEVICE).to(torch.bfloat16).view(torch.int16).cpu().numpy()
+        card = card.view(np.uint16)
+        nan = np.isnan(x)
+        card_nan_bits = sorted({f"{int(b):#06x}" for b in card[nan]})
+        if not np.array_equal(host[~nan], card[~nan]) or \
+                not np.all((card[nan] & 0x7F80) == 0x7F80) or not np.all(card[nan] & 0x7F):
+            fail(f"13.4: the native bf16 rounding differs from the card's on "
+                 f"{int(np.sum(host[~nan] != card[~nan]))} non-NaN values, or a NaN is not one")
+        f_ids, _, f_cats, _ = flight_scan(h, json.dumps(
+            {"name": name, "limit": 500,
+             "filters": [{"field": "category", "op": "eq", "value": "7"}]}).encode(), D_STORE)
+        if len(f_ids) != min(500, int(np.sum(category == 7))) or np.any(f_cats != 7) or \
+                np.any(f_ids % 1000 != 7):
+            fail(f"13.4: the filtered scan gave {len(f_ids)} rows, categories {set(f_cats)}")
+        payload = N_STORE * D_STORE * 4
+        d4 = {"rows": len(s_ids), "seconds": scan_s, **sinfo,
+              "gb_per_s_pull": payload / sinfo["pull_s"] / 1e9,
+              "gb_per_s_with_codec": payload / (sinfo["pull_s"] + sinfo["codec_s"]) / 1e9,
+              "filtered_rows": len(f_ids), "rounding_values": len(x),
+              "card_nan_bits": card_nan_bits}
+
+        rng = np.random.default_rng(13)
+        dead = rng.choice(N_STORE, FLIGHT_DELETES, replace=False)
+        r = json.loads(h.do_action("delete", json.dumps(
+            {"dataset": name, "ids": dead.tolist()}).encode())[0])
+        if r != {"deleted": FLIGHT_DELETES}:
+            fail(f"13.4: delete answered {r}")
+        dead_set = set(dead.tolist())
+        after = answer_arrays(wire(h.do_get(ticket_search(name, queries))), N_QUERIES, 10)
+        own = answer_arrays(wire(h.do_get(ticket_search(name, corpus[dead[:N_QUERIES]]))),
+                            min(N_QUERIES, FLIGHT_DELETES), 10)
+        back = {int(x) for a in (after, own) for x in a[0][a[2]]} & dead_set
+        a_ids, _, _, _ = flight_scan(h, json.dumps({"name": name}).encode(), D_STORE)
+        back |= set(a_ids.tolist()) & dead_set
+        if back or len(a_ids) != N_STORE - FLIGHT_DELETES:
+            fail(f"13.4: {len(back)} deleted ids came back; the scan has {len(a_ids)} rows")
+        d4.update(deleted=FLIGHT_DELETES, deleted_returned=0)
+        same_answers("13.4 after the deletes against store.search", after,
+                     rt.store.search(name, queries, 10, use_cache=False))
+        print(f"13.4 scan: {len(s_ids)} rows in {sinfo['batches']} batches (largest "
+              f"{sinfo['max_batch_bytes']} bytes) through the mirror, "
+              f"{d4['gb_per_s_pull']:.3f} GB/s of f32 pulled ({d4['gb_per_s_with_codec']:.3f} "
+              f"with the codec); bit for bit the device's rows; the native rounding equal to the "
+              f"card's cast on {len(x)} values (the card's NaN bits {card_nan_bits[:4]}); "
+              f"a filtered scan of {len(f_ids)}; "
+              f"{FLIGHT_DELETES} deletes, none back", flush=True)
+        out["scan"] = d4
+
+        # 13.5 actions
+        called: set = set()
+
+        def act(action: str, body=None):
+            called.add(action)
+            return json.loads(h.do_action(action, json.dumps(body or {}).encode())[0])
+
+        def one_query(resp) -> tuple:
+            k = len(resp["ids"])
+            return (np.asarray(resp["ids"], dtype=object)[None], np.asarray(
+                resp["scores"], np.float32)[None], np.ones((1, k), bool))
+
+        d5: dict = {}
+        checks = {
+            "check_readiness": lambda a: a["status"] == "READY" and a["index_queue_depth"] == 0,
+            "health": lambda a: a["status"] == "healthy"
+            and a["checks"]["device"]["devices"][0] == torch.cuda.get_device_name(0),
+            "cluster-status": lambda a: a["datasets"][name]["live_rows"] == N_STORE - FLIGHT_DELETES
+            and a["self"] == {"id": "local", "status": "alive"},
+            "gossip-probe": lambda a: a == {"ok": True},
+            "MeshStatus": lambda a: a == {"self": None, "members": []},
+            "MeshIdentity": lambda a: a == {"id": "", "status": "alive"},
+            "DiscoveryStatus": lambda a: a == {"provider": "none", "peers": []},
+            "list-datasets": lambda a: a == [name],
+        }
+        for action, check in checks.items():
+            a = act(action)
+            if not check(a):
+                fail(f"13.5 {action}: {a}")
+        if act("CreateNamespace", {"name": "tenant/declared"}) != {"created": "tenant/declared"}:
+            fail("13.5 CreateNamespace")
+        act("CreateNamespace", {"name": "tenant/eager", "dim": D_STORE, "index": "flat"})
+        ns = act("ListNamespaces")
+        if ns != {"namespaces": ["default", "tenant"], "count": 2} or \
+                act("GetTotalNamespaceCount") != {"count": 2} or \
+                act("GetNamespaceDatasetCount", {"name": "tenant"}) != {"namespace": "tenant",
+                                                                          "count": 1}:
+            fail(f"13.5 namespaces: {ns}")
+        if [f.name for f in h.list_flights()] != [name, "tenant/eager", "tenant/declared"] or \
+                h.get_flight_info(name).total_records != N_STORE - FLIGHT_DELETES or \
+                h.get_schema(name).column("vector").shape != (0, D_STORE):
+            fail("13.5 list_flights / get_flight_info / get_schema")
+        if act("delete-dataset", {"name": "tenant/eager"}) != {"dropped": True}:
+            fail("13.5 delete-dataset")
+        vs = act("VectorSearch", {"dataset": name, "vector": queries[1].tolist(), "k": 10})
+        if vs["metric"] != "l2":
+            fail(f"13.5 VectorSearch: metric {vs['metric']!r}")
+        same_answers("13.5 VectorSearch against the batch ticket", one_query(vs),
+                     tuple(a[1:2] for a in after))
+        live = next(i for i in range(N_STORE) if i not in dead_set)
+        by_id = act("VectorSearchByID", {"dataset": name, "id": live, "k": 10})
+        hy = act("HybridSearch", {"dataset": name, "vector": queries[1].tolist(), "k": 10,
+                                  "alpha": 1.0, "text_query": ""})
+        if by_id["ids"][0] != live or sorted(hy["ids"]) != sorted(vs["ids"]):
+            fail(f"13.5 VectorSearchByID {by_id['ids'][:1]} / HybridSearch {hy['ids']}")
+        act("add-edge", {"dataset": name, "from": live, "to": live + 1, "type": "next"})
+        if act("traverse-graph", {"dataset": name, "from": live, "to": live + 1}) != \
+                {"path": [live, live + 1]} or act("GetGraphStats", {"dataset": name}) is None:
+            fail("13.5 graph actions")
+        act("graph-analytics", {"dataset": name})
+        if act("delete", {"dataset": name, "id": str(live)}) != {"deleted": 1}:
+            fail("13.5 delete of one stringified id")
+        dead_set.add(live)
+        t0 = time.perf_counter()
+        for action, want_ans in (("checkpoint-prepare", {"ready": True, "epoch": 1}),
+                                 ("checkpoint-commit", {"committed": True, "epoch": 1}),
+                                 ("checkpoint", {"ok": True, "local": True}),
+                                 ("ForceSnapshot", {"ok": True})):
+            a = act(action, {"epoch": 1})
+            if a != want_ans:
+                fail(f"13.5 {action}: {a}")
+        d5["snapshot_actions_s"] = time.perf_counter() - t0
+        for action in CLUSTER_ACTIONS:
+            try:
+                act(action, {"dataset": name, "bucket": 0})
+            except ServerError as e:
+                if "cluster layer" not in str(e):
+                    raise
+            else:
+                fail(f"13.5 {action} answered without the cluster layer")
+        d5["actions"] = len(h.list_actions())
+        d5["periodic_snapshots"] = rt.snapshots_taken - ds_snap0
+        if d5["periodic_snapshots"] < 1:
+            fail("13.5: no periodic snapshot was taken during the phase")
+        final = answer_arrays(wire(h.do_get(ticket_search(name, queries))), N_QUERIES, 10)
+        t0 = time.perf_counter()
+        rt.close()
+        d5["close_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rt2 = build_runtime(cfg, device=DEVICE)
+        d5["restore_s"] = time.perf_counter() - t0
+        spans2 = record_snapshots(rt2.store.engine)
+        d5["warmed"] = rt2.warmed
+        h2 = rt2.handlers
+        again = answer_arrays(wire(h2.do_get(ticket_search(name, queries))), N_QUERIES, 10)
+        d5["restored"] = same_answers("13.5 the restored runtime against the first", again, final)
+        back = {int(x) for x in again[0][again[2]]} & dead_set
+        if back or rt2.store.get(name).live_count != N_STORE - FLIGHT_DELETES - 1:
+            fail(f"13.5 restored: {len(back)} deleted ids back")
+        d5["actions_called"] = len(called)
+        print(f"13.5 actions: {len(called)} answered as the phase left the store; "
+              f"{d5['periodic_snapshots']} periodic snapshots; snapshot actions "
+              f"{d5['snapshot_actions_s']:.3f} s; close {d5['close_s']:.3f} s; a second runtime "
+              f"restored in {d5['restore_s']:.3f} s and answers equal, no deleted id", flush=True)
+        out["actions"] = d5
+
+        # 13.6 an int8 dataset over the wire: identity sq8 codes, K2
+        n8 = N_SMALL
+        scale = 127.0 / float(np.abs(corpus[:n8]).max())
+        codes = np.clip(np.round(corpus[:n8] * scale), -127, 127).astype(np.int8)
+        t0 = time.perf_counter()
+        for s in range(0, n8, PUT_BATCH):
+            flight_put(h2, "int8", ids[s:min(s + PUT_BATCH, n8)], codes[s:s + PUT_BATCH])
+        wait_ready(h2, "13.6 int8 puts")
+        i8 = rt2.store.get("int8")
+        inner = getattr(i8.index, "_inner", i8.index)
+        stored = inner.codes[:n8].cpu().numpy() if hasattr(inner.codes, "cpu") else inner.codes
+        if i8.index.kind != "sq8" or not np.array_equal(np.asarray(stored), codes):
+            fail(f"13.6: kind {i8.index.kind}; codes not the bytes put")
+        put8_s = time.perf_counter() - t0
+        qcodes = np.clip(np.round(queries * scale), -127, 127).astype(np.float32)
+        k2_0 = _kernels.FUSED_CODES_SCAN.launches
+        res: dict = {}
+
+        def run_int8():
+            res["a"] = answer_arrays(wire(h2.do_get(ticket_search("int8", qcodes))), N_QUERIES, 10)
+
+        k2_call = first_call(sq8_mod, "fused_codes_search", run_int8, "the int8 tickets")
+        _, t8 = exact_search(qcodes, codes.astype(np.float32), 10, Metric.L2, device=DEVICE)
+        d6 = {"rows": n8, "seconds": put8_s, "rows_per_s": n8 / put8_s,
+              "recall_at_10_vs_exact_codes": recall_at(res["a"][0], t8.cpu().numpy()),
+              "k2_launches": _kernels.FUSED_CODES_SCAN.launches - k2_0}
+        gate("13.6 int8", d6["recall_at_10_vs_exact_codes"], INT8_GATE)
+        if d6["k2_launches"] == 0:
+            fail("13.6: the int8 searches did not launch K2")
+        print(f"13.6 int8: {n8} rows as FixedSizeList<int8>, identity sq8 (codes = the bytes "
+              f"put), {d6['rows_per_s']:.0f} rows/s; recall@10 {d6['recall_at_10_vs_exact_codes']:.4f}"
+              f" against exact search over the codes; K2 {d6['k2_launches']} launches", flush=True)
+        out["int8"] = d6
+
+        # 13.7 admission: the rate limiter and the breaker
+        burst = 40
+        rl = FlightHandlers(rt2.store, middleware_chain=MiddlewareChain(
+            rate_limit_rps=5.0, rate_limit_burst=5))
+        refused = 0
+        t0 = time.perf_counter()
+        for i in range(burst):
+            try:
+                rl.do_get(ticket_search(name, queries[i]))
+            except UnavailableError as e:
+                if str(e) != "rate limit exceeded":
+                    raise
+                refused += 1
+        burst_s = time.perf_counter() - t0
+        if not 0 < refused <= burst - 5 or refused < burst - 5 - int(5 * burst_s) - 1:
+            fail(f"13.7: {refused} of a burst of {burst} refused in {burst_s:.3f} s")
+
+        class Broken:
+            def search(self, *a, **kw):
+                raise RuntimeError("a failing dispatch")
+
+        br = FlightHandlers(rt2.store, middleware_chain=MiddlewareChain(
+            breaker_threshold=3, breaker_cooldown_s=1.0), coalescer=Broken())
+        for _ in range(3):
+            try:
+                br.do_get(ticket_search(name, queries[0]))
+            except RuntimeError:
+                pass
+        try:
+            br.do_get(ticket_search(name, queries[0]))
+            fail("13.7: the breaker did not open after 3 failures")
+        except UnavailableError as e:
+            opened = str(e)
+        time.sleep(1.05)
+        br.coalescer = None
+        wire(br.do_get(ticket_search(name, queries[0])))
+        if br.middleware.breaker.state != "closed":
+            fail(f"13.7: breaker {br.middleware.breaker.state} after its cooldown")
+        d7 = {"burst": burst, "refused": refused, "burst_s": burst_s, "breaker_refusal": opened}
+        print(f"13.7 admission: {refused} of {burst} tickets refused by the rate limiter "
+              f"(5/s, burst 5); the breaker opened after 3 failures ({opened!r}) and closed "
+              f"after its 1 s cooldown", flush=True)
+        out["admission"] = d7
+
+        d8 = flight_binding(rt2, name, corpus, queries, spans2)
+        if d8["ran"]:
+            print(f"13.8 gRPC binding (pyarrow {d8['pyarrow']}): the port's client over loopback, "
+                  f"answers equal to the handlers'; {len(queries)} queries {d8['batch_ms']:.3f} ms "
+                  f"through DoExchange (beside a snapshot: {d8['batch_beside_snapshot']}; the "
+                  f"connection's first {d8['first_batch_ms']:.3f} ms), one query p50 "
+                  f"{d8['p50_single_ms']:.3f} ms ({d8['single']['beside_snapshot']} of 100 beside "
+                  f"a snapshot), a scan of "
+                  f"{d8['scan_rows']} rows at {d8['scan_gb_per_s']:.3f} GB/s (beside a snapshot: "
+                  f"{d8['scan_beside_snapshot']}), puts "
+                  f"{d8['put_rows_per_s']:.0f} rows/s", flush=True)
+        else:
+            print(f"13.8 the gRPC binding (longbow_tpu_torch/serving/flight_server.py) is not run: "
+                  f"{d8['why']}", flush=True)
+        out["grpc_binding"] = d8
+
+        torch.cuda.synchronize()
+        out["launches"] = {k.name: k.launches for k in _kernels.KERNELS}
+        if out["launches"]["fused_scan"] == 0 or out["launches"]["fused_codes_scan"] == 0:
+            fail(f"13: a kernel of the path was not launched: {out['launches']}")
+    finally:
+        for r in (rt2, rt):
+            if r is not None:
+                try:
+                    r.close()
+                except Exception as e:  # the phase's own failure is the one reported
+                    print(f"13: closing a runtime raised {e!r}", file=sys.stderr)
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(root, ignore_errors=True)
+    out["k1_flight"] = check_build_scan("flight largest coalesced group", k1_call, bw, flops,
+                                        reps, finds_itself=False)
+    out["k2_flight"] = check_codes_call("flight int8 dataset", k2_call, bw, flops, reps)
+    out["seconds"] = time.perf_counter() - t_phase
+    emit({"flight": out})
+    return out
+
+
 def recorded_fields(prefix: str, row: dict) -> dict:
     """A kernel's check on a path's recorded arguments, for the kernels line."""
     return {f"{prefix}_{key}": row[src] for key, src in (
@@ -2903,6 +3698,8 @@ def main() -> int:
                       graph["default_store_1m_x_128"])
     graph_store.drop("graph")
     del graph_store, flat_store
+    torch.cuda.empty_cache()
+    flight = phase_flight(bw, flops, TIMED_LAUNCHES, store["ingest_rows_per_s"])
 
     served = next(c for c in kern["cases"] if c["tag"] == "served_batch")
     served2 = next(c for c in codes["cases"] if c["tag"] == "served_batch")
@@ -2918,10 +3715,12 @@ def main() -> int:
         "launches_persistence": persist["launches"]["fused_scan"],
         "launches_serving": serving["launches"]["fused_scan"],
         "launches_mesh": mesh["launches"]["fused_scan"],
+        "launches_flight": flight["launches"]["fused_scan"],
         "max_abs_err": max(c["max_abs_err"] for c in
                            kern["cases"] + graph["self_knn_cases"] + [kinds["k1_spill"]]
                            + [services["k1_services"], persist["k1_persistence"],
-                              serving["k1_serving"], mesh["mesh8"]["k1_shard"]]),
+                              serving["k1_serving"], mesh["mesh8"]["k1_shard"],
+                              flight["k1_flight"]]),
         "graph_tier_shape": knn["case"],
         "graph_tier_variant": knn["variant"],
         "graph_tier_ms": knn["ms"],
@@ -2933,6 +3732,7 @@ def main() -> int:
         **recorded_fields("persistence", persist["k1_persistence"]),
         **recorded_fields("serving", serving["k1_serving"]),
         **recorded_fields("mesh", mesh["mesh8"]["k1_shard"]),
+        **recorded_fields("flight", flight["k1_flight"]),
         "ms": served["ms"],
         "variant": served["variant"],
         "prev_ms": served["prev_ms"],
@@ -2954,12 +3754,14 @@ def main() -> int:
         "launches_persistence": persist["launches"]["fused_codes_scan"],
         "launches_serving": serving["launches"]["fused_codes_scan"],
         "launches_mesh": mesh["launches"]["fused_codes_scan"],
+        "launches_flight": flight["launches"]["fused_codes_scan"],
         "max_abs_err": max(c["max_abs_err"] for c in
                            codes["cases"] + [kinds["k2_disk"], services["k2_services"],
-                                             persist["k2_persistence"]]),
+                                             persist["k2_persistence"], flight["k2_flight"]]),
         **recorded_fields("index_kinds", kinds["k2_disk"]),
         **recorded_fields("services", services["k2_services"]),
         **recorded_fields("persistence", persist["k2_persistence"]),
+        **recorded_fields("flight", flight["k2_flight"]),
         "ms": served2["ms"],
         "variant": served2["variant"],
         "prev_ms": served2["prev_ms"],

@@ -347,6 +347,18 @@ class AdaptiveIndex:
         flat, g = self._tiers()
         return (g or flat).get_vectors_device(rows)
 
+    def flush(self) -> None:
+        """Upload the flat tier's staged rows (the graph tier stages none)."""
+        flat, g = self._tiers()
+        if g is None:
+            flat.flush()
+
+    def mirror_rows(self, rows):
+        """The flat tier's host scan mirror (None on the graph tier, for
+        device-origin rows, or opted out)."""
+        flat, g = self._tiers()
+        return None if g is not None else flat.mirror_rows(rows)
+
     def device_bytes(self) -> int:
         flat, g = self._tiers()
         return (g or flat).device_bytes()

@@ -83,6 +83,9 @@ class _FlatAdapter:
     def get_vectors_device(self, rows) -> torch.Tensor:
         return self._flat.get_vectors_device(rows)
 
+    def mirror_rows(self, rows):
+        return self._flat.mirror_rows(rows)
+
     def export_state(self) -> dict:
         return self._flat.export_state()
 

@@ -9,9 +9,18 @@ Search: bf16 storage with k <= 64 goes through the fused scan for a pool
 of 64 and an exact f32 re-rank (ops/scan.py::flat_search_rerank);
 anything else, and exact=True, goes through the f32 oracle exact_search.
 Cosine rides the l2 path on normalized rows and is reported as 1 - cos.
+
+Host scan mirror: rows that reach the index from the host are also kept
+in host RAM, in the stored precision (bf16 as its bits in uint16, f16,
+f32), so that get_vectors and the Flight edge's table scans read RAM
+instead of gathering from the card. Mirror reads are bit for bit the
+device's stored rows. Rows that arrive as a device tensor disable it
+(feeding it would cost the fetch it exists to avoid), and so does
+LONGBOW_SCAN_MIRROR=0 (half the host RAM).
 """
 from __future__ import annotations
 
+import os
 import threading
 from typing import Optional
 
@@ -29,6 +38,7 @@ from longbow_tpu_torch.ops.distance import (
     tombstone_rows,
 )
 from longbow_tpu_torch.ops.scan import flat_search_rerank
+from longbow_tpu_torch.storage.native import bf16_bits_to_f32, f32_to_bf16_bits
 
 MIN_CAPACITY = 4096
 # host rows are uploaded in blocks of at least this many rows
@@ -55,6 +65,18 @@ def storage_dtype(dtype) -> torch.dtype:
     if name not in _DTYPES:
         raise ValueError(f"unsupported storage dtype {dtype!r}")
     return _DTYPES[name]
+
+
+# the host mirror's representation of each storage dtype
+_MIRROR_DTYPES = {
+    torch.bfloat16: np.dtype(np.uint16),  # bf16 bits
+    torch.float16: np.dtype(np.float16),
+    torch.float32: np.dtype(np.float32),
+}
+
+
+def mirror_opted_out() -> bool:
+    return os.environ.get("LONGBOW_SCAN_MIRROR", "1") == "0"
 
 
 def dtype_name(dtype: torch.dtype) -> str:
@@ -105,6 +127,11 @@ class FlatIndex:
         self._stage_buf: Optional[np.ndarray] = None
         self._stage_rows = 0
         self._stage_dead: list[int] = []
+        # host scan mirror [capacity, dim] in _mirror_np_dtype; None until
+        # the first flush
+        self._mirror_enabled = not mirror_opted_out()
+        self._mirror_np_dtype = _MIRROR_DTYPES[self.dtype]
+        self._host_mirror: Optional[np.ndarray] = None
         self._mu = threading.RLock()
 
     # -- properties ---------------------------------------------------
@@ -172,6 +199,9 @@ class FlatIndex:
                     f"expected [n, {self.dim}] vectors, got {tuple(vecs.shape)}"
                 )
             self._flush_locked()
+            # device-origin rows never pass through host RAM
+            self._mirror_enabled = False
+            self._host_mirror = None
             n = vecs.shape[0]
             self._grow_to(self.count + n)
             self._ingest_block(vecs, self.count)
@@ -220,11 +250,77 @@ class FlatIndex:
         # the upload copies out of the stage (a pageable host buffer), so
         # the buffer is free for the next fill when this returns
         self._ingest_block(torch.from_numpy(self._stage_buf[:n]), self._device_count)
+        if self._mirror_enabled:
+            self._mirror_put(self._device_count, n)
         self._device_count += n
         self._stage_rows = 0
         if self._stage_dead:
             tombstone_rows(self.valid, self._stage_dead)
             self._stage_dead = []
+
+    def _mirror_put(self, row: int, n: int) -> None:
+        """Mirror the n rows just stored at `row`. l2 and dot round the
+        staged f32 rows on the host exactly as the card's cast does (bf16:
+        the native round-to-nearest-even); cosine copies the stored rows
+        back, since the normalization's rounding is the card's own."""
+        cap = self.vectors.shape[0]
+        m = self._host_mirror
+        if m is None or m.shape[0] < cap:
+            nm = np.zeros((cap, self.dim), self._mirror_np_dtype)
+            if m is not None:
+                nm[: m.shape[0]] = m
+            self._host_mirror = m = nm
+        dst = m[row: row + n]
+        if self.metric == Metric.COSINE:
+            stored = self.vectors[row: row + n]
+            if self.dtype == torch.bfloat16:
+                stored = stored.view(torch.int16)
+            dst[:] = stored.cpu().numpy().view(self._mirror_np_dtype)
+        elif self.dtype == torch.bfloat16:
+            f32_to_bf16_bits(self._stage_buf[:n], out=dst)
+        else:
+            dst[:] = self._stage_buf[:n]  # f16: numpy's cast rounds to nearest even
+
+    def adopt_mirror(self, rows_m: np.ndarray) -> None:
+        """Install a mirror block for rows [0, len(rows_m)) in the
+        representation mirror_rows returns (a compaction carries the old
+        index's mirror into the rebuilt one). A block of another dtype, or
+        LONGBOW_SCAN_MIRROR=0, leaves scans on the device path."""
+        if mirror_opted_out() or rows_m.dtype != self._mirror_np_dtype:
+            return
+        with self._mu:
+            self._flush_locked()
+            nm = np.zeros((self.vectors.shape[0], self.dim), self._mirror_np_dtype)
+            nm[: len(rows_m)] = rows_m
+            self._host_mirror = nm
+            self._mirror_enabled = True
+
+    def mirror_rows(self, rows) -> Optional[np.ndarray]:
+        """The mirror's copy of internal rows (bf16 bits in uint16, f16 or
+        f32 by the storage dtype), or None when there is no mirror
+        (device-origin rows, or opted out)."""
+        with self._mu:
+            self._flush_locked()
+            if not self._mirror_enabled or (self._host_mirror is None and self._device_count):
+                return None
+            if self._host_mirror is None:  # an empty index
+                return np.zeros((len(rows), self.dim), self._mirror_np_dtype)
+            r = np.asarray(rows, np.int64)
+            # a full scan asks for [off, off + n) in order: a view, no copy.
+            # Mirror rows are append-only within an index (upserts append
+            # and tombstone; a compaction swaps the whole index)
+            if r.size > 1024 and r[-1] - r[0] == r.size - 1 and np.array_equal(
+                r, np.arange(r[0], r[0] + r.size, dtype=np.int64)
+            ):
+                return self._host_mirror[r[0]: r[0] + r.size]
+            return self._host_mirror[r]
+
+    @staticmethod
+    def mirror_to_f32(m: np.ndarray) -> np.ndarray:
+        """A mirror block as float32."""
+        if m.dtype == np.uint16:
+            return bf16_bits_to_f32(m)
+        return m if m.dtype == np.float32 else m.astype(np.float32)
 
     def delete_rows(self, rows) -> None:
         """Tombstone internal rows. Rows stay allocated; rows still in
@@ -243,7 +339,11 @@ class FlatIndex:
             tombstone_rows(self.valid, rows)
 
     def get_vectors(self, rows) -> np.ndarray:
-        """f32 host copies of the stored rows (a device gather)."""
+        """f32 host copies of the stored rows: from the host mirror where
+        there is one, else a device gather."""
+        m = self.mirror_rows(rows)
+        if m is not None:
+            return self.mirror_to_f32(m)
         return self.get_vectors_device(rows).cpu().numpy()
 
     def get_vectors_device(self, rows) -> torch.Tensor:

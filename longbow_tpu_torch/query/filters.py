@@ -139,6 +139,29 @@ class ColumnStore:
     def fields(self) -> list[str]:
         return sorted(set(self._numeric) | set(self._str_codes))
 
+    def host_view(self, rows=None) -> dict:
+        """name -> host array of every column, for streaming scans; with
+        `rows`, gathered to those rows (on the device, so that a small
+        limited scan fetches len(rows) values, not the column). String
+        columns decode through a code-indexed array of their values; an
+        absent value reads as ""."""
+        rows_t = None
+        if rows is not None:
+            rows_t = torch.as_tensor(np.asarray(rows, np.int64), device=self.device)
+
+        def fetch(col: torch.Tensor) -> np.ndarray:
+            return (col if rows_t is None else col[rows_t]).cpu().numpy()
+
+        out: dict[str, np.ndarray] = {k: fetch(v) for k, v in self._numeric.items()}
+        for k, codes in self._str_codes.items():
+            vocab = self._str_dicts[k]
+            inv = np.empty(max(vocab.values(), default=-1) + 2, dtype=object)
+            inv[:] = ""
+            for val, c in vocab.items():
+                inv[c] = val
+            out[k] = inv[fetch(codes)]  # code -1 reads inv[-1], the ""
+        return out
+
     # -- snapshot state ------------------------------------------------
 
     def export_state(self) -> dict:

@@ -2,17 +2,17 @@
 
 Counterpart of longbow_tpu/storage/native.py, with its own copy of the
 source. The library holds CRC32C, the WAL frame encode and scan, the
-io_uring WAL backend, the JSON float parse and the bf16 converts; all
-but the bf16 converts (the Flight edge's scan mirror) are bound here. It
-is built at first use with `g++ -O3 -shared -fPIC -std=c++17` into
+io_uring WAL backend, the JSON float parse and the bf16 converts of
+the flat index's host scan mirror (index/flat.py). It is built at first use with `g++ -O3 -shared -fPIC -std=c++17` into
 `.native_build/<hash>/` at the repository root, keyed by a hash of the
 source and the flags, and loaded from there afterwards. Nothing is built
 at import time.
 
 There is no quiet fallback: where g++ is missing or the build fails,
 `get_lib` raises NativeBuildError with the compiler's output. The
-Python CRC32C (`_py_crc32c`) is the plain version the tests hold the
-library against; the WAL never uses it.
+Python CRC32C (`_py_crc32c`) and the numpy bf16 rounding
+(`_np_f32_to_bf16`) are the plain versions the tests hold the library
+against; the WAL and the mirror never use them.
 """
 from __future__ import annotations
 
@@ -25,6 +25,8 @@ import tempfile
 import threading
 from pathlib import Path
 from typing import Optional
+
+import numpy as np
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "native_src" / "longbow_native.cpp"
@@ -95,6 +97,9 @@ def _bind(lib: ctypes.CDLL) -> None:
             c.c_char_p, c.c_uint64, c.POINTER(c.c_float), c.c_int64,
             c.POINTER(c.c_int64), c.POINTER(c.c_uint64),
         ]),
+        # the host scan mirror's bf16 bits (index/flat.py)
+        "lb_f32_to_bf16": (None, [c.c_void_p, c.c_void_p, c.c_uint64]),
+        "lb_bf16_to_f32": (None, [c.c_void_p, c.c_void_p, c.c_uint64]),
     }
     for name, (res, args) in sigs.items():
         fn = getattr(lib, name)
@@ -143,3 +148,38 @@ def _py_crc32c(data: bytes, seed: int = 0) -> int:
 
 def crc32c(data: bytes, seed: int = 0) -> int:
     return get_lib().lb_crc32c(data, len(data), seed)
+
+
+def f32_to_bf16_bits(src: np.ndarray, out: Optional[np.ndarray] = None) -> np.ndarray:
+    """float32 -> bfloat16 bits in uint16, rounded to nearest even, a NaN
+    made canonical (its sign | 0x7FC0); one native pass. out: a
+    C-contiguous uint16 array of src's shape to write into."""
+    src = np.ascontiguousarray(src, np.float32)
+    if out is None:
+        out = np.empty(src.shape, np.uint16)
+    elif out.shape != src.shape or out.dtype != np.uint16 or not out.flags.c_contiguous:
+        raise ValueError(f"out must be C-contiguous uint16 {src.shape}, got "
+                         f"{out.dtype} {out.shape}")
+    get_lib().lb_f32_to_bf16(src.ctypes.data, out.ctypes.data, src.size)
+    return out
+
+
+def bf16_bits_to_f32(bits: np.ndarray) -> np.ndarray:
+    """bfloat16 bits in uint16 -> float32 (exact); one native pass."""
+    src = np.ascontiguousarray(bits)
+    if src.dtype != np.uint16:
+        raise ValueError(f"expected uint16 bf16 bits, got {src.dtype}")
+    out = np.empty(src.shape, np.float32)
+    get_lib().lb_bf16_to_f32(src.ctypes.data, out.ctypes.data, src.size)
+    return out
+
+
+def _np_f32_to_bf16(src: np.ndarray) -> np.ndarray:
+    """The plain version of lb_f32_to_bf16 in numpy (round to nearest
+    even; a NaN becomes its sign | 0x7FC0)."""
+    u = np.ascontiguousarray(src, np.float32).view(np.uint32)
+    t = ((u + np.uint32(0x7FFF) + ((u >> np.uint32(16)) & np.uint32(1))) >> np.uint32(16))
+    nan = ((u & np.uint32(0x7F800000)) == np.uint32(0x7F800000)) & (
+        (u & np.uint32(0x007FFFFF)) != 0)
+    t = np.where(nan, ((u >> np.uint32(16)) & np.uint32(0x8000)) | np.uint32(0x7FC0), t)
+    return t.astype(np.uint16)

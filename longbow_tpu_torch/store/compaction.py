@@ -132,6 +132,14 @@ def _reset_empty(dataset) -> None:
     dataset.filter_cache.invalidate()
 
 
+def _flat_tier(index):
+    """The FlatIndex serving a flat or not yet migrated adaptive index,
+    else None."""
+    if getattr(index, "_graph", None) is not None:
+        return None
+    return getattr(index, "_flat", None)
+
+
 def _compact_concurrent(dataset) -> dict:
     t0 = time.time()
 
@@ -151,6 +159,11 @@ def _compact_concurrent(dataset) -> dict:
         vecs = dataset.index.get_vectors_device(rows)
         live_cols = _gather_cols(dataset.columns, rows)
         old_inner = getattr(dataset.index, "_inner", None)
+        # the host scan mirror of a flat tier, carried into the rebuilt
+        # index (whose device-tensor add disables its own) so that scans
+        # keep reading host RAM
+        mr = _flat_tier(dataset.index)
+        mr = mr.mirror_rows(rows) if mr is not None else None
 
     # ---- phase 2 (unlocked): build the new trio off to the side; the
     # old trio keeps serving and stays consistent in itself ----
@@ -163,6 +176,8 @@ def _compact_concurrent(dataset) -> dict:
                 setattr(new_inner, attr, val)
     new_rows = new_index.add(vecs)
     del vecs
+    if mr is not None and _flat_tier(new_index) is not None:
+        _flat_tier(new_index).adopt_mirror(mr)
     new_columns = ColumnStore(new_index.capacity, device=dataset.device)
     new_columns.append(live_cols, len(ids), new_index.capacity, rows=new_rows)
     new_i2r = {uid: int(r) for uid, r in zip(ids, new_rows.tolist())}

@@ -28,8 +28,8 @@ from longbow_tpu_torch.query.parser import Filter
 # indexes document text fed through its BM25 pipeline)
 TEXT_COLUMNS = ("text", "content", "body")
 
-# schema metadata key + value aliases (reference: dataset.go:176-189)
-METRIC_METADATA_KEY = "longbow.metric"
+# metric value aliases; the schema metadata key is wire_types.METRIC_METADATA_KEY
+# (reference: dataset.go:176-189)
 _METRIC_ALIASES = {
     "euclidean": Metric.L2,
     "l2": Metric.L2,

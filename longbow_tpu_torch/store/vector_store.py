@@ -448,6 +448,15 @@ class VectorStore:
             "uptime_s": time.time() - self.started_at,
         }
 
+    def cluster_status(self) -> dict:
+        """The 'cluster-status' action's single-process view; the cluster
+        layer adds its membership to it."""
+        return {
+            "self": {"id": "local", "status": "alive"},
+            "members": [{"id": "local", "status": "alive"}],
+            "datasets": {n: ds.stats() for n, ds in list(self._datasets.items())},
+        }
+
     # -- hybrid search ------------------------------------------------
 
     def hybrid_search(

@@ -21,3 +21,7 @@ NATIVE_VECTOR_DTYPES = frozenset(
     np.dtype(t)
     for t in (np.float32, np.float16, np.int8, np.uint8, np.int32)
 )
+
+# schema metadata key naming a dataset's metric (reference:
+# dataset.go:176-189); on put streams, search exchanges and schemas
+METRIC_METADATA_KEY = "longbow.metric"

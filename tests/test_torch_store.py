@@ -247,10 +247,17 @@ def test_parse_ticket_matches_jax():
             parse_ticket(bad)
 
 
+# the Flight binding and the client: the only modules that import pyarrow
+# (nothing on the card's path imports them)
+PYARROW_MODULES = ("longbow_tpu_torch/serving/flight_server.py",
+                   "longbow_tpu_torch/serving/client.py")
+
+
 def test_port_imports_no_jax_pyarrow_or_reference_package():
     modules = sorted(
         ".".join(p.relative_to(REPO).with_suffix("").parts)
         for p in (REPO / "longbow_tpu_torch").rglob("*.py")
+        if p.relative_to(REPO).as_posix() not in PYARROW_MODULES
     )
     code = (
         "import sys, importlib\n"
@@ -275,14 +282,21 @@ def test_port_sources_name_no_forbidden_import():
     files = [*(REPO / "longbow_tpu_torch").rglob("*.py"), REPO / "chip_smoke.py"]
     for path in files:
         text = path.read_text()
-        if path.relative_to(REPO).as_posix() == "longbow_tpu_torch/serving/security.py":
+        rel = path.relative_to(REPO).as_posix()
+        lazy = {
             # the Flight bearer middleware's one lazy import, inside its
             # function (no other code path needs pyarrow)
-            lazy = "\n    import pyarrow.flight as flight\n"
-            assert text.count(lazy) == 1
-            text = text.replace(lazy, "\n")
+            "longbow_tpu_torch/serving/security.py": ["\n    import pyarrow.flight as flight\n"],
+            # phase 13.8's gRPC binding, where pyarrow is installed
+            "chip_smoke.py": ["\n        import pyarrow.flight  # noqa: F401\n",
+                              "\n    import pyarrow as pa\n"],
+        }.get(rel, [])
+        for line in lazy:
+            assert text.count(line) == 1, (rel, line)
+            text = text.replace(line, "\n")
+        allowed = ("import pyarrow", "from pyarrow") if rel in PYARROW_MODULES else ()
         for bad in forbidden:
-            assert bad not in text, f"{path}: {bad.strip()}"
+            assert bad in allowed or bad not in text, f"{path}: {bad.strip()}"
 
 
 # the quantized kinds of this slice, with the params that reach the index
