@@ -92,8 +92,9 @@ Phases, each of which passes or ends the run with a non-zero exit:
                version on the arguments of the IVF spill segment's first launch and
                K2 on those of the disk tier's, each timed there beside its bound;
   9. store services - on phase 4's 1,000,000 x 128 rows and 1,000 queries, k = 10:
-               9.1 hybrid search on a flat dataset with a `category` and a `text`
-               column (12 Zipf(1.1) words over 50,000 and the row's cluster word):
+               9.1 hybrid search on a flat dataset of the first 250,000 rows with
+               a `category` and a `text` column (12 Zipf(1.1) words over 50,000
+               and the row's cluster word):
                ingest rows/s with BM25, BM25Index's top-30 scores against a brute
                force over a scipy.sparse term-document matrix (relative 1e-5, 100
                queries), hybrid_search "rrf" against the RRF formula over the
@@ -225,7 +226,52 @@ Phases, each of which passes or ends the run with a non-zero exit:
                arguments and K2 on the int8 dataset's; 13.8, where pyarrow.flight
                imports, the gRPC binding over loopback with the port's client
                (answers equal to the handlers', a scan bit for bit, puts, an
-               unknown dataset's error); where it does not, a line says why.
+               unknown dataset's error); where it does not, a line says why;
+               13.5 also asks region-summary, merkle-state and export-delta;
+ 14. cluster   - `python -m longbow_tpu_torch.serve` node processes, all on the one
+               card, configured by the reference's environment names, talked to
+               with the port's client over loopback gRPC (pyarrow.flight must
+               import, or the phase fails); each node logs to a file whose last
+               40 lines are printed on a failure, and every node is SIGKILLed at
+               the end. 14.1 partitioned placement on 8 nodes (BASELINE.json
+               configs[4]): phase 4's 1,000,000 x 128 rows (category = id mod
+               1000) through node 0 in 65,536-row DoPut batches, forwarded to
+               their ring owners; rows/s until every count is stable; each
+               node's ids (a scan) exactly those of a plain recomputation of the
+               ring; the 1,000 queries through node 0 as one DoExchange batch and
+               as 256 single tickets from 16 threads (a quarter with a category
+               filter of three values: 0 violations): recall@10 >= 0.95, and
+               against one flat dataset of the same rows in this process: scores
+               of shared ids within rtol 1e-6, top-10 overlap >= 0.99; p50/p99 a
+               ticket, the batch's time; 10,000 ids deleted through node 0 (a
+               broadcast) come back 0 times; K1 launched on every node over
+               those searches (its longbow_kernel_launches_total, read from its
+               metrics port just before and just after them); the mean fan-out;
+               14.2 100,000 rows with phase 9's text column: 100 hybrid queries
+               through node 0, each equal to fuse_rrf (k 60) of the nodes' own
+               local_only answers; then node 7 SIGKILLed: the seconds until node
+               0 calls it dead, then consistency ALL refused, QUORUM answers,
+               and best-effort answers hold no id of its share and recall@10
+               >= 0.95 against the live rows; 14.3 a replicated 3-node cluster
+               (scripts/start_local_cluster.sh: async replication, anti-entropy
+               every 2 s, a WAL each): the 1M rows through node 0, rows/s
+               acknowledged, the seconds until node 2 holds them all, equal
+               Merkle roots on the three, nodes 1's and 2's answers equal node
+               0's; node 2 SIGKILLed, 10,000 new rows, 10,000 upserts and 1,000
+               deletes through node 0, node 2 restarted on its WAL: the seconds
+               from its readiness until its root equals node 0's, synced rows
+               under 5x the 21,000 divergent ones, answers equal, no deleted id
+               back, the upserted vectors bit for bit node 0's, a checkpoint
+               with both peers prepared and committed; K1 launched on every node
+               over 14.3's searches (its launch counter);
+ 15. leftovers - LONGBOW_FLAT_COARSE=1 on phase 4's rows: the flat tier's int8
+               shadow (K2 for a pool of 64, the f32 re-rank), recall@10 >= 0.95,
+               the pool's containment of the true top-10, K2 launched on every
+               search and K1 on none, times beside phase 4's K1 path, K2 held
+               against its plain version on the shadow's first launch; a dot
+               dataset with the variable set stays on K1; 100,000 complex64 rows
+               of D = 64 through exact_search equal to their [real, imag]
+               widening, float64 equal to float32.
 The last line of standard output is {"ok": true, "device": {...}}.
 
 Imports torch, numpy and longbow_tpu_torch only.
@@ -261,7 +307,7 @@ PQ_M = 64                           # the gated pq configurations: 2-dim subvect
 N_BASIS = 200_000                   # rows of the gated pq_m 16 index
 BULK_QUERIES = 128
 TIMED_LAUNCHES = 20
-PLAIN_LAUNCHES = 5                  # the plain versions are slow and gate nothing
+PLAIN_LAUNCHES = 3                  # the plain versions are slow and gate nothing
 DEVICE = "cuda"
 # kernel vs plain: f32 sums are taken in another order, so distances agree
 # to this tolerance and no better
@@ -1490,6 +1536,10 @@ TEXT_WORDS = 12         # Zipf(1.1) words a row, beside its cluster word
 BM25_QUERIES = 100
 BM25_TOP = 30
 BM25_RTOL = 1e-5
+# rows of 9.1's hybrid dataset (the first of phase 4's): BM25 indexes a
+# document at a time on the host, about 18,000 rows/s on the H100's host,
+# so 1M rows cost a minute of the script; 9.3-9.5 keep all 1M
+N_TEXT = 250_000
 COMPACT_DELETE = 600_000
 QUANT_COMPACT_GATE = 0.99   # sq8 after compaction, against its dequantized live rows
 
@@ -1598,7 +1648,7 @@ def phase_services(bw: float, flops: float, reps: int, flat_ingest_rows_per_s: f
     from longbow_tpu_torch.hybrid.bm25 import tokenize
     from longbow_tpu_torch.index import sq8
     from longbow_tpu_torch.metrics import get_registry
-    from longbow_tpu_torch.metrics.registry import _CATALOG
+    from longbow_tpu_torch.metrics.registry import _CATALOG, PORT_METRICS
     from longbow_tpu_torch.ops import _kernels, scan
     from longbow_tpu_torch.ops.distance import Metric, exact_search
     from longbow_tpu_torch.query.parser import Filter
@@ -1612,9 +1662,9 @@ def phase_services(bw: float, flops: float, reps: int, flat_ingest_rows_per_s: f
     clusters, qclusters = assign[:N_STORE], assign[N_STORE:]
     ids = np.arange(N_STORE, dtype=np.int64)
     rng = np.random.default_rng(9)
-    words = zipf_words(rng, (N_STORE, TEXT_WORDS))
+    words = zipf_words(rng, (N_STORE, TEXT_WORDS))[:N_TEXT]
     texts = np.array([" ".join(f"w{w}" for w in row) + f" c{c}"
-                      for row, c in zip(words.tolist(), clusters.tolist())])
+                      for row, c in zip(words.tolist(), clusters[:N_TEXT].tolist())])
     qwords = zipf_words(rng, (N_QUERIES, 2))
     qtexts = [f"c{c} w{a} w{b}" for c, (a, b) in zip(qclusters.tolist(), qwords.tolist())]
 
@@ -1646,7 +1696,8 @@ def phase_services(bw: float, flops: float, reps: int, flat_ingest_rows_per_s: f
     VectorStore.search, compaction.compact_dataset = counted_search, counted_compact
     _kernels.reset_launch_counts()
     try:
-        out.update(services_hybrid(corpus, queries, ids, clusters, words, texts, qtexts,
+        out.update(services_hybrid(corpus[:N_TEXT], queries, ids[:N_TEXT], clusters[:N_TEXT],
+                                   words, texts, qtexts,
                                    flat_ingest_rows_per_s, tokenize, Filter, VectorStore,
                                    counts))
         hstore = out.pop("_store")
@@ -1672,7 +1723,7 @@ def phase_services(bw: float, flops: float, reps: int, flat_ingest_rows_per_s: f
     t0 = time.perf_counter()
     text = reg.text().decode()
     after = parse_metrics(text)
-    bad = sorted({n for n, _ in after if not in_catalog(n, _CATALOG)})
+    bad = sorted({n for n, _ in after if not in_catalog(n, {**_CATALOG, **PORT_METRICS})})
     if bad:
         fail(f"metrics: samples outside the catalog: {bad[:5]}")
     live = {"hybrid": hstore, "compact_flat": cstore, "compact_sq8": sstore}
@@ -1695,7 +1746,7 @@ def phase_services(bw: float, flops: float, reps: int, flat_ingest_rows_per_s: f
                            counts["sq8_fused"]),
         "compactions_ok": (delta("longbow_compaction_operations_total", status="ok"),
                            counts["compactions"]),
-        "bm25_documents": (delta("longbow_bm25_documents_indexed_total"), N_STORE),
+        "bm25_documents": (delta("longbow_bm25_documents_indexed_total"), N_TEXT),
     }
     for key, (got, want) in readings.items():
         if got != want:
@@ -1727,23 +1778,24 @@ def phase_services(bw: float, flops: float, reps: int, flat_ingest_rows_per_s: f
 def services_hybrid(corpus, queries, ids, clusters, words, texts, qtexts, flat_rate,
                     tokenize, Filter, VectorStore, counts) -> dict:
     """9.1 hybrid search and 9.2 the graph store, on a flat dataset of the
-    1M rows with a `category` and a `text` column."""
+    first N_TEXT rows with a `category` and a `text` column."""
     t0 = time.perf_counter()
+    n = len(ids)
     store = VectorStore(device=DEVICE, dtype=torch.bfloat16, default_index_kind="flat")
     category = ids % 1000
     torch.cuda.synchronize()
     t = time.perf_counter()
-    for s in range(0, N_STORE, PUT_BATCH):
-        e = min(s + PUT_BATCH, N_STORE)
+    for s in range(0, n, PUT_BATCH):
+        e = min(s + PUT_BATCH, n)
         store.put("hybrid", ids[s:e], corpus[s:e],
                   {"category": category[s:e], "text": texts[s:e]})
     ds = store.get("hybrid")
     ds.index.flush()
     torch.cuda.synchronize()
-    row: dict = {"ingest_rows_per_s_with_bm25": N_STORE / (time.perf_counter() - t),
+    row: dict = {"rows": n, "ingest_rows_per_s_with_bm25": n / (time.perf_counter() - t),
                  "ingest_rows_per_s_without_bm25": flat_rate,
                  "bm25_documents": len(ds.bm25)}
-    print(f"hybrid ingest: {row['ingest_rows_per_s_with_bm25']:.0f} rows/s with BM25, "
+    print(f"hybrid ingest: {n} rows at {row['ingest_rows_per_s_with_bm25']:.0f} rows/s with BM25, "
           f"{flat_rate:.0f} without (phase 4)", flush=True)
     ds.warm()
     counts["flat_fused"] += 1  # the warm-up: the index's own search, not the store's
@@ -1797,7 +1849,7 @@ def services_hybrid(corpus, queries, ids, clusters, words, texts, qtexts, flat_r
 
     # 1% of the ids deleted: neither half returns one, queried by their own
     # vectors and texts
-    dead = np.random.default_rng(10).choice(N_STORE, N_STORE // 100, replace=False)
+    dead = np.random.default_rng(10).choice(n, n // 100, replace=False)
     if store.delete("hybrid", dead) != len(dead):
         fail("hybrid: delete did not remove every id")
     dead_set = set(dead.tolist())
@@ -1827,7 +1879,7 @@ def services_hybrid(corpus, queries, ids, clusters, words, texts, qtexts, flat_r
 
     # 9.2 an edge from every live id to one seeded random live id of its cluster
     t0 = time.perf_counter()
-    live_mask = np.ones(N_STORE, bool)
+    live_mask = np.ones(n, bool)
     live_mask[dead] = False
     live = ids[live_mask]
     order = live[np.argsort(clusters[live], kind="stable")]
@@ -3147,9 +3199,9 @@ def phase_flight(bw: float, flops: float, reps: int, flat_rate: float) -> dict:
     from longbow_tpu_torch.ops.distance import Metric, exact_search
     from longbow_tpu_torch.query.parser import parse_ticket
     from longbow_tpu_torch.serve import build_runtime
-    from longbow_tpu_torch.serving.errors import ServerError, UnavailableError
+    from longbow_tpu_torch.serving.errors import UnavailableError
     from longbow_tpu_torch.serving.flight_handlers import (
-        CLUSTER_ACTIONS, CollectingWriter, ExchangeChunk, FlightHandlers,
+        CollectingWriter, ExchangeChunk, FlightHandlers,
     )
     from longbow_tpu_torch.serving.middleware import MiddlewareChain
     from longbow_tpu_torch.storage import native
@@ -3507,14 +3559,11 @@ def phase_flight(bw: float, flops: float, reps: int, flat_rate: float) -> dict:
             if a != want_ans:
                 fail(f"13.5 {action}: {a}")
         d5["snapshot_actions_s"] = time.perf_counter() - t0
-        for action in CLUSTER_ACTIONS:
-            try:
-                act(action, {"dataset": name, "bucket": 0})
-            except ServerError as e:
-                if "cluster layer" not in str(e):
-                    raise
-            else:
-                fail(f"13.5 {action} answered without the cluster layer")
+        # the spatial summary answers on a single node too (merkle-state and
+        # export-delta: phase 14.3)
+        region = act("region-summary", {"datasets": [name]})["regions"][name]
+        if region["n"] != 4096 or len(region["centroid"]) != D_STORE:
+            fail(f"13.5 region-summary: {region['n']} rows")
         d5["actions"] = len(h.list_actions())
         d5["periodic_snapshots"] = rt.snapshots_taken - ds_snap0
         if d5["periodic_snapshots"] < 1:
@@ -3660,6 +3709,833 @@ def phase_flight(bw: float, flops: float, reps: int, flat_rate: float) -> dict:
     return out
 
 
+# -- 14. the cluster tier ---------------------------------------------------
+
+CLUSTER_NODES = 8          # BASELINE.json configs[4]: 8 consistent-hash shards
+REPLICAS = 3               # scripts/start_local_cluster.sh: a replicated 3-node cluster
+CLUSTER_THREADS, CLUSTER_TICKETS = 16, 256
+CLUSTER_DELETES = 10_000
+CLUSTER_OVERLAP_GATE = 0.99  # the merged top-10 against one flat dataset of the same rows
+CLUSTER_FILTER = [3, 7, 11]  # a category filter of three values
+N_HYBRID, HYBRID_QUERIES = 100_000, 100
+HEAL_ROWS, HEAL_DELETES = 10_000, 1_000  # new rows and upserts; deletes (node 2 down)
+HEAL_SYNC_FACTOR = 5       # synced rows stay under this many times the divergent rows
+HEAL_CHECK_S = 30.0        # the longest between two asks for node 2's and node 0's roots
+CLUSTER_DEADLINE_S = 300.0  # every wait of the phase
+CLUSTER_LOG_TAIL = 40
+
+
+def free_ports(n: int) -> list:
+    """Ports for node processes that must name each other before they start
+    (a static peer list): bound to 0 and released here, on a sealed host."""
+    import socket
+
+    socks = []
+    for _ in range(n):
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        socks.append(s)
+    ports = [s.getsockname()[1] for s in socks]
+    for s in socks:
+        s.close()
+    return ports
+
+
+class NodeSet:
+    """The node processes of one cluster: `python -m longbow_tpu_torch.serve`
+    each, configured by the reference's environment names, all on the one
+    card (LONGBOW_FORCE_CPU=1 when DEVICE is the CPU). Each logs to a file;
+    tails() prints the last lines of every log and close() SIGKILLs every
+    node."""
+
+    def __init__(self, n: int, root, env: dict, persist: bool = False):
+        from pathlib import Path
+
+        self.n, self.root, self.env, self.persist = n, Path(root), dict(env), persist
+        self.root.mkdir(parents=True, exist_ok=True)
+        ports = free_ports(3 * n)
+        self.ports = [tuple(ports[3 * i: 3 * i + 3]) for i in range(n)]
+        self.ids = [f"127.0.0.1:{p[0]}" for p in self.ports]
+        self.specs = [f"127.0.0.1:{p[0]}:{p[1]}" for p in self.ports]
+        self.logs = [self.root / f"node{i}.log" for i in range(n)]
+        self.procs: list = [None] * n
+        self._clients: list = [None] * n
+
+    def start(self, i: int) -> None:
+        import os
+        from pathlib import Path
+
+        repo = Path(__file__).resolve().parent
+        env = {k: v for k, v in os.environ.items() if not k.startswith("LONGBOW_")}
+        dp, mp, xp = self.ports[i]
+        env.update(self.env, LONGBOW_HOST="127.0.0.1", LONGBOW_DATA_PORT=str(dp),
+                   LONGBOW_META_PORT=str(mp), LONGBOW_METRICS_PORT=str(xp),
+                   LONGBOW_NODE_ID=self.ids[i], LONGBOW_PEERS=",".join(self.specs),
+                   PYTHONPATH=str(repo) + os.pathsep + env.get("PYTHONPATH", ""))
+        if self.persist:
+            env["LONGBOW_DATA_DIR"] = str(self.root / f"data{i}")
+        if DEVICE == "cpu":
+            env["LONGBOW_FORCE_CPU"] = "1"
+        with open(self.logs[i], "a") as log:
+            self.procs[i] = subprocess.Popen(
+                [sys.executable, "-m", "longbow_tpu_torch.serve"], env=env, cwd=repo,
+                stdout=log, stderr=subprocess.STDOUT, stdin=subprocess.DEVNULL)
+
+    def client(self, i: int):
+        from longbow_tpu_torch.serving.client import LongbowClient
+
+        if self._clients[i] is None:
+            dp, mp, _ = self.ports[i]
+            self._clients[i] = LongbowClient("127.0.0.1", dp, mp,
+                                             call_timeout_s=CLUSTER_DEADLINE_S)
+        return self._clients[i]
+
+    def new_client(self, i: int):
+        from longbow_tpu_torch.serving.client import LongbowClient
+
+        dp, mp, _ = self.ports[i]
+        return LongbowClient("127.0.0.1", dp, mp, call_timeout_s=CLUSTER_DEADLINE_S)
+
+    def wait_ready(self, idxs, what: str) -> float:
+        """Polls check_readiness on each node until it answers and its ingest
+        queue is empty; a node process that exits fails the phase."""
+        t0 = time.perf_counter()
+        for i in idxs:
+            while True:
+                if self.procs[i] is not None and self.procs[i].poll() is not None:
+                    fail(f"{what}: node {i} exited with {self.procs[i].returncode}")
+                try:
+                    if self.client(i).check_readiness()["status"] == "READY":
+                        break
+                except Exception:
+                    self.drop_client(i)
+                if time.perf_counter() - t0 > CLUSTER_DEADLINE_S:
+                    fail(f"{what}: node {i} not ready after {CLUSTER_DEADLINE_S} s")
+                time.sleep(0.1)
+        return time.perf_counter() - t0
+
+    def drop_client(self, i: int) -> None:
+        c, self._clients[i] = self._clients[i], None
+        if c is not None:
+            try:
+                c.close()
+            except Exception:
+                pass
+
+    def live_rows(self, i: int, name: str) -> int:
+        ds = self.client(i).cluster_status()["datasets"].get(name)
+        return 0 if ds is None else ds["live_rows"]
+
+    def metrics(self, i: int) -> dict:
+        import urllib.request
+
+        with urllib.request.urlopen(f"http://127.0.0.1:{self.ports[i][2]}/metrics",
+                                    timeout=60) as r:
+            return parse_metrics(r.read().decode())
+
+    def kill(self, i: int) -> None:
+        self.drop_client(i)
+        p = self.procs[i]
+        if p is not None and p.poll() is None:
+            p.kill()
+        if p is not None:
+            p.wait(timeout=60)
+
+    def tails(self) -> None:
+        for i, path in enumerate(self.logs):
+            try:
+                lines = path.read_text(errors="replace").splitlines()[-CLUSTER_LOG_TAIL:]
+            except OSError:
+                continue
+            print(f"--- node {i} ({self.ids[i]}), last {len(lines)} lines of {path}",
+                  file=sys.stderr)
+            for line in lines:
+                print(line, file=sys.stderr)
+
+    def close(self) -> None:
+        for i in range(self.n):
+            try:
+                self.kill(i)
+            except Exception as e:  # every node is still killed
+                print(f"14: stopping node {i}: {e!r}", file=sys.stderr)
+
+
+def ring_owners(nodes: list, keys) -> np.ndarray:
+    """The node index owning each key on the partitioned placement's ring,
+    recomputed from docs/DISTRIBUTED.md ("SHA-256 consistent-hash ring, 20
+    vnodes/node"): a vnode "<node>#<v>" and a key str(id) hash to the first
+    8 bytes of their SHA-256, big-endian; a key belongs to the first vnode
+    clockwise past its hash."""
+    import hashlib
+
+    def h(s: str) -> int:
+        return int.from_bytes(hashlib.sha256(s.encode()).digest()[:8], "big")
+
+    vh = np.asarray([h(f"{node}#{v}") for node in nodes for v in range(20)], np.uint64)
+    vo = np.repeat(np.arange(len(nodes)), 20)
+    order = np.argsort(vh, kind="stable")
+    vh, vo = vh[order], vo[order]
+    kh = np.fromiter((h(str(k)) for k in keys), np.uint64, len(keys))
+    return vo[np.searchsorted(vh, kh, side="right") % len(vh)]
+
+
+KERNEL_NAMES = ("fused_scan", "fused_codes_scan")
+
+
+def launch_counts(ns, idxs) -> dict:
+    """Each node's kernel launches so far, from its own launch counter
+    (longbow_kernel_launches_total{kernel} on its metrics port, which
+    the kernel's wrapper bumps where it launches)."""
+    out = {}
+    for i in idxs:
+        m = ns.metrics(i)
+        out[i] = {k: metric_sum(m, "longbow_kernel_launches_total", kernel=k)
+                  for k in KERNEL_NAMES}
+    return out
+
+
+def launches_between(before: dict, after: dict) -> dict:
+    """{kernel: [launches of each node between the two readings]}."""
+    return {k: [after[i][k] - before[i][k] for i in sorted(before)] for k in KERNEL_NAMES}
+
+
+def arrow_answer(tbl, b: int, k: int = 10) -> tuple:
+    """A pyarrow search answer -> (ids [b, k] object, scores, ok)."""
+    from longbow_tpu_torch.storage.arrow_ipc import Table
+
+    return answer_arrays(Table({n: tbl.column(n).to_numpy(zero_copy_only=False)
+                                for n in ("id", "score", "query_index")}), b, k)
+
+
+def held_to_flat(label: str, got, flat) -> dict:
+    """A merged answer against one flat dataset of the same rows: where both
+    hold an id its scores agree to SERVE_RTOL, the top-10 lists overlap at
+    least CLUSTER_OVERLAP_GATE, and the slots where the merged distance is
+    larger than the flat one's are counted (the merge draws a pool from each
+    node's share, so it can only find as good or better rows)."""
+    gi, gs, gok = got
+    fi, fs, fok = flat
+    shared = worse = 0
+    for r in range(gi.shape[0]):
+        gmap = {gi[r, j]: gs[r, j] for j in range(gi.shape[1]) if gok[r, j]}
+        for j in range(fi.shape[1]):
+            if fok[r, j] and fi[r, j] in gmap:
+                shared += 1
+                a, b = gmap[fi[r, j]], fs[r, j]
+                if abs(a - b) > SERVE_RTOL * abs(b):
+                    fail(f"{label}: id {fi[r, j]} scored {a} merged and {b} flat")
+        worse += int(np.sum(gs[r][gok[r] & fok[r]] > fs[r][gok[r] & fok[r]]))
+    overlap = shared / max(int(fok.sum()), 1)
+    if overlap < CLUSTER_OVERLAP_GATE:
+        fail(f"{label}: top-10 overlap {overlap:.4f} with the flat dataset "
+             f"< {CLUSTER_OVERLAP_GATE}")
+    return {"overlap_with_flat": overlap, "slots_worse_than_flat": worse}
+
+
+def phase_cluster(card: str) -> dict:
+    """14. the cluster tier through `python -m longbow_tpu_torch.serve` node
+    processes on the one card: 14.1 partitioned placement over 8 nodes
+    (BASELINE.json configs[4]), 14.2 its hybrid global search, 14.3 a
+    replicated 3-node cluster with anti-entropy (scripts/start_local_cluster.sh)."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    try:
+        import pyarrow.flight as flight
+    except ImportError as e:
+        fail(f"14: pyarrow.flight does not import ({e!r}): the cluster tier has no transport")
+    from longbow_tpu_torch.ops.distance import Metric, exact_search
+    from longbow_tpu_torch.store.vector_store import VectorStore
+
+    t_phase = time.perf_counter()
+    allv, assign = make_corpus(N_STORE + N_QUERIES, D_STORE, seed=0, clusters=True)
+    corpus, queries = allv[:N_STORE], allv[N_STORE:]
+    ids = np.arange(N_STORE, dtype=np.int64)
+    _, truth = exact_search(queries, corpus, 10, Metric.L2, device=DEVICE)
+    truth = truth.cpu().numpy()
+    # one flat dataset of the same rows, searched in this process
+    flat = VectorStore(device=DEVICE, dtype=torch.bfloat16, default_index_kind="flat")
+    for s in range(0, N_STORE, PUT_BATCH):
+        flat.put("docs", ids[s:s + PUT_BATCH], corpus[s:s + PUT_BATCH])
+    flat_ans = flat.search("docs", queries, 10, use_cache=False)
+    out = {"card": card, "note": "node processes share one card: the tier's costs, "
+                                 "not a scale-out"}
+    root = Path(tempfile.mkdtemp(prefix="longbow_cluster_"))
+    sets: list = []
+    try:
+        out["partitioned"] = cluster_partitioned(sets, root, corpus, queries, truth, flat_ans,
+                                                 assign, flight)
+        flat.drop("docs")
+        del flat
+        torch.cuda.empty_cache()
+        out["replicated"] = cluster_replicated(sets, root, corpus, queries, flight)
+    except BaseException:
+        for s in sets:
+            s.tails()
+        raise
+    finally:
+        for s in sets:
+            s.close()
+        shutil.rmtree(root, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    emit({"cluster": out})
+    return out
+
+
+def cluster_partitioned(sets, root, corpus, queries, truth, flat_ans, assign, flight) -> dict:
+    from longbow_tpu_torch.hybrid.fusion import fuse_rrf
+    from longbow_tpu_torch.ops.distance import Metric, exact_search
+
+    name, n = "docs", N_STORE
+    ids = np.arange(n, dtype=np.int64)
+    category = ids % 1000
+    ns = NodeSet(CLUSTER_NODES, root / "partitioned",
+                 {"LONGBOW_PLACEMENT": "partitioned", "LONGBOW_INDEX_KIND": "flat"})
+    sets.append(ns)
+    t0 = time.perf_counter()
+    for i in range(ns.n):
+        ns.start(i)
+    start_s = ns.wait_ready(range(ns.n), "14.1 start")
+    d: dict = {"nodes": ns.n, "start_s": start_s}
+    print(f"14.1 partitioned: {ns.n} node processes ready in {start_s:.3f} s", flush=True)
+
+    # puts through node 0, which forwards each row to its ring owner
+    c0 = ns.client(0)
+    t0 = time.perf_counter()
+    for s in range(0, n, PUT_BATCH):
+        e = min(s + PUT_BATCH, n)
+        c0.write(name, ids[s:e], corpus[s:e], {"category": category[s:e]}, metric="l2")
+    acked_s = time.perf_counter() - t0
+    while True:
+        counts = [ns.live_rows(i, name) for i in range(ns.n)]
+        if sum(counts) == n:
+            break
+        if time.perf_counter() - t0 > CLUSTER_DEADLINE_S:
+            fail(f"14.1: node counts {counts} never summed to {n}")
+        time.sleep(0.05)
+    ns.wait_ready(range(ns.n), "14.1 ingest")
+    stable_s = time.perf_counter() - t0
+    owners = ring_owners(ns.ids, ids)
+    for i in range(ns.n):
+        held = np.sort(ns.client(i).scan(name).column("id").to_numpy())
+        if not np.array_equal(held, ids[owners == i]):
+            fail(f"14.1: node {i} holds {len(held)} rows, the ring assigns it "
+                 f"{int(np.sum(owners == i))} (or other ids)")
+    d.update(acked_s=acked_s, stable_s=stable_s, rows_per_s=n / stable_s, counts=counts)
+    # every node's kernel launches are read just before 14.1's searches and
+    # just after them
+    count0 = launch_counts(ns, range(ns.n))
+    label = "cuda_fused" if DEVICE == "cuda" else "torch"
+    disp0 = {i: metric_sum(ns.metrics(i), "longbow_simd_dispatch_total", implementation=label)
+             for i in range(ns.n)}
+    print(f"14.1 puts: {n} rows through node 0 in {PUT_BATCH}-row DoPut batches, acknowledged "
+          f"after {acked_s:.3f} s, every count stable after {stable_s:.3f} s "
+          f"({n / stable_s:.0f} rows/s); shares {counts}, each exactly the ring's", flush=True)
+
+    # the 1,000 queries as one DoExchange batch, and as single tickets
+    def batch():
+        return arrow_answer(c0.search(name, queries, k=10), len(queries))
+
+    merged = batch()
+    batch_s = []
+    for _ in range(3):
+        t = time.perf_counter()
+        batch()
+        batch_s.append(time.perf_counter() - t)
+    d["batch_ms"] = 1e3 * statistics.median(batch_s)
+    d["recall_at_10"] = recall_at(merged[0], truth)
+    gate("14.1 merged batch", d["recall_at_10"], RECALL_GATE)
+    d["batch_vs_flat"] = held_to_flat("14.1 merged batch", merged, flat_ans)
+    per_thread = CLUSTER_TICKETS // CLUSTER_THREADS
+    lat = [0.0] * CLUSTER_TICKETS
+    answers: list = [None] * CLUSTER_TICKETS
+    errors: list = []
+
+    def caller(t: int) -> None:
+        c = ns.new_client(0)
+        try:
+            for j in range(t * per_thread, (t + 1) * per_thread):
+                kw = {}
+                if j % 4 == 0:
+                    kw["filters"] = [{"field": "category", "op": "in", "value": CLUSTER_FILTER}]
+                t1 = time.perf_counter()
+                tbl = c.search(name, queries[j], k=10, **kw)
+                lat[j] = time.perf_counter() - t1
+                answers[j] = arrow_answer(tbl, 1)
+        except Exception as e:  # reported by the main thread
+            errors.append(e)
+        finally:
+            c.close()
+
+    threads = [threading.Thread(target=caller, args=(t,)) for t in range(CLUSTER_THREADS)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=CLUSTER_DEADLINE_S)
+    tickets_s = time.perf_counter() - t0
+    if errors or any(a is None for a in answers):
+        fail(f"14.1 tickets: {errors[:1] or 'a ticket did not answer'}")
+    violations = sum(int(np.sum(~np.isin(np.asarray(a[0][a[2]], np.int64) % 1000,
+                                         CLUSTER_FILTER)))
+                     for j, a in enumerate(answers) if j % 4 == 0)
+    if violations:
+        fail(f"14.1: {violations} filtered ticket answers outside the category filter")
+    plain = [j for j in range(CLUSTER_TICKETS) if j % 4]
+    tk = tuple(np.concatenate([answers[j][x] for j in plain]) for x in range(3))
+    d["tickets"] = {"n": CLUSTER_TICKETS, "threads": CLUSTER_THREADS, "seconds": tickets_s,
+                    "p50_ms": 1e3 * float(np.percentile(lat, 50)),
+                    "p99_ms": 1e3 * float(np.percentile(lat, 99)),
+                    "filter_violations": 0,
+                    "recall_at_10": recall_at(tk[0], truth[plain]),
+                    **held_to_flat("14.1 tickets", tk, tuple(a[plain] for a in flat_ans))}
+    gate("14.1 tickets", d["tickets"]["recall_at_10"], RECALL_GATE)
+
+    rng = np.random.default_rng(14)
+    dead = rng.choice(n, CLUSTER_DELETES, replace=False)
+    c0.delete(name, dead.tolist())
+    total = sum(ns.live_rows(i, name) for i in range(ns.n))
+    if total != n - CLUSTER_DELETES:
+        fail(f"14.1: {total} rows after deleting {CLUSTER_DELETES} through node 0")
+    back = arrow_answer(c0.search(name, corpus[dead], k=10), len(dead))
+    came_back = int(np.isin(np.asarray(back[0][back[2]], np.int64), dead).sum())
+    if came_back:
+        fail(f"14.1: {came_back} deleted ids came back")
+    d["deleted"] = {"ids": CLUSTER_DELETES, "came_back": 0}
+    launched = launches_between(count0, launch_counts(ns, range(ns.n)))
+    searches = [metric_sum(ns.metrics(i), "longbow_simd_dispatch_total",
+                           implementation=label) - disp0[i] for i in range(ns.n)]
+    if DEVICE == "cuda" and min(launched["fused_scan"]) == 0:
+        fail(f"14.1: K1 was not launched on every node: {launched['fused_scan']}")
+    m0 = ns.metrics(0)
+    fan = metric_sum(m0, "longbow_global_search_fanout_size_sum") / max(
+        metric_sum(m0, "longbow_global_search_fanout_size_count"), 1)
+    d.update(k1_launches_by_node=launched["fused_scan"],
+             k2_launches_by_node=launched["fused_codes_scan"],
+             scan_dispatches_by_node=searches, mean_fanout=fan)
+    print(f"14.1 search: 1,000 queries as one DoExchange batch {d['batch_ms']:.3f} ms, recall@10 "
+          f"{d['recall_at_10']:.4f}, top-10 overlap with one flat dataset "
+          f"{d['batch_vs_flat']['overlap_with_flat']:.4f} (slots worse than flat: "
+          f"{d['batch_vs_flat']['slots_worse_than_flat']}); {CLUSTER_TICKETS} single tickets from "
+          f"{CLUSTER_THREADS} threads p50 {d['tickets']['p50_ms']:.3f} ms p99 "
+          f"{d['tickets']['p99_ms']:.3f} ms, recall@10 {d['tickets']['recall_at_10']:.4f}, "
+          f"0 filter violations; {CLUSTER_DELETES} broadcast deletes, 0 back; K1 launches by "
+          f"node {d['k1_launches_by_node']} (K2 {d['k2_launches_by_node']}; {label} dispatches "
+          f"{searches}); mean fan-out {fan:.2f}", flush=True)
+
+    d["hybrid"] = cluster_hybrid(ns, corpus, queries, assign, fuse_rrf, flight)
+
+    # node 7 killed: once node 0 calls it dead, ALL is refused (its share
+    # cannot answer) and QUORUM (7 of 8) answers
+    ticket = json.loads(ticket_search(name, queries[0]))
+    ns.kill(7)
+    t_kill = time.perf_counter()
+    while True:
+        st = {m["id"]: m["status"] for m in c0.cluster_status()["members"]}
+        if st[ns.ids[7]] == "dead":
+            break
+        if time.perf_counter() - t_kill > CLUSTER_DEADLINE_S:
+            fail(f"14.1: node 7 still {st[ns.ids[7]]} after {CLUSTER_DEADLINE_S} s")
+        time.sleep(0.05)
+    dead_s = time.perf_counter() - t_kill
+
+    def level(cons: str):
+        body = dict(ticket["search"], consistency=cons)
+        return c0._dc().do_get(flight.Ticket(json.dumps({"search": body}).encode()),
+                               options=c0._opts).read_all()
+
+    try:
+        level("ALL")
+        fail("14.1: consistency ALL answered with node 7 dead")
+    except flight.FlightUnavailableError as e:
+        all_refusal = str(e).split(". Detail:")[0]
+    quorum = arrow_answer(level("QUORUM"), 1)
+    if not quorum[2].any():
+        fail("14.1: consistency QUORUM gave no answer with 7 of 8 nodes up")
+    live = (owners != 7)
+    live[dead] = False
+    best = arrow_answer(c0.search(name, queries, k=10), len(queries))
+    got = np.asarray(best[0][best[2]], np.int64)
+    if np.any(owners[got] == 7):
+        fail(f"14.1: {int(np.sum(owners[got] == 7))} ids of node 7's share after its death")
+    live_idx = np.nonzero(live)[0]
+    _, lt = exact_search(queries, corpus[live_idx], 10, Metric.L2, device=DEVICE)
+    live_recall = recall_at(best[0], live_idx[lt.cpu().numpy()])
+    gate("14.1 seven live shares", live_recall, RECALL_GATE)
+    d["node7_killed"] = {"view_at_the_all_query": "dead", "all_refusal": all_refusal,
+                         "quorum_answered": True, "seconds_to_dead": dead_s,
+                         "recall_at_10_live_rows": live_recall}
+    print(f"14.1 node 7 SIGKILLed: dead in node 0's view after {dead_s:.3f} s; then "
+          f"consistency ALL refused ({all_refusal!r}), QUORUM answered, and best-effort "
+          f"answers from 7 shares hold none of its ids, recall@10 {live_recall:.4f} against "
+          f"the live rows", flush=True)
+    ns.close()
+    sets.remove(ns)
+    return d
+
+
+def cluster_hybrid(ns, corpus, queries, assign, fuse_rrf, flight) -> dict:
+    """14.2: a text dataset on the 8 nodes; a hybrid query through node 0
+    must equal fuse_rrf (k 60) over every node's own local_only answer, in
+    node 0's fan-out order (itself, then its peers as listed)."""
+    name, n = "hybrid", min(N_HYBRID, N_STORE)
+    rng = np.random.default_rng(9)
+    words = zipf_words(rng, (n, TEXT_WORDS))
+    texts = np.array([" ".join(f"w{w}" for w in row) + f" c{c}"
+                      for row, c in zip(words.tolist(), assign[:n].tolist())])
+    ids = np.arange(n, dtype=np.int64)
+    c0 = ns.client(0)
+    t0 = time.perf_counter()
+    for s in range(0, n, PUT_BATCH):
+        e = min(s + PUT_BATCH, n)
+        c0.write(name, ids[s:e], corpus[s:e], {"text": texts[s:e]}, metric="l2")
+    while sum(ns.live_rows(i, name) for i in range(ns.n)) != n:
+        if time.perf_counter() - t0 > CLUSTER_DEADLINE_S:
+            fail("14.2: the text rows never all arrived")
+        time.sleep(0.05)
+    ns.wait_ready(range(ns.n), "14.2 ingest")
+    put_s = time.perf_counter() - t0
+    qwords = zipf_words(rng, (HYBRID_QUERIES, 2))
+    qclusters = assign[N_STORE:N_STORE + HYBRID_QUERIES]
+    qtexts = [f"c{c} w{a} w{b}" for c, (a, b) in zip(qclusters.tolist(), qwords.tolist())]
+    lat = []
+    for j in range(HYBRID_QUERIES):
+        kw = dict(text_query=qtexts[j], alpha=0.5)
+        t = time.perf_counter()
+        got = c0.search(name, queries[j], k=10, **kw).column("id").to_pylist()
+        lat.append(time.perf_counter() - t)
+        lists = []
+        for i in range(ns.n):
+            tbl = ns.client(i)._dc().do_get(flight.Ticket(ticket_search(
+                name, queries[j], text_query=qtexts[j], alpha=0.5, local_only=True)),
+                options=ns.client(i)._opts).read_all()
+            lists.append(tbl.column("id").to_pylist())
+        want = [uid for uid, _ in fuse_rrf(lists, 10)]
+        if got != want:
+            fail(f"14.2 query {j}: {got} through node 0, fuse_rrf of the nodes' answers {want}")
+    d = {"rows": n, "put_s": put_s, "queries": HYBRID_QUERIES,
+         "p50_ms": 1e3 * statistics.median(lat), "equal_to_fuse_rrf": HYBRID_QUERIES}
+    print(f"14.2 hybrid: {n} rows with text over {ns.n} nodes in {put_s:.3f} s; "
+          f"{HYBRID_QUERIES} text+vector queries through node 0 each equal to fuse_rrf (k 60) of "
+          f"the nodes' local answers; p50 {d['p50_ms']:.3f} ms", flush=True)
+    return d
+
+
+def merkle_roots(ns, idxs, name: str) -> list:
+    """merkle-state roots of the nodes, asked in parallel."""
+    roots: dict = {}
+
+    def ask(i):
+        c = ns.new_client(i)
+        try:
+            roots[i] = c._action("merkle-state", {"dataset": name})["root"]
+        except Exception:  # a node still starting: no root yet
+            roots[i] = None
+        finally:
+            c.close()
+
+    threads = [threading.Thread(target=ask, args=(i,)) for i in idxs]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=CLUSTER_DEADLINE_S)
+    return [roots.get(i) for i in idxs]
+
+
+def local_answer(ns, i: int, name: str, q: np.ndarray) -> tuple:
+    """Node i's own answer (local_only) to a query batch, by DoExchange."""
+    tbl = ns.client(i).exchange_search(name, [q], 10, local_only=True)[0]
+    return arrow_answer(tbl, len(q))
+
+
+def cluster_replicated(sets, root, corpus, queries, flight) -> dict:
+    """14.3: 3 nodes, async replication, anti-entropy every 2 s, a WAL each."""
+    name, n = "docs", N_STORE
+    ids = np.arange(n, dtype=np.int64)
+    rs = NodeSet(REPLICAS, root / "replicated",
+                 {"LONGBOW_PLACEMENT": "replicated", "LONGBOW_REPLICATION": "async",
+                  "LONGBOW_SYNC_INTERVAL_S": "2", "LONGBOW_INDEX_KIND": "flat"}, persist=True)
+    sets.append(rs)
+    for i in range(rs.n):
+        rs.start(i)
+    start_s = rs.wait_ready(range(rs.n), "14.3 start")
+    c0 = rs.client(0)
+    t0 = time.perf_counter()
+    for s in range(0, n, PUT_BATCH):
+        e = min(s + PUT_BATCH, n)
+        c0.write(name, ids[s:e], corpus[s:e], {"category": ids[s:e] % 1000}, metric="l2")
+    acked_s = time.perf_counter() - t0
+    reach = {}
+    while len(reach) < rs.n:
+        for i in range(rs.n):
+            if i not in reach and rs.live_rows(i, name) == n:
+                reach[i] = time.perf_counter() - t0
+        if time.perf_counter() - t0 > CLUSTER_DEADLINE_S:
+            fail(f"14.3: counts {[rs.live_rows(i, name) for i in range(rs.n)]} after "
+                 f"{CLUSTER_DEADLINE_S} s")
+        time.sleep(0.05)
+    rs.wait_ready(range(rs.n), "14.3 ingest")
+    t1 = time.perf_counter()
+    roots = merkle_roots(rs, range(rs.n), name)
+    merkle_s = time.perf_counter() - t1
+    while len(set(roots)) != 1:
+        if time.perf_counter() - t0 > CLUSTER_DEADLINE_S:
+            fail(f"14.3: Merkle roots never agreed: {roots}")
+        time.sleep(0.5)
+        roots = merkle_roots(rs, range(rs.n), name)
+    d = {"nodes": rs.n, "start_s": start_s, "acked_s": acked_s,
+         "rows_per_s_acked": n / acked_s, "node_reaches_all_s": [reach[i] for i in range(rs.n)],
+         "merkle_state_s_at_1m_parallel": merkle_s}
+    # every node's kernel launches are read just before 14.3's searches and
+    # just after them, once before node 2 is killed and once after its heal
+    count0 = launch_counts(rs, range(rs.n))
+    a0 = local_answer(rs, 0, name, queries)
+    d["node2_equal_node0"] = same_answers("14.3 node 2 against node 0",
+                                         local_answer(rs, 2, name, queries), a0)
+    d["node1_equal_node0"] = same_answers("14.3 node 1 against node 0",
+                                         local_answer(rs, 1, name, queries), a0)
+    before_kill = launches_between(count0, launch_counts(rs, range(rs.n)))
+    print(f"14.3 replicated: {rs.n} nodes ready in {start_s:.3f} s; {n} rows through node 0 "
+          f"acknowledged at {d['rows_per_s_acked']:.0f} rows/s (WAL on); node 2 held them all "
+          f"after {reach[2]:.3f} s; Merkle roots equal on all three "
+          f"(merkle-state {merkle_s:.3f} s, in parallel); nodes 1 and 2 answer as node 0 does",
+          flush=True)
+
+    # the heal: node 2 misses new rows, upserts and deletes while it is down
+    rs.kill(2)
+    rng = np.random.default_rng(15)
+    new_ids = np.arange(n, n + HEAL_ROWS, dtype=np.int64)
+    new_vecs = make_corpus(HEAL_ROWS, D_STORE, seed=16)
+    up_ids = rng.choice(n, HEAL_ROWS, replace=False)
+    up_vecs = (corpus[up_ids] + rng.normal(0, 0.5, (HEAL_ROWS, D_STORE))).astype(np.float32)
+    gone = rng.choice(np.setdiff1d(np.arange(n), up_ids), HEAL_DELETES, replace=False)
+    c0.write(name, new_ids, new_vecs, {"category": new_ids % 1000}, metric="l2")
+    c0.write(name, up_ids, up_vecs, {"category": up_ids % 1000}, metric="l2")
+    c0.delete(name, gone.tolist())
+    rs.wait_ready([0, 1], "14.3 writes with node 2 down")
+    t0 = time.perf_counter()
+    rs.start(2)
+    rs.wait_ready([2], "14.3 restart")
+    restart_s = time.perf_counter() - t0
+    # the heal is timed from node 2's readiness: its anti-entropy rounds
+    # start with its server
+    t0 = time.perf_counter()
+    # a root at 1M rows is seconds of a node's Python, so the roots are
+    # asked for when one of node 2's sync rounds has moved: its synced
+    # count changed (the round applied rows) or it found a peer's root
+    # equal to its own (its longbow_mesh_merkle_match_total{result=
+    # "match"}); and every HEAL_CHECK_S otherwise
+    trace, last, t_check = [], None, 0.0
+    while True:
+        synced = rs.client(2).cluster_status().get("anti_entropy", {}).get("synced_rows", -1)
+        matches = metric_sum(rs.metrics(2), "longbow_mesh_merkle_match_total", result="match")
+        now = time.perf_counter()
+        if (synced, matches) != last or now - t_check > HEAL_CHECK_S:
+            if (synced, matches) != last:
+                trace.append((now - t0, synced, matches))
+            last, t_check = (synced, matches), now
+            r0, r2 = merkle_roots(rs, [0, 2], name)
+            if r0 is not None and r0 == r2 and synced > 0:
+                break
+        if now - t0 > CLUSTER_DEADLINE_S:
+            fail(f"14.3: node 2's root never reached node 0's ({r2} against {r0})")
+        time.sleep(0.5)
+    heal_s = time.perf_counter() - t0
+    divergent = 2 * HEAL_ROWS + HEAL_DELETES
+    m2 = rs.metrics(2)
+    rounds = {"merkle_compares": metric_sum(m2, "longbow_mesh_merkle_match_total"),
+              "merkle_matches": metric_sum(m2, "longbow_mesh_merkle_match_total",
+                                           result="match"),
+              "delta_pulls": metric_sum(m2, "longbow_mesh_sync_deltas_total"),
+              "seconds_synced_matches": trace}
+    if not 0 < synced < HEAL_SYNC_FACTOR * divergent:
+        fail(f"14.3: node 2 synced {synced} rows for {divergent} divergent ones")
+    count1 = launch_counts(rs, range(rs.n))
+    d["node2_equal_node0_after_heal"] = same_answers(
+        "14.3 node 2 against node 0 after the heal", local_answer(rs, 2, name, queries),
+        local_answer(rs, 0, name, queries))
+    back = local_answer(rs, 2, name, corpus[gone])
+    if np.isin(np.asarray(back[0][back[2]], np.int64), gone).any():
+        fail("14.3: a deleted id came back on node 2")
+    for s in range(0, HEAL_ROWS, 2_000):  # tickets of 2,000 queries (the cap is 4,096)
+        vec = []
+        for i in (0, 2):
+            tbl = rs.client(i)._dc().do_get(flight.Ticket(ticket_search(
+                name, up_vecs[s:s + 2_000], k=1, include_vectors=True, local_only=True)),
+                options=rs.client(i)._opts).read_all()
+            if tbl.column("id").to_pylist() != up_ids[s:s + 2_000].tolist():
+                fail(f"14.3: node {i} does not find every upserted row first")
+            vec.append(np.stack(tbl.column("vector").to_numpy(zero_copy_only=False)))
+        if not np.array_equal(vec[0].view(np.uint32), vec[1].view(np.uint32)):
+            fail("14.3: the upserted rows' vectors on node 2 are not node 0's")
+    after_heal = launches_between(count1, launch_counts(rs, range(rs.n)))
+    launched = {k: [a + b for a, b in zip(before_kill[k], after_heal[k])] for k in KERNEL_NAMES}
+    if DEVICE == "cuda" and min(launched["fused_scan"]) == 0:
+        fail(f"14.3: K1 was not launched on every node: {launched['fused_scan']}")
+    d.update(k1_launches_by_node=launched["fused_scan"],
+             k2_launches_by_node=launched["fused_codes_scan"])
+    cp = c0._action("checkpoint", {})
+    peers = sorted(rs.ids[1:])
+    if not (cp.get("ok") and sorted(cp.get("prepared", [])) == peers
+            and sorted(cp.get("committed", [])) == peers and cp.get("local")):
+        fail(f"14.3: checkpoint answered {cp}")
+    d.update(restart_s=restart_s, heal_s=heal_s, divergent_rows=divergent,
+             synced_rows=synced, node2_sync=rounds, checkpoint=cp)
+    print(f"14.3 heal: node 2 SIGKILLed, {HEAL_ROWS} new rows, {HEAL_ROWS} upserts and "
+          f"{HEAL_DELETES} deletes through node 0; restarted on its WAL in {restart_s:.3f} s; "
+          f"its root equal to node 0's {heal_s:.3f} s after it was ready, {synced} rows synced "
+          f"for {divergent} divergent (node 2's (seconds, synced rows, root matches): {trace}; "
+          f"{rounds['merkle_compares']:.0f} root compares, {rounds['delta_pulls']:.0f} delta "
+          f"pulls); answers equal, no deleted id back, upserted vectors bit "
+          f"for bit node 0's; K1 launches by node {launched['fused_scan']} (K2 "
+          f"{launched['fused_codes_scan']}); checkpoint ok, both peers prepared and committed",
+          flush=True)
+    rs.close()
+    sets.remove(rs)
+    return d
+
+
+# -- 15. the coarse int8 shadow and complex / f64 inputs -----------------------
+
+N_COMPLEX, D_COMPLEX = 100_000, 64
+
+
+def phase_leftovers(bw: float, flops: float, reps: int, store_out: dict) -> dict:
+    """15. LONGBOW_FLAT_COARSE=1 on phase 4's rows (K2 for the pool, the f32
+    re-rank), a dot dataset that keeps K1, and complex64 / float64 inputs of
+    exact_search."""
+    import os
+
+    from longbow_tpu_torch.ops import _kernels
+    from longbow_tpu_torch.ops import scan as scan_mod
+    from longbow_tpu_torch.ops.distance import Metric, exact_search
+    from longbow_tpu_torch.store.vector_store import VectorStore
+
+    t_phase = time.perf_counter()
+    allv = make_corpus(N_STORE + N_QUERIES, D_STORE, seed=0)
+    corpus, queries = allv[:N_STORE], allv[N_STORE:]
+    ids = np.arange(N_STORE, dtype=np.int64)
+    out: dict = {}
+    saved = os.environ.get("LONGBOW_FLAT_COARSE")
+    os.environ["LONGBOW_FLAT_COARSE"] = "1"
+    try:
+        store = VectorStore(device=DEVICE, dtype=torch.bfloat16, default_index_kind="flat")
+        t0 = time.perf_counter()
+        for s in range(0, N_STORE, PUT_BATCH):
+            store.put("coarse", ids[s:s + PUT_BATCH], corpus[s:s + PUT_BATCH])
+        ds = store.get("coarse")
+        ds.index.flush()
+        for s in range(0, N_SMALL, PUT_BATCH):
+            e = min(s + PUT_BATCH, N_SMALL)
+            store.put("coarse_dot", ids[s:e], corpus[s:e], metric="dot")
+        store.get("coarse_dot").index.flush()
+    finally:
+        if saved is None:
+            os.environ.pop("LONGBOW_FLAT_COARSE", None)
+        else:
+            os.environ["LONGBOW_FLAT_COARSE"] = saved
+    torch.cuda.synchronize()
+    out["ingest_rows_per_s"] = N_STORE / (time.perf_counter() - t0)
+    if ds.index._flat._coarse_codes is None or \
+            store.get("coarse_dot").index._flat._coarse_enabled:
+        fail("15: the shadow is missing on the l2 dataset or built on the dot one")
+
+    _kernels.reset_launch_counts()
+    searches = 0
+    res: dict = {}
+
+    def run_batch():
+        res["a"] = store.search("coarse", queries, 10, use_cache=False)
+
+    k2_call = first_call(scan_mod, "fused_codes_search", run_batch, "the coarse search")
+    searches += 1
+    batch_s = []
+    for _ in range(5):
+        t = time.perf_counter()
+        store.search("coarse", queries, 10, use_cache=False)
+        batch_s.append(time.perf_counter() - t)
+        searches += 1
+    lat = []
+    for j in range(16):
+        t = time.perf_counter()
+        store.search("coarse", queries[j:j + 1], 10, use_cache=False)
+        lat.append(time.perf_counter() - t)
+        searches += 1
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in _kernels.KERNELS}
+    if launches["fused_codes_scan"] != searches or launches["fused_scan"] != 0:
+        fail(f"15: {searches} coarse searches launched {launches}")
+    _, truth = exact_search(queries, corpus, 10, Metric.L2, device=DEVICE)
+    truth = truth.cpu().numpy()
+    out["recall_at_10"] = recall_at(res["a"][0], truth)
+    gate("15 coarse shadow", out["recall_at_10"], RECALL_GATE)
+    _, pool = scan_mod.fused_codes_search(*k2_call[0], **k2_call[1])
+    pool = pool.cpu().numpy()
+    _kernels.FUSED_CODES_SCAN.launches = launches["fused_codes_scan"]
+    out["pool_contains_true_top10"] = float(np.mean(
+        [len(set(truth[r]) & set(pool[r])) / 10 for r in range(len(truth))]))
+    out.update(batch_1000_ms=1e3 * statistics.median(batch_s),
+               p50_single_query_ms=1e3 * statistics.median(lat),
+               k1_batch_1000_ms=store_out["batch_1000_ms"],
+               k1_p50_single_query_ms=store_out["p50_single_query_ms"],
+               searches=searches, launches=launches)
+
+    held = dict(launches)
+    got_dot, _, _ = store.search("coarse_dot", queries, 10, use_cache=False)
+    want_dot, _, _ = store.search("coarse_dot", queries, 10, exact=True, use_cache=False)
+    torch.cuda.synchronize()
+    dot_k1 = _kernels.FUSED_SCAN.launches - held["fused_scan"]
+    dot_k2 = _kernels.FUSED_CODES_SCAN.launches - held["fused_codes_scan"]
+    if dot_k1 != 1 or dot_k2 != 0:
+        fail(f"15: the dot dataset launched K1 {dot_k1} and K2 {dot_k2} times")
+    out["dot"] = {"rows": N_SMALL, "k1_launches": dot_k1, "k2_launches": 0,
+                  "recall_at_10_vs_exact": recall_at(got_dot, want_dot)}
+    gate("15 dot with the shadow asked for", out["dot"]["recall_at_10_vs_exact"], RECALL_GATE)
+    out["launches"] = {k.name: k.launches for k in _kernels.KERNELS}
+
+    # complex64 rows as their [real, imag] widening; float64 as float32
+    rng = np.random.default_rng(15)
+    cc = (rng.standard_normal((N_COMPLEX, D_COMPLEX))
+          + 1j * rng.standard_normal((N_COMPLEX, D_COMPLEX))).astype(np.complex64)
+    qc = cc[:100] + np.complex64(0.01)
+    for metric in (Metric.L2, Metric.COSINE, Metric.DOT):
+        dc, ic = exact_search(qc, cc, 10, metric, device=DEVICE)
+        dw, iw = exact_search(np.concatenate([qc.real, qc.imag], 1),
+                              np.concatenate([cc.real, cc.imag], 1), 10, metric, device=DEVICE)
+        if not (torch.equal(dc, dw) and torch.equal(ic, iw)):
+            fail(f"15: complex64 exact_search ({metric}) differs from its widening")
+    d64, i64 = exact_search(queries.astype(np.float64), corpus[:N_SMALL].astype(np.float64), 10,
+                            Metric.L2, device=DEVICE)
+    d32, i32 = exact_search(queries, corpus[:N_SMALL], 10, Metric.L2, device=DEVICE)
+    if not (torch.equal(d64, d32) and torch.equal(i64, i32)):
+        fail("15: float64 exact_search differs from the float32 call")
+    out["complex"] = {"rows": N_COMPLEX, "dim": D_COMPLEX, "equal_to_widening": True,
+                      "f64_equal_to_f32": True}
+    print(f"15 coarse shadow: {N_STORE} bf16 rows with int8 codes beside them, recall@10 "
+          f"{out['recall_at_10']:.4f}, the pool of 64 holds {out['pool_contains_true_top10']:.4f} "
+          f"of the true top-10; K2 launched on each of {searches} searches, K1 on none; "
+          f"1,000 queries {out['batch_1000_ms']:.3f} ms (K1 path, phase 4: "
+          f"{out['k1_batch_1000_ms']:.3f} ms), one query p50 {out['p50_single_query_ms']:.3f} ms "
+          f"(K1: {out['k1_p50_single_query_ms']:.3f} ms); a dot dataset with the variable set "
+          f"stays on K1; complex64 ({N_COMPLEX} x {D_COMPLEX}) equal to its [real, imag] "
+          f"widening and float64 to float32", flush=True)
+    store.drop("coarse")
+    store.drop("coarse_dot")
+    del store, ds
+    torch.cuda.empty_cache()
+    out["k2_coarse"] = check_codes_call("coarse shadow", k2_call, bw, flops, reps)
+    out["seconds"] = time.perf_counter() - t_phase
+    emit({"leftovers": out})
+    return out
+
+
+def cluster_launches(cluster: dict, kernel: str) -> int:
+    """A kernel's launches in phase 14's node processes, summed over nodes."""
+    return int(sum(sum(cluster[part][f"{kernel}_launches_by_node"])
+                   for part in ("partitioned", "replicated")))
+
+
 def recorded_fields(prefix: str, row: dict) -> dict:
     """A kernel's check on a path's recorded arguments, for the kernels line."""
     return {f"{prefix}_{key}": row[src] for key, src in (
@@ -3672,34 +4548,49 @@ def main() -> int:
     import longbow_tpu_torch  # noqa: F401  (fails outside the repo)
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    phase_build()
-    kern = phase_kernels(bw, flops, TIMED_LAUNCHES)
-    store = phase_store()
-    codes = phase_codes_kernels(bw, flops, TIMED_LAUNCHES)
+    took: dict = {}  # host seconds by phase, printed before the kernels line
+
+    def run(label: str, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        took[label] = time.perf_counter() - t
+        return out
+
+    run("2 build", phase_build)
+    kern = run("3 kernels", phase_kernels, bw, flops, TIMED_LAUNCHES)
+    store = run("4 store", phase_store)
+    codes = run("5 codes", phase_codes_kernels, bw, flops, TIMED_LAUNCHES)
     torch.cuda.empty_cache()
-    quant, deep_index, deep_queries = phase_quantized_store()
-    sq8r_stages(deep_index, deep_queries)
+    quant, deep_index, deep_queries = run("6 quantized store", phase_quantized_store)
+    run("6 sq8r stages", sq8r_stages, deep_index, deep_queries)
     del deep_index
     torch.cuda.empty_cache()
-    graph = phase_graph(bw, flops, TIMED_LAUNCHES)
+    graph = run("7 graph", phase_graph, bw, flops, TIMED_LAUNCHES)
     graph_store = graph.pop("_store")
     knn = graph["self_knn_cases"][0]  # the l2 build's first launch
     torch.cuda.empty_cache()
-    kinds = phase_index_kinds(bw, flops, TIMED_LAUNCHES)
+    kinds = run("8 index kinds", phase_index_kinds, bw, flops, TIMED_LAUNCHES)
     torch.cuda.empty_cache()
-    services = phase_services(bw, flops, TIMED_LAUNCHES, store["ingest_rows_per_s"])
+    services = run("9 services", phase_services, bw, flops, TIMED_LAUNCHES,
+                   store["ingest_rows_per_s"])
     torch.cuda.empty_cache()
-    persist = phase_persistence(bw, flops, TIMED_LAUNCHES, card, store["ingest_rows_per_s"],
-                                graph_store, graph["default_store_1m_x_128"])
+    persist = run("10 persistence", phase_persistence, bw, flops, TIMED_LAUNCHES, card,
+                  store["ingest_rows_per_s"], graph_store, graph["default_store_1m_x_128"])
     torch.cuda.empty_cache()
-    serving = phase_serving(bw, flops, TIMED_LAUNCHES, store["ingest_rows_per_s"])
+    serving = run("11 serving", phase_serving, bw, flops, TIMED_LAUNCHES,
+                  store["ingest_rows_per_s"])
     flat_store = serving.pop("_store")
-    mesh = phase_mesh(bw, flops, TIMED_LAUNCHES, flat_store, graph_store,
-                      graph["default_store_1m_x_128"])
+    mesh = run("12 mesh", phase_mesh, bw, flops, TIMED_LAUNCHES, flat_store, graph_store,
+               graph["default_store_1m_x_128"])
     graph_store.drop("graph")
     del graph_store, flat_store
     torch.cuda.empty_cache()
-    flight = phase_flight(bw, flops, TIMED_LAUNCHES, store["ingest_rows_per_s"])
+    flight = run("13 flight", phase_flight, bw, flops, TIMED_LAUNCHES,
+                 store["ingest_rows_per_s"])
+    torch.cuda.empty_cache()
+    cluster = run("14 cluster", phase_cluster, card)
+    leftovers = run("15 leftovers", phase_leftovers, bw, flops, TIMED_LAUNCHES, store)
+    emit({"phase_seconds": took})
 
     served = next(c for c in kern["cases"] if c["tag"] == "served_batch")
     served2 = next(c for c in codes["cases"] if c["tag"] == "served_batch")
@@ -3716,6 +4607,9 @@ def main() -> int:
         "launches_serving": serving["launches"]["fused_scan"],
         "launches_mesh": mesh["launches"]["fused_scan"],
         "launches_flight": flight["launches"]["fused_scan"],
+        # the node processes' own launch counters over 14.1's and 14.3's searches
+        "launches_cluster": cluster_launches(cluster, "k1"),
+        "launches_coarse": leftovers["launches"]["fused_scan"],
         "max_abs_err": max(c["max_abs_err"] for c in
                            kern["cases"] + graph["self_knn_cases"] + [kinds["k1_spill"]]
                            + [services["k1_services"], persist["k1_persistence"],
@@ -3755,13 +4649,17 @@ def main() -> int:
         "launches_serving": serving["launches"]["fused_codes_scan"],
         "launches_mesh": mesh["launches"]["fused_codes_scan"],
         "launches_flight": flight["launches"]["fused_codes_scan"],
+        "launches_cluster": cluster_launches(cluster, "k2"),
+        "launches_coarse": leftovers["launches"]["fused_codes_scan"],
         "max_abs_err": max(c["max_abs_err"] for c in
                            codes["cases"] + [kinds["k2_disk"], services["k2_services"],
-                                             persist["k2_persistence"], flight["k2_flight"]]),
+                                             persist["k2_persistence"], flight["k2_flight"],
+                                             leftovers["k2_coarse"]]),
         **recorded_fields("index_kinds", kinds["k2_disk"]),
         **recorded_fields("services", services["k2_services"]),
         **recorded_fields("persistence", persist["k2_persistence"]),
         **recorded_fields("flight", flight["k2_flight"]),
+        **recorded_fields("coarse", leftovers["k2_coarse"]),
         "ms": served2["ms"],
         "variant": served2["variant"],
         "prev_ms": served2["prev_ms"],

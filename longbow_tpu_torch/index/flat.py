@@ -10,6 +10,14 @@ of 64 and an exact f32 re-rank (ops/scan.py::flat_search_rerank);
 anything else, and exact=True, goes through the f32 oracle exact_search.
 Cosine rides the l2 path on normalized rows and is reported as 1 - cos.
 
+Coarse int8 shadow (LONGBOW_FLAT_COARSE=1 when the index is made; bf16
+storage, l2 or cosine): int8 codes of the stored rows beside them, under a
+per-dimension affine trained on the first block (widened 5% each side),
+with the norms of the dequantized codes. A search with k <= 64 then runs
+kernel K2 over the codes for its pool and re-ranks it exactly against the
+bf16 rows (ops/scan.py::coarse_flat_search_rerank); a dot index keeps K1.
+A failure to maintain the shadow raises.
+
 Host scan mirror: rows that reach the index from the host are also kept
 in host RAM, in the stored precision (bf16 as its bits in uint16, f16,
 f32), so that get_vectors and the Flight edge's table scans read RAM
@@ -37,7 +45,7 @@ from longbow_tpu_torch.ops.distance import (
     normalize_rows,
     tombstone_rows,
 )
-from longbow_tpu_torch.ops.scan import flat_search_rerank
+from longbow_tpu_torch.ops.scan import coarse_flat_search_rerank, flat_search_rerank
 from longbow_tpu_torch.storage.native import bf16_bits_to_f32, f32_to_bf16_bits
 
 MIN_CAPACITY = 4096
@@ -73,6 +81,10 @@ _MIRROR_DTYPES = {
     torch.float16: np.dtype(np.float16),
     torch.float32: np.dtype(np.float32),
 }
+
+
+def coarse_opted_in() -> bool:
+    return os.environ.get("LONGBOW_FLAT_COARSE", "0") == "1"
 
 
 def mirror_opted_out() -> bool:
@@ -132,6 +144,18 @@ class FlatIndex:
         self._mirror_enabled = not mirror_opted_out()
         self._mirror_np_dtype = _MIRROR_DTYPES[self.dtype]
         self._host_mirror: Optional[np.ndarray] = None
+        # the coarse int8 shadow: codes [capacity, dim], the norms of their
+        # dequantized rows, and the affine (None until the first block).
+        # Gated on metric where the reference's is not: its dot search
+        # raises inside the coarse scan (index/flat.py:702)
+        self._coarse_enabled = (
+            self.dtype == torch.bfloat16 and self.metric in (Metric.L2, Metric.COSINE)
+            and coarse_opted_in()
+        )
+        self._coarse_codes: Optional[torch.Tensor] = None
+        self._coarse_norms: Optional[torch.Tensor] = None
+        self._coarse_lo: Optional[torch.Tensor] = None
+        self._coarse_hi: Optional[torch.Tensor] = None
         self._mu = threading.RLock()
 
     # -- properties ---------------------------------------------------
@@ -181,6 +205,37 @@ class FlatIndex:
         self.vectors[row:row + n] = stored
         self.norms_sq[row:row + n] = (sf * sf).sum(dim=1)
         self.valid[row:row + n] = True
+        if self._coarse_enabled and n:
+            self._coarse_after(row, n)
+
+    def _coarse_after(self, row: int, n: int) -> None:
+        """Quantize the stored rows [row, row + n) into the coarse shadow,
+        in place: codes from the STORED bf16 rows (so that they
+        approximate exactly what the re-rank reads), norms of the
+        dequantized codes; the affine comes from the first block."""
+        stored = self.vectors[row:row + n].float()
+        if self._coarse_lo is None:
+            lo = stored.min(dim=0).values
+            hi = stored.max(dim=0).values
+            span = torch.clamp_min(hi - lo, 1e-6)
+            self._coarse_lo, self._coarse_hi = lo - 0.05 * span, hi + 0.05 * span
+        cap = self.vectors.shape[0]
+        codes = self._coarse_codes
+        if codes is None or codes.shape[0] < cap:
+            new_codes = torch.zeros((cap, self.dim), dtype=torch.int8, device=self.device)
+            new_norms = torch.zeros((cap,), dtype=torch.float32, device=self.device)
+            if codes is not None:
+                new_codes[: codes.shape[0]] = codes
+                new_norms[: codes.shape[0]] = self._coarse_norms
+            self._coarse_codes, self._coarse_norms = new_codes, new_norms
+        lo, hi = self._coarse_lo, self._coarse_hi
+        scale = torch.clamp_min(hi - lo, 1e-12)
+        qv = torch.round((stored - lo) / scale * 255.0)
+        s8 = (torch.clamp(qv, 0.0, 255.0) - 128.0).to(torch.int8)
+        s255 = scale / 255.0
+        deq = s8.float() * s255[None, :] + (lo + 128.0 * s255)[None, :]
+        self._coarse_codes[row:row + n] = s8
+        self._coarse_norms[row:row + n] = (deq * deq).sum(dim=1)
 
     def add(self, vecs) -> np.ndarray:
         """Append vectors; returns the assigned internal row ids.
@@ -388,7 +443,14 @@ class FlatIndex:
             cap = self.vectors.shape[0]
             mask = fit_mask(filter_mask, cap, self.device)
             fused = not exact and self.dtype == torch.bfloat16 and k <= FUSED_MAX_K
-            if fused:
+            if fused and self._coarse_codes is not None:
+                d, i = coarse_flat_search_rerank(
+                    q, self.vectors, self._coarse_codes, self._coarse_lo, self._coarse_hi,
+                    self._coarse_norms, self.valid, k, metric, pool=POOL, extra_mask=mask,
+                    normalize=normalize, device=self.device,
+                )
+                count_dispatch("pallas_coarse_i8", self.vectors.is_cuda)
+            elif fused:
                 d, i = flat_search_rerank(
                     q, self.vectors, self.norms_sq, self.valid, k, metric,
                     pool=POOL, extra_mask=mask, normalize=normalize,
@@ -411,6 +473,9 @@ class FlatIndex:
         """Bytes of the device block (rows, norms, validity) after the
         pending flush."""
         itemsize = torch.empty((), dtype=self.dtype).element_size()
+        if self._coarse_enabled:
+            itemsize += 1  # the int8 code beside each element, and its norm
+            return self.capacity * (self.dim * itemsize + 4 + 4 + 1)
         return self.capacity * (self.dim * itemsize + 4 + 1)
 
     def warm(self) -> None:

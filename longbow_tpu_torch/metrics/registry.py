@@ -29,12 +29,13 @@ CONTENT_TYPE_LATEST = "text/plain; version=0.0.4; charset=utf-8"
 # longbow_simd_dispatch_total{implementation}: the reference's label
 # value -> the one this package writes for the same route. "cuda_*" is a
 # hand-written kernel's launch; "torch" is plain PyTorch (the exact
-# scan, or a kernel's plain version on a CPU tensor). The reference's
-# opt-in int8 shadow of the flat tier ("pallas_coarse_i8") is not ported.
+# scan, or a kernel's plain version on a CPU tensor). "cuda_coarse_i8" is
+# the flat tier's opt-in int8 shadow (kernel K2 and the re-rank).
 DISPATCH_LABELS = {
     "pallas_fused": "cuda_fused",
     "pallas_sq8_fused": "cuda_sq8_fused",
     "pallas_sq8r_fused": "cuda_sq8r_fused",
+    "pallas_coarse_i8": "cuda_coarse_i8",
     "xla": "torch",
 }
 
@@ -212,6 +213,14 @@ _CATALOG: dict[str, tuple[str, tuple[str, ...]]] = {
     "longbow_cluster_split_brain": (_G, ()),
     "longbow_search_coalesce_batch_size": (_HS, ()),
     "longbow_tpu_span_duration_seconds": (_H, ("name",)),
+}
+
+# This package's own metrics, declared beside the catalog (which stays the
+# reference's exactly): longbow_kernel_launches_total{kernel} goes up by one
+# each time a wrapper launches a hand-written kernel (ops/_kernels.py
+# Kernel.count_launch), so another process can read a node's launches.
+PORT_METRICS: dict[str, tuple[str, tuple[str, ...]]] = {
+    "longbow_kernel_launches_total": (_C, ("kernel",)),
 }
 
 
@@ -430,7 +439,7 @@ class MetricsRegistry:
         # at request time, so late registration is fine)
         self.health_fn = None
         self._debug_server = None
-        for name, (kind, labels) in _CATALOG.items():
+        for name, (kind, labels) in {**_CATALOG, **PORT_METRICS}.items():
             if kind == _C:
                 self.counter(name, labels)
             elif kind == _G:

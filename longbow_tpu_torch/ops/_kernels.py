@@ -133,6 +133,14 @@ class Kernel:
     def count_launch(self) -> None:
         with self._mu:
             self.launches += 1
+        # the same count in the metrics registry, for a reader in another
+        # process (a node's /metrics); a metric never fails a launch
+        try:
+            from longbow_tpu_torch.metrics import get_registry
+
+            get_registry().inc("longbow_kernel_launches_total", kernel=self.name)
+        except Exception:
+            pass
 
 
 def _bind_fused_scan(lib) -> None:

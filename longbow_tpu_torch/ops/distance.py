@@ -70,6 +70,27 @@ def cosine_report(d):
     return torch.where(d < MASKED_GUARD, 0.5 * d, d)
 
 
+def complex_as_real(v: torch.Tensor) -> torch.Tensor:
+    """Complex [.., D] -> real [.., 2D] by concatenating (real, imag).
+
+    For z, w in C^D: Re(z . conj(w)) = zr.wr + zi.wi, the real dot product
+    of the concatenated views, and |z|^2 = |view|^2. So complex l2, cosine
+    and (real-part) dot distances are the real ones on the widened view."""
+    return torch.cat([v.real, v.imag], dim=-1)
+
+
+def _canon_dtype(v) -> torch.Tensor:
+    """Any supported input as its compute form: complex -> the widened real
+    view, float64 -> float32 (as the JAX package computes with x64 off, its
+    default). Numpy arrays become tensors on the CPU."""
+    v = torch.as_tensor(v)
+    if v.is_complex():
+        v = complex_as_real(v)
+    if v.dtype == torch.float64:
+        v = v.float()
+    return v
+
+
 def pad_to(n: int, multiple: int) -> int:
     """Round n up to a multiple."""
     if n <= 0:
@@ -127,8 +148,9 @@ def as_rows(x, device, dim: int) -> torch.Tensor:
 
 
 def squared_norms(v) -> torch.Tensor:
-    """Row-wise |v|^2 in float32."""
-    vf = torch.as_tensor(v).float()
+    """Row-wise |v|^2 in float32 (complex rows: |z|^2 through the widened
+    real view)."""
+    vf = _canon_dtype(v).float()
     return (vf * vf).sum(dim=-1)
 
 
@@ -152,8 +174,8 @@ def distance_matrix(
             "the dense kernels"
         )
     full_f32_matmul()
-    q = torch.as_tensor(queries).float()
-    c = torch.as_tensor(corpus, device=q.device).float()
+    q = _canon_dtype(queries).float()
+    c = _canon_dtype(corpus).to(q.device).float()
     ip = q @ c.T
     if metric in (Metric.L2, Metric.COSINE):
         vn2 = (
@@ -174,6 +196,26 @@ def distance_matrix(
         valid = torch.as_tensor(valid, device=q.device).bool()
         dist = torch.where(valid[None, :], dist, torch.full_like(dist, MASKED))
     return dist
+
+
+def pairwise_distance(a, b, metric: str = Metric.L2) -> torch.Tensor:
+    """Distance between row-aligned batches a, b [B, D] -> [B]."""
+    metric = Metric.validate(metric)
+    if metric == Metric.HAMMING:
+        raise ValueError(
+            "hamming distance is served by the 'bq' index kind, not "
+            "the dense kernels"
+        )
+    af = _canon_dtype(a).float()
+    bf = _canon_dtype(b).to(af.device).float()
+    ip = (af * bf).sum(-1)
+    if metric == Metric.L2:
+        return torch.clamp_min((af * af).sum(-1) - 2 * ip + (bf * bf).sum(-1), 0.0)
+    if metric == Metric.COSINE:
+        na = torch.sqrt((af * af).sum(-1))
+        nb = torch.sqrt((bf * bf).sum(-1))
+        return 1.0 - ip / torch.clamp_min(na * nb, 1e-30)
+    return -ip
 
 
 def normalize_rows(x: torch.Tensor) -> torch.Tensor:
@@ -202,10 +244,11 @@ def exact_search(
     with a per-chunk top-k merged into the running best, so peak memory
     is O(B * chunk_rows), not O(B * N). Full float32 (TF32 off)."""
     dev = resolve_device(device)
-    q = torch.as_tensor(queries, device=dev).float()
+    # complex corpora ride the real path on a widened view; f64 becomes f32
+    q = _canon_dtype(queries).to(dev).float()
     if q.ndim == 1:
         q = q[None, :]
-    c = torch.as_tensor(corpus, device=dev)
+    c = _canon_dtype(corpus).to(dev)
     if normalize:
         q = normalize_rows(q)
     if valid is not None:

@@ -2,7 +2,8 @@
 fused scan over int8 codes (kernel K2).
 
 Counterpart of longbow_tpu/ops/pallas_scan.py::fused_flat_search,
-::flat_search_rerank and ::fused_codes_search. On a CUDA tensor
+::flat_search_rerank, ::fused_codes_search and ::coarse_flat_search_rerank
+(the flat tier's int8 shadow: K2 for the pool, the same re-rank). On a CUDA tensor
 `fused_flat_search` and `fused_codes_search` launch the hand-written
 Hopper kernels `csrc/fused_scan.cu` and `csrc/fused_codes_scan.cu` (or
 raise: they never fall back); on a CPU tensor they run
@@ -564,3 +565,49 @@ def flat_search_rerank(
     ed = torch.where(d < MASKED_GUARD, ed, torch.full_like(ed, MASKED))
     vals, pos = torch.topk(ed, k, dim=1, largest=False)
     return vals, torch.gather(i, 1, pos)
+
+
+def coarse_flat_search_rerank(
+    queries, corpus, codes, lo, hi, coarse_norms_sq, valid, k, metric=Metric.L2, *,
+    pool: int = 64, extra_mask=None, normalize=False, device=None,
+):
+    """The flat tier's coarse int8 shadow: K2 (fused_codes_search) picks a
+    pool of max(pool, k) rows from the int8 codes under the query-side
+    fold of the codes' affine, then the pool is re-ranked exactly in f32
+    against the bf16 rows, by the same fixed-order sums as
+    flat_search_rerank (rerank_distances).
+
+    codes [N, D] int8 (stored u8 - 128) of the stored rows under the
+    per-dimension affine lo, hi [D]; coarse_norms_sq [N] the norms of the
+    dequantized codes. l2 and cosine only (cosine is normalize=True and
+    l2); dot raises ValueError. Returns (dist [B, k] f32, row [B, k]
+    int32), ascending, masked slots (MASKED, -1)."""
+    metric = Metric.validate(metric)
+    if metric == Metric.DOT:
+        raise ValueError("coarse_flat_search_rerank: l2/cosine only")
+    dev = resolve_device(device)
+    q = torch.as_tensor(queries, device=dev).float()
+    if q.ndim == 1:
+        q = q[None, :]
+    if normalize:
+        q = normalize_rows(q)
+    pool = max(pool, k)
+    full_f32_matmul()
+    lo = torch.as_tensor(lo, device=dev).float()
+    hi = torch.as_tensor(hi, device=dev).float()
+    # the affine folded into the query side: v ~ codes * scale + lo_eff
+    scale = torch.clamp_min(hi - lo, 1e-12) / 255.0
+    lo_eff = lo + 128.0 * scale
+    qs = q * scale[None, :]
+    qn_eff = (q * q).sum(dim=1) - 2.0 * (q @ lo_eff)
+    d, i = fused_codes_search(
+        qs, qn_eff, codes, coarse_norms_sq, valid, pool, extra_mask=extra_mask, device=dev,
+    )
+    corpus = torch.as_tensor(corpus, device=dev)
+    cand = corpus[i.clamp_min(0).long()].float()  # [B, pool, D]
+    ed = rerank_distances(q, cand, True)
+    ed = torch.where(d < MASKED_GUARD, ed, torch.full_like(ed, MASKED))
+    vals, pos = torch.topk(ed, k, dim=1, largest=False)
+    idx = torch.gather(i, 1, pos)
+    idx = torch.where(vals < MASKED_GUARD, idx, torch.full_like(idx, -1))
+    return vals, idx

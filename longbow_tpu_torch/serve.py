@@ -8,9 +8,14 @@ parts:
 - build_runtime(cfg) builds everything but the transport, without
   pyarrow: the store (recovered from LONGBOW_DATA_PATH), the handlers,
   the middleware and degradation, the ingest queue, the coalescer, the
-  audit log, compaction, eviction and backpressure, the metrics mux, and
-  the memory and periodic snapshot loops. Runtime.stop() stops and joins
-  them. chip_smoke.py drives a runtime's handlers on the card.
+  audit log, compaction, eviction and backpressure, the metrics mux, the
+  memory and periodic snapshot loops, and, where a discovery setting
+  (LONGBOW_PEERS, _PEERS_DNS, _PEERS_K8S, _PEERS_LAN) is set, the cluster
+  coordinator (distributed/cluster.py: membership, replication,
+  anti-entropy, partitioned placement, global search; it imports
+  pyarrow.flight for its peer clients, so a single node still needs no
+  pyarrow). Runtime.stop() stops and joins them. chip_smoke.py drives a
+  runtime's handlers on the card.
 - main() binds the Flight servers (serving/flight_server.py, which needs
   pyarrow) and the AF_UNIX mirrors over the runtime's handlers and serves
   until SIGINT or SIGTERM.
@@ -50,6 +55,47 @@ def serve_device() -> torch.device:
     return resolve_device(None)
 
 
+def has_discovery(cfg: Config) -> bool:
+    return bool(cfg.peers.strip() or cfg.peers_dns.strip() or cfg.peers_k8s.strip()
+                or cfg.peers_lan.strip())
+
+
+def node_identity(cfg: Config) -> str:
+    """This node's cluster id: LONGBOW_NODE_ID, else host:data_port.
+    Partitioned placement hashes the id into the ring and hands it to
+    clients as an address to dial, so a bind address (0.0.0.0) raises
+    ValueError there: it would own a slice of the keys nobody can reach."""
+    self_id = cfg.node_id or f"{cfg.host}:{cfg.data_port}"
+    if cfg.placement == "partitioned":
+        if self_id.rsplit(":", 1)[0] in ("", "0.0.0.0", "::", "[::]"):
+            raise ValueError(
+                "partitioned placement requires a dialable node identity: set "
+                f"LONGBOW_NODE_ID=<advertised-host:port> (got {self_id!r} from the bind address)")
+    return self_id
+
+
+def build_cluster(cfg: Config, store, self_id: str):
+    """The ClusterCoordinator of cfg's discovery settings for the node
+    `self_id`, started (reference: serve.py:299-350)."""
+    from longbow_tpu_torch.distributed.cluster import ClusterCoordinator
+
+    peer_ca = None
+    if cfg.tls_ca_file:
+        with open(cfg.tls_ca_file, "rb") as f:
+            peer_ca = f.read()
+    cluster = ClusterCoordinator(
+        store, self_id, [p for p in cfg.peers.split(",") if p.strip()],
+        replication_mode=cfg.replication, replication_level=cfg.replication_level,
+        sync_interval_s=cfg.sync_interval_s, probe_interval_s=cfg.probe_interval_s,
+        dns_name=cfg.peers_dns, k8s_service=cfg.peers_k8s, region=cfg.region,
+        lan_group=cfg.peers_lan, placement=cfg.placement, api_key=cfg.auth_token,
+        tls_root_certs=peer_ca, spatial_routing=cfg.spatial_routing,
+        spatial_margin=cfg.spatial_margin,
+    )
+    cluster.start()
+    return cluster
+
+
 def _rss_bytes() -> Optional[int]:
     try:
         with open("/proc/self/statm") as f:
@@ -70,6 +116,7 @@ class Runtime:
         self.middleware = handlers.middleware
         self.ingest = handlers.ingest
         self.coalescer = handlers.coalescer
+        self.cluster = handlers.cluster
         self.degradation = None
         self.compactor = None
         self.metrics_port: Optional[int] = None
@@ -108,6 +155,8 @@ class Runtime:
             self.coalescer.stop()
         if self.ingest is not None:
             self.ingest.close()  # drained before the final snapshot
+        if self.cluster is not None:
+            self.cluster.stop()
         for t in self._threads:
             t.join(timeout=JOIN_S)
         if self.metrics_port is not None:
@@ -140,6 +189,8 @@ def build_runtime(cfg: Optional[Config] = None, *, device=None) -> Runtime:
     )
 
     cfg = cfg or load_config()
+    # a partitioned node without a dialable id raises before any state exists
+    self_id = node_identity(cfg) if has_discovery(cfg) else None
     device = serve_device() if device is None else torch.device(device)
     log = setup_logging()
     log.info("starting longbow-tpu-torch", extra={"fields": {"config": vars(cfg)}})
@@ -199,8 +250,13 @@ def build_runtime(cfg: Optional[Config] = None, *, device=None) -> Runtime:
 
         audit = AuditLogger(cfg.audit_log)
     registry = get_registry()
+    cluster = None if self_id is None else build_cluster(cfg, store, self_id)
+    if cluster is not None:
+        log.info("cluster: self=%s peers=%s placement=%s replication=%s", cluster.self_id,
+                 cfg.peers, cfg.placement, cluster.replication_mode)
     handlers = FlightHandlers(store, metrics_registry=registry, middleware_chain=middleware,
-                              audit_logger=audit, ingest_queue=ingest_queue, coalescer=coalescer)
+                              audit_logger=audit, ingest_queue=ingest_queue, coalescer=coalescer,
+                              cluster=cluster)
     rt = Runtime(cfg, store, handlers, log)
 
     # the debug mux: /metrics, /healthz (reference: main.go:296-300)
@@ -315,11 +371,12 @@ def main(argv=None) -> int:
     # SIGUSR1 dumps every thread's stack to stderr
     faulthandler.register(signal.SIGUSR1, all_threads=True)
     cfg = load_config()
-    if cfg.peers.strip() or cfg.peers_dns.strip() or cfg.peers_k8s.strip() or cfg.peers_lan.strip():
-        logging.getLogger("longbow").error(
-            "LONGBOW_PEERS and the other discovery settings need the cluster layer "
-            "(ROADMAP.md item 8), which is not ported")
-        return 2
+    if has_discovery(cfg):
+        try:
+            node_identity(cfg)
+        except ValueError as e:
+            logging.getLogger("longbow").error("%s", e)
+            return 2
     rt = build_runtime(cfg)
     log = rt.log
     sec = dict(auth_token=cfg.auth_token or None, tls_cert_file=cfg.tls_cert_file or None,

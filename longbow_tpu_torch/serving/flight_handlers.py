@@ -16,9 +16,11 @@ Action answers are JSON bytes. Refusals raise serving/errors.py's classes
 with the reference's messages; what longbow_tpu lets propagate raw
 (a ValueError out of a put, a KeyError out of an exchange) propagates raw.
 
-Single node only: `cluster` must be None. Replication metadata, partition
-routing, the search fan-out and the cluster's actions come with the cluster
-layer (ROADMAP.md item 8).
+The cluster layer (distributed/cluster.py's ClusterCoordinator, passed as
+`cluster`) adds the replication metadata of DoPut, partition routing of
+puts and exchange ingests, the search fan-out of DoGet, DoExchange and
+VectorSearch (an unmet consistency level answers as unavailable), and the
+cluster's actions. With `cluster=None` the node serves alone.
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ import itertools
 import json
 import os
 import queue
+import socket
 import threading
 import time
 from dataclasses import dataclass
@@ -56,10 +59,6 @@ from longbow_tpu_torch.wire_types import METRIC_METADATA_KEY, NATIVE_VECTOR_DTYP
 
 _RESERVED = {"id", "vector", "timestamp"}
 
-# actions whose every path needs the cluster layer (distributed/spatial.py,
-# Dataset.merkle_state / export_delta)
-CLUSTER_ACTIONS = ("region-summary", "merkle-state", "export-delta")
-
 ACTIONS = [
     ("VectorSearch", "batched vector search"),
     ("VectorSearchByID", "search by stored id"),
@@ -87,13 +86,6 @@ ACTIONS = [
     ("checkpoint-prepare", "checkpoint barrier phase 1"),
     ("checkpoint-commit", "checkpoint barrier phase 2"),
 ]
-
-
-def require_single_node(cluster) -> None:
-    if cluster is not None:
-        raise NotImplementedError(
-            "the cluster layer (ROADMAP.md item 8) is not ported: cluster must be None"
-        )
 
 
 @dataclass
@@ -176,6 +168,12 @@ def _ids_column(ids: list) -> np.ndarray:
     return np.asarray([int(i) for i in ids], np.int64)
 
 
+def _no_answer(qv: np.ndarray, k: int):
+    """An empty local answer (the dataset lives only on peers)."""
+    b = qv.shape[0] if qv.ndim == 2 else 1
+    return np.empty((b, k), dtype=object), np.zeros((b, k), np.float32), np.zeros((b, k), bool)
+
+
 def _key(uid):
     return uid.item() if hasattr(uid, "item") else uid
 
@@ -225,6 +223,7 @@ class FlightHandlers:
     audit_logger: an AuditLogger (None: one that writes nothing).
     ingest_queue: an IngestQueue; puts are then acknowledged on enqueue.
     coalescer: a SearchCoalescer for plain searches.
+    cluster: a distributed/cluster.py ClusterCoordinator, or None.
     """
 
     # ~2 MB record batches (reference: adaptive_chunk_strategy.go:10);
@@ -242,8 +241,8 @@ class FlightHandlers:
         coalescer=None,
         cluster=None,
     ):
-        require_single_node(cluster)
         self.store = store
+        self.cluster = cluster
         self.coalescer = coalescer
         self.ingest = ingest_queue
         self.metrics = metrics_registry if metrics_registry is not None else get_registry()
@@ -295,10 +294,17 @@ class FlightHandlers:
         metric = meta.get(METRIC_METADATA_KEY)
         is_replication = meta.get("longbow.replication") == "1"
         origin_ts = float(meta["longbow.ts"]) if "longbow.ts" in meta else None
+        if is_replication and self.cluster is not None and "longbow.vclock" in meta:
+            # merge the origin's causality clock; concurrent writes are
+            # counted as LWW-resolved conflicts (vector_clock.go:23)
+            try:
+                self.cluster.observe_remote_clock(dataset, json.loads(meta["longbow.vclock"]))
+            except Exception:
+                pass
         self._admit("DoPut", peer)
         try:
             with self.metrics.time_op("DoPut"):
-                self._do_put_stream(batches, dataset, metric, origin_ts)
+                self._do_put_stream(batches, dataset, metric, is_replication, origin_ts)
             self.audit.record("put", dataset, {"replication": is_replication})
             if self.ingest is not None and self.ingest.pressure > 0.8:
                 # the reference's backpressure contract (docs/admin_api.md)
@@ -308,7 +314,7 @@ class FlightHandlers:
         finally:
             self._release("DoPut")
 
-    def _do_put_stream(self, batches, dataset, metric, origin_ts) -> None:
+    def _do_put_stream(self, batches, dataset, metric, is_replication, origin_ts) -> None:
         auto_base = None  # running id base of an id-less stream
         for tbl in batches:
             if tbl.num_rows == 0:
@@ -325,8 +331,18 @@ class FlightHandlers:
                 auto_base += len(vecs)
             columns = _meta_columns(tbl)
             ts = origin_ts
-            if ts is None and self.ingest is not None:
-                ts = time.time()  # stamped once, before the queue
+            if ts is None and (self.cluster is not None or self.ingest is not None):
+                ts = time.time()  # stamped once, so that replicas agree on LWW
+            partitioned = self.cluster is not None and self.cluster.placement == "partitioned"
+            if partitioned and not is_replication:
+                # rows go to their ring owners; this node keeps its own
+                # (reference: partition proxy sharding/proxy.go:21-145)
+                keep = self.cluster.partition_put(dataset, ids, vecs, columns or None, metric, ts)
+                if not keep.any():
+                    continue
+                ids, vecs = ids[keep], vecs[keep]
+                if columns:
+                    columns = {k: np.asarray(v)[keep] for k, v in columns.items()}
             try:
                 if self.ingest is not None:
                     self.ingest.submit(dataset, ids, vecs, columns or None, metric, ts)
@@ -338,6 +354,11 @@ class FlightHandlers:
             except Exception:
                 self.metrics.counter("longbow_ipc_decode_errors_total").inc()
                 raise
+            if self.cluster is not None and not is_replication and not partitioned:
+                self.cluster.on_put(dataset, ids, vecs, columns or None, metric, ts)
+            # rows applied here (after the partition split): forwarded rows
+            # are counted by their owners, so the cluster-wide sum is each
+            # row once
             self.metrics.inc("longbow_flight_rows_processed_total", len(ids),
                              method="DoPut", status="ok")
             self.metrics.inc("longbow_flight_bytes_processed_total", _nbytes(tbl),
@@ -389,7 +410,13 @@ class FlightHandlers:
         req = tq.search
         sanitize_search_request(req)
         dsname = req.dataset or tq.name
-        ds = self.store.get(dsname)
+        fan_out = self._fans_out(req.local_only)
+        try:
+            ds = self.store.get(dsname)
+        except KeyError:
+            if not fan_out:
+                raise
+            ds = None  # the dataset lives only on peers: a global-only read
         qv = np.asarray(req.query_vectors(), dtype=np.float32)
         if qv.size == 0:
             raise ServerError("search needs vector or vectors")
@@ -418,7 +445,10 @@ class FlightHandlers:
         allow_graph = policy is None or policy["allow_graph_rerank"]
 
         t_search = time.perf_counter()
-        if req.text_query and 0.0 <= req.alpha < 1.0 and allow_hybrid:
+        hybrid = bool(req.text_query) and 0.0 <= req.alpha < 1.0 and allow_hybrid
+        if ds is None:
+            ids, scores, ok = _no_answer(qv, req.k)
+        elif hybrid:
             ids, scores, ok = self.store.hybrid_search(
                 ds.name, qv, req.k, text_query=req.text_query, alpha=req.alpha,
                 filters=req.filters, graph_alpha=req.graph_alpha if allow_graph else 0.0,
@@ -430,6 +460,19 @@ class FlightHandlers:
                 ids, scores, ok = self.store.graph_rerank(
                     ds.name, ids, scores, ok, req.graph_alpha, graph_depth=req.graph_depth,
                 )
+        if fan_out:
+            # the cross-process global search: merge the alive peers' local
+            # top-k (reference: store_query.go:696-717 -> global_search.go)
+            hy = None
+            if hybrid:
+                hy = {"text_query": req.text_query, "alpha": req.alpha, "fusion": req.fusion,
+                      "graph_alpha": req.graph_alpha if allow_graph else 0.0,
+                      "graph_depth": req.graph_depth}
+            ids, scores, ok = self._global_search(
+                dsname, qv, req.k, raw_filters=_filters_to_wire(req.filters),
+                local=(ids, scores, ok), metric=ds.metric if ds is not None else None,
+                consistency=req.consistency, hybrid=hy,
+            )
         self.metrics.inc("longbow_vector_search_action_requests_total")
         self.metrics.observe("longbow_vector_search_action_duration_seconds",
                              time.perf_counter() - t_search)
@@ -442,7 +485,7 @@ class FlightHandlers:
             "score": np.asarray(scores)[bi, ji].astype(np.float32),
             "query_index": bi.astype(np.int32),
         }
-        if req.include_vectors and out_ids:
+        if req.include_vectors and out_ids and ds is not None:
             cols.update(self._result_vectors(ds, out_ids, req.vector_format))
         tbl = Table(cols)
         self.metrics.inc("longbow_flight_rows_processed_total", len(out_ids),
@@ -451,6 +494,18 @@ class FlightHandlers:
         if fb is not None and fb_key is not None:
             fb.put(fb_key, tbl)  # the last good answer, for degraded serving
         return tbl
+
+    def _fans_out(self, local_only) -> bool:
+        return self.cluster is not None and not local_only and self.cluster.has_peers()
+
+    def _global_search(self, dataset, qv, k, **kw):
+        """cluster.global_search; an unmet consistency level is unavailable."""
+        from longbow_tpu_torch.distributed.cluster import ConsistencyError
+
+        try:
+            return self.cluster.global_search(dataset, qv, k, **kw)
+        except ConsistencyError as e:
+            raise UnavailableError(str(e)) from e
 
     @staticmethod
     def _result_vectors(ds, out_ids: list, vector_format: str) -> dict:
@@ -638,8 +693,18 @@ class FlightHandlers:
                 ids = np.arange(auto_base, auto_base + len(vecs))
                 auto_base += len(vecs)
             columns = _meta_columns(tbl)
+            ts = time.time() if self.cluster is not None else None
+            partitioned = self.cluster is not None and self.cluster.placement == "partitioned"
+            if partitioned:
+                keep = self.cluster.partition_put(dataset, ids, vecs, columns or None, None, ts)
+                ids, vecs = ids[keep], vecs[keep]
+                columns = {k: np.asarray(v)[keep] for k, v in columns.items()}
             if len(ids):
-                self.store.put(dataset, ids, vecs, columns or None, timestamp=None)
+                self.store.put(dataset, ids, vecs, columns or None, timestamp=ts)
+                if self.cluster is not None and not partitioned:
+                    # replicated placement: exchange-ingested rows are
+                    # replicated as DoPut rows are
+                    self.cluster.on_put(dataset, ids, vecs, columns or None, None, ts)
             total += tbl.num_rows
             writer.write_batch(Table({"rows_ingested": np.asarray([total], np.int64)}))
 
@@ -655,13 +720,16 @@ class FlightHandlers:
         hy_fusion = cmd.get("fusion", "linear") or "linear"
         hy_galpha = float(cmd.get("graph_alpha", 0.0))
         hy_gdepth = int(cmd.get("graph_depth", 2))
-        metric, str_ids = "", False
+        metric, str_ids, ds_metric = "", False, None
         try:
             ds = self.store.get(dataset)
-            metric = ds.metric
+            metric = ds_metric = ds.metric
             str_ids = isinstance(next(iter(ds._id_to_row), None), str)
         except KeyError:
             pass
+        # the DoGet rule: peers' hops set local_only, a client's batch
+        # merges the alive peers' top-k
+        fan_out = self._fans_out(bool(cmd.get("local_only")))
         id_dtype = object if str_ids else np.int64
         writer.begin(Table(
             {"batch_index": np.zeros(0, np.int32), "query_index": np.zeros(0, np.int32),
@@ -684,7 +752,18 @@ class FlightHandlers:
                 else:
                     ids, scores, ok = self._search(dataset, qv, k, filters=filters)
             except KeyError:
-                raise NotFoundError(repr(dataset)) from None
+                if not fan_out:
+                    raise NotFoundError(repr(dataset)) from None
+                ids, scores, ok = _no_answer(qv, k)
+            if fan_out:
+                hy = None
+                if text_query and 0.0 <= hy_alpha < 1.0:
+                    hy = {"text_query": text_query, "alpha": hy_alpha, "fusion": hy_fusion,
+                          "graph_alpha": hy_galpha, "graph_depth": hy_gdepth}
+                ids, scores, ok = self._global_search(
+                    dataset, qv, k, raw_filters=cmd.get("filters"), local=(ids, scores, ok),
+                    metric=ds_metric, consistency=cmd.get("consistency"), hybrid=hy,
+                )
             qi, ji = np.nonzero(np.asarray(ok))
             id_vals = ids[qi, ji]
             if str_ids:
@@ -752,20 +831,62 @@ class FlightHandlers:
                     out["bulkhead"] = self.middleware.bulkhead.stats()
             return ok(out)
         if name == "cluster-status":
-            return ok(self.store.cluster_status())
+            st = self.store.cluster_status()
+            if self.cluster is not None:
+                st.update(self.cluster.status())
+            return ok(st)
         if name == "gossip-probe":
-            req()  # a malformed body is a bad request, as in the reference
-            return ok({"ok": True})
-        if name in CLUSTER_ACTIONS:
-            raise ServerError(
-                f"action {name!r} needs the cluster layer (ROADMAP.md item 8), "
-                "which is not ported"
-            )
+            # the SWIM relay (reference: mesh/gossip.go:235 ping-req,
+            # :493-559 piggyback): probe a target for the asker, and always
+            # exchange membership digests
+            r = req()
+            resp = {"ok": True}
+            target = r.get("target")
+            if target and self.cluster is not None:
+                host, _, port = str(target).rpartition(":")
+                try:
+                    with socket.create_connection(
+                        (host, int(port)), timeout=self.cluster.membership.probe_timeout_s,
+                    ):
+                        resp["ok"] = True
+                except (OSError, ValueError):
+                    resp["ok"] = False
+            if self.cluster is not None:
+                self.cluster.membership.merge_digest(r.get("digest"))
+                resp["digest"] = self.cluster.membership.digest()
+            return ok(resp)
+        if name == "region-summary":
+            # spatial routing: a centroid + radius per dataset, which peers
+            # pull on a timer into their RegionRouter (mesh/region.go)
+            from longbow_tpu_torch.distributed.spatial import dataset_region
+
+            out = {}
+            for nm in req().get("datasets") or self.store.list_datasets():
+                try:
+                    out[nm] = dataset_region(self.store.get(nm))
+                except KeyError:
+                    continue
+            return ok({"regions": out})
         if name == "MeshStatus":
+            if self.cluster is not None:
+                st = self.cluster.status()
+                return ok({"self": st.get("self"), "members": st.get("members", [])})
             return ok({"self": None, "members": []})
         if name == "MeshIdentity":
+            if self.cluster is not None:
+                me = self.cluster.status().get("self")
+                return ok(me if isinstance(me, dict) else {"id": me, "status": "alive"})
             return ok({"id": "", "status": "alive"})
         if name == "DiscoveryStatus":
+            if self.cluster is not None:
+                mem = self.cluster.membership
+                provider = (
+                    "dns" if mem.dns_name
+                    else "kubernetes" if mem.k8s_service
+                    else "multicast" if mem.lan_group
+                    else "static"
+                )
+                return ok({"provider": provider, "peers": [m.id for m in mem.members.values()]})
             return ok({"provider": "none", "peers": []})
         if name in ("list-datasets", "ListDatasets"):
             return ok(self.store.list_datasets())
@@ -818,22 +939,42 @@ class FlightHandlers:
                 # the reference SDK's shape: one stringified id a call; tried
                 # as sent (string ids), then as an int
                 raw = r["id"]
-                n = self.store.delete(r["dataset"], [raw])
+                ids = [raw]
+                n = self.store.delete(r["dataset"], ids)
                 if n == 0 and isinstance(raw, str) and raw.lstrip("-").isdigit():
-                    n = self.store.delete(r["dataset"], [int(raw)])
+                    ids = [int(raw)]
+                    n = self.store.delete(r["dataset"], ids)
             else:
-                n = self.store.delete(r["dataset"], ids or [])
+                ids = ids or []
+                n = self.store.delete(r["dataset"], ids)
             self.audit.record("delete", r["dataset"], {"n": n})
+            if self.cluster is not None and not r.get("replicated"):
+                self.cluster.on_delete(r["dataset"], ids)
             return ok({"deleted": n})
         if name == "VectorSearch":
             sreq = parse_search_request(json.loads(body))
             sanitize_search_request(sreq)  # the same caps as DoGet
             qv = np.asarray(sreq.query_vectors(), dtype=np.float32)
-            _check_query_dim(self.store._datasets.get(sreq.dataset), qv)
-            ids, scores, okm = self._search(sreq.dataset, qv, sreq.k, filters=sreq.filters)
+            local_ds = self.store._datasets.get(sreq.dataset)
+            _check_query_dim(local_ds, qv)
+            fan_out = self._fans_out(sreq.local_only)
+            try:
+                ids, scores, okm = self._search(sreq.dataset, qv, sreq.k, filters=sreq.filters)
+            except KeyError:
+                if not fan_out:
+                    raise
+                ids, scores, okm = _no_answer(qv, sreq.k)
+            if fan_out:
+                ids, scores, okm = self._global_search(
+                    sreq.dataset, qv, sreq.k, raw_filters=_filters_to_wire(sreq.filters),
+                    local=(ids, scores, okm),
+                    metric=local_ds.metric if local_ds is not None else None,
+                    consistency=sreq.consistency,
+                )
             resp = _response_ids_scores(ids, scores, okm)
-            # the metric, so that a coordinator merges in the right direction
-            resp["metric"] = self.store.get(sreq.dataset).metric
+            if local_ds is not None:
+                # the metric, so that a coordinator merges in the right direction
+                resp["metric"] = local_ds.metric
             return ok(resp)
         if name == "VectorSearchByID":
             r = json.loads(body)
@@ -909,14 +1050,36 @@ class FlightHandlers:
                            "error": "ingest queue did not drain"})
             return ok({"ok": True})
         if name == "checkpoint":
+            # the coordinator's entry point: a barrier of the alive peers on
+            # an epoch, then a commit everywhere (alone: a local snapshot)
             r = req()
             if self.ingest is not None:
                 self.ingest.drain(timeout_s=float(r.get("timeout_s", 30.0)))
+            if self.cluster is not None and self.cluster.has_peers():
+                result = self.cluster.coordinated_checkpoint(
+                    timeout_s=float(r.get("timeout_s", 30.0)))
+                if result["ok"] and self.store.engine is not None:
+                    self.store.snapshot()
+                    result["local"] = True
+                return ok(result)
             if self.store.engine is None:
                 return ok({"ok": False, "error": "no persist_dir"})
             self.store.snapshot()
             self.audit.record("checkpoint", "*")
             return ok({"ok": True, "local": True})
+        if name == "merkle-state":
+            return ok(self.store.get(json.loads(body)["dataset"]).merkle_state())
+        if name == "export-delta":
+            r = json.loads(body)
+            ds = self.store.get(r["dataset"])
+            if "buckets" in r:
+                # the batched form: one round trip for many buckets
+                haves = r.get("haves") or {}
+                rows: list = []
+                for b in r["buckets"]:
+                    rows.extend(ds.export_delta(int(b), have=haves.get(str(b)))["rows"])
+                return ok({"dataset": r["dataset"], "rows": rows})
+            return ok(ds.export_delta(int(r["bucket"]), have=r.get("have")))
         raise ServerError(f"unknown action {name!r}")
 
     def list_actions(self) -> list[tuple[str, str]]:

@@ -30,7 +30,6 @@ from longbow_tpu_torch.serving.flight_handlers import (
     ExchangeChunk,
     FlightHandlers,
     ScanStream,
-    require_single_node,
 )
 from longbow_tpu_torch.storage.arrow_ipc import Table
 from longbow_tpu_torch.wire_types import NATIVE_VECTOR_DTYPES
@@ -157,7 +156,7 @@ class LongbowFlightServer(flight.FlightServerBase):
 
     auth_token: a token (or list of tokens) every call must carry as
     `authorization: Bearer <token>`. tls_cert_file / tls_key_file: serve
-    grpc+tls. cluster: must be None (ROADMAP.md item 8)."""
+    grpc+tls. cluster: a ClusterCoordinator (distributed/cluster.py) or None."""
 
     def __init__(
         self,
@@ -176,7 +175,6 @@ class LongbowFlightServer(flight.FlightServerBase):
         handlers: Optional[FlightHandlers] = None,
         **kw,
     ):
-        require_single_node(cluster)
         if auth_token:
             from longbow_tpu_torch.serving.security import bearer_middleware
 
@@ -201,6 +199,7 @@ class LongbowFlightServer(flight.FlightServerBase):
         self.handlers = handlers or FlightHandlers(
             store, metrics_registry=metrics_registry, middleware_chain=middleware_chain,
             audit_logger=audit_logger, ingest_queue=ingest_queue, coalescer=coalescer,
+            cluster=cluster,
         )
 
     def do_put(self, context, descriptor, reader, writer):

@@ -3,11 +3,13 @@
 Counterpart of longbow_tpu/store/dataset.py: records, tombstones, the
 primary user-id index, the vector index, the metric (schema metadata
 `longbow.metric`), filter masks with caching, the BM25 index over a
-text column and the GraphRAG edge store. Anti-entropy (export_delta,
-merkle_state, apply_remote_tombstones) comes with the cluster layer.
+text column, the GraphRAG edge store and the anti-entropy surface
+(apply_remote_tombstones, export_delta, merkle_state) that the cluster
+layer's SyncWorker reads across nodes of either package.
 """
 from __future__ import annotations
 
+import itertools
 import threading
 import time
 from typing import Optional
@@ -247,6 +249,32 @@ class Dataset:
     def _key(uid):
         return uid.item() if hasattr(uid, "item") else uid
 
+    def apply_remote_tombstones(self, ids, tss) -> int:
+        """Anti-entropy tombstones, LWW-checked atomically under the
+        dataset lock: a concurrent newer local put survives and its
+        timestamp never rolls back to the remote tombstone's."""
+        with self._lock:
+            rows = []
+            n = 0
+            for uid, ts in zip(ids, tss):
+                key = self._key(np.asarray(uid))
+                local = self._lww.get(key)
+                if local is not None and local >= ts:
+                    continue
+                row = self._id_to_row.pop(key, None)
+                self._lww[key] = ts
+                n += 1
+                if row is not None:
+                    rows.append(row)
+                    self.bm25.remove(key)
+                    if row < len(self._row_to_id):
+                        self._row_to_id[row] = None
+            if rows:
+                self.index.delete_rows(np.asarray(rows))
+                self._row_ids_np = None
+                self.filter_cache.invalidate()
+            return n
+
     def delete(self, ids) -> int:
         """Delete by user id; returns the number removed
         (reference: DoAction 'delete', store_actions.go:103)."""
@@ -398,6 +426,99 @@ class Dataset:
 
     def get_vectors_by_rows(self, rows: np.ndarray) -> np.ndarray:
         return self.index.get_vectors(rows)
+
+    # -- anti-entropy (reference: ExportDelta/ApplyDelta
+    #    types/interfaces.go:56-57, merkle.go) -------------------------
+
+    def _bucket_map(self) -> dict:
+        """bucket -> [uids], kept up to date as the id set grows (bucket_of
+        depends only on the uid, so ts-only LWW updates never move a
+        row between buckets): export_delta is called for every bucket
+        of a sync round, and re-hashing the whole id set each time
+        would cost 256 x N hashes a round. No uid ever leaves _lww (a
+        delete keeps its timestamp) and a dict keeps insertion order,
+        so only the uids past the last count are hashed; the reference
+        hashes every uid again whenever the count has changed."""
+        from longbow_tpu_torch.distributed.merkle import bucket_of
+
+        with self._lock:  # RLock: callers may already hold it
+            lww = self._lww
+            n = len(lww)
+            cached = getattr(self, "_bucket_cache", None)
+            if cached is not None and cached[2] is lww and cached[0] == n:
+                return cached[1]
+            if cached is not None and cached[2] is lww and cached[0] < n:
+                # a copy: a caller may still hold the map it was given
+                m = {b: list(u) for b, u in cached[1].items()}
+                new = itertools.islice(lww, cached[0], None)
+            else:
+                m, new = {}, lww
+            for uid in new:
+                m.setdefault(bucket_of(uid), []).append(uid)
+            self._bucket_cache = (n, m, lww)
+            return m
+
+    def export_delta(self, bucket: int, have=None) -> dict:
+        """Rows + deletion markers in one Merkle bucket, in the
+        reference's JSON layout (vectors as lists of floats), so that a
+        node of either package applies the other's delta. Vectors come
+        from ONE batched index gather (the host mirror where there is
+        one), the metadata columns from ColumnStore.host_view.
+
+        have: optional [[uid, ts], ...] of what the puller already
+        holds — only strictly-newer or missing rows are returned, so a
+        bucket that differs by one row costs one row, not the whole
+        bucket."""
+        have_ts = {u: t for u, t in (have or [])}
+        dead: list = []
+        dead_ts: list = []
+        live_uids: list = []
+        live_ts: list = []
+        live_rows: list = []
+        # (row, ts) pairs are captured under the mutation lock: a ts read
+        # after the gather could pair an old row's vector with a newer
+        # concurrent put's ts, and both sides would then hash equal
+        # leaves over different vectors
+        with self._lock:
+            lww = self._lww
+            for uid in self._bucket_map().get(bucket, ()):
+                ts = lww.get(uid, 0.0)
+                hts = have_ts.get(uid)
+                if hts is not None and ts <= hts:
+                    continue  # the puller is current for this row
+                row = self._id_to_row.get(uid)
+                if row is None:
+                    dead.append(uid)
+                    dead_ts.append(ts)
+                else:
+                    live_uids.append(uid)
+                    live_ts.append(ts)
+                    live_rows.append(row)
+            idx = self.index
+            cols_snap = self.columns
+        rows = [{"id": u, "ts": t, "deleted": True} for u, t in zip(dead, dead_ts)]
+        if live_rows:
+            rowarr = np.asarray(live_rows)
+            vecs = np.asarray(idx.get_vectors(rowarr), np.float32)
+            # metadata columns ride the delta too: rows healed without
+            # them would fail filters and drop out of BM25, and equal
+            # Merkle leaves would hide the loss
+            cols = cols_snap.host_view(rowarr) if cols_snap.fields() else {}
+            for j, (u, t, vec) in enumerate(zip(live_uids, live_ts, vecs)):
+                rec = {"id": u, "ts": t, "vector": vec.tolist()}
+                if cols:
+                    rec["columns"] = {
+                        k: (v[j].item() if hasattr(v[j], "item") else v[j])
+                        for k, v in cols.items()
+                    }
+                rows.append(rec)
+        return {"dataset": self.name, "bucket": bucket, "rows": rows}
+
+    def merkle_state(self) -> dict:
+        from longbow_tpu_torch.distributed.merkle import MerkleTree
+
+        t = MerkleTree.from_dataset(self)
+        return {"root": t.root_hex, "leaves": t.leaves_hex()}
 
     def device_bytes(self) -> int:
         """Device-memory footprint of the index (whatever its kind) and

@@ -141,3 +141,55 @@ def test_exact_search_needs_a_device_without_cuda():
     q, c, _ = _data(n=50, b=2)
     with pytest.raises(RuntimeError):
         td.exact_search(q, c, 5)
+
+
+# -- complex and float64 inputs (the compute form of _canon_dtype) -------------
+
+
+def _complex(n, d, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((n, d)) + 1j * rng.standard_normal((n, d))).astype(np.complex64)
+
+
+@pytest.mark.parametrize("metric", METRICS)
+def test_exact_search_complex_matches_jax_and_the_widened_view(metric):
+    """complex64 rows search as their [real, imag] widening, in both
+    packages."""
+    c, q = _complex(700, 16, 0), _complex(5, 16, 1)
+    tres = td.exact_search(q, c, 10, metric, device="cpu")
+    _check_search(jd.exact_search(jnp.asarray(q), jnp.asarray(c), 10, metric), tres)
+    wide = td.exact_search(np.concatenate([q.real, q.imag], 1),
+                           np.concatenate([c.real, c.imag], 1), 10, metric, device="cpu")
+    np.testing.assert_array_equal(tres[1].numpy(), wide[1].numpy())
+    np.testing.assert_array_equal(tres[0].numpy(), wide[0].numpy())
+    assert td.complex_as_real(torch.from_numpy(c)).shape == (700, 32)
+
+
+@pytest.mark.parametrize("metric", METRICS)
+def test_f64_inputs_compute_in_f32_like_jax(metric):
+    """float64 becomes float32 (JAX with x64 off, its default): the same
+    answers as the f32 call, and as JAX's."""
+    q, c, _ = _data(seed=3)
+    q64, c64 = q.astype(np.float64), c.astype(np.float64)
+    tres = td.exact_search(q64, c64, 10, metric, device="cpu")
+    f32 = td.exact_search(q, c, 10, metric, device="cpu")
+    np.testing.assert_array_equal(tres[0].numpy(), f32[0].numpy())
+    np.testing.assert_array_equal(tres[1].numpy(), f32[1].numpy())
+    _check_search(jd.exact_search(jnp.asarray(q64), jnp.asarray(c64), 10, metric), tres)
+    assert td._canon_dtype(c64).dtype == torch.float32
+
+
+@pytest.mark.parametrize("metric", METRICS)
+def test_complex_distance_matrix_norms_and_pairwise_match_jax(metric):
+    c, q = _complex(60, 8, 2), _complex(4, 8, 3)
+    np.testing.assert_allclose(td.distance_matrix(torch.from_numpy(q), torch.from_numpy(c),
+                                                  metric).numpy(),
+                               np.asarray(jd.distance_matrix(jnp.asarray(q), jnp.asarray(c),
+                                                             metric)), rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(td.squared_norms(c).numpy(),
+                               np.asarray(jd.squared_norms(jnp.asarray(c))), rtol=RTOL)
+    for a, b in ((c[:4], q), (c[:4].real.astype(np.float64), q.real.astype(np.float64))):
+        np.testing.assert_allclose(td.pairwise_distance(a, b, metric).numpy(),
+                                   np.asarray(jd.pairwise_distance(jnp.asarray(a), jnp.asarray(b),
+                                                                   metric)),
+                                   rtol=RTOL, atol=ATOL)

@@ -618,9 +618,31 @@ def test_errors_agree(loaded, case):
 
 @pytest.mark.parametrize("name", ["region-summary", "merkle-state", "export-delta"])
 def test_cluster_layer_actions_refused(pair, name):
-    pair.put("d", _table(np.arange(5), _ints(5)))
-    with pytest.raises(flight.FlightServerError, match=r"cluster layer \(ROADMAP.md item 8\)"):
-        pair.t.do_action(None, flight.Action(name, b'{"dataset": "d", "bucket": 0}'))
+    """The cluster layer's three actions answer as longbow_tpu's do (the
+    rows carry one origin timestamp, so that the LWW state is equal).
+    (The name dates from when the package refused them; it now checks
+    their answers against longbow_tpu's.)"""
+    t = _table(np.arange(40), _ints(40, seed=3), columns={"price": np.arange(40.0)})
+    pair.put("d", t.replace_schema_metadata({"longbow.ts": "1000.5"}))
+    pair.tstore.delete("d", [3])
+    pair.jstore.delete("d", [3])
+    for st in (pair.tstore, pair.jstore):
+        st.get("d")._lww[3] = 2000.25  # the delete's marker, equal on both
+    from longbow_tpu_torch.distributed.merkle import bucket_of
+
+    body = {"dataset": "d", "buckets": [bucket_of(3), bucket_of(7)]}
+    js, ts = pair.action(name, body)
+    if name == "region-summary":
+        jr, tr = js["regions"]["d"], ts["regions"]["d"]
+        assert tr["n"] == jr["n"] == 39
+        np.testing.assert_allclose(tr["centroid"], jr["centroid"], rtol=1e-6)
+        np.testing.assert_allclose(tr["radius"], jr["radius"], rtol=1e-6)
+    elif name == "merkle-state":
+        assert ts == js
+    else:
+        key = lambda r: str(r["id"])  # noqa: E731
+        assert sorted(ts["rows"], key=key) == sorted(js["rows"], key=key)
+        assert {r["id"] for r in ts["rows"]} >= {3, 7}
 
 
 def test_breaker_counts_server_faults_not_client_errors_or_timeouts(loaded):

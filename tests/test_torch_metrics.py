@@ -129,8 +129,9 @@ def test_store_calls_give_the_same_samples_and_counts(fresh_registries):
 
 def test_dispatch_labels_name_the_reference_routes():
     assert set(DISPATCH_LABELS) == {"pallas_fused", "pallas_sq8_fused", "pallas_sq8r_fused",
-                                    "xla"}
+                                    "pallas_coarse_i8", "xla"}
     assert registry.dispatch_label("pallas_fused", True) == "cuda_fused"
+    assert registry.dispatch_label("pallas_coarse_i8", True) == "cuda_coarse_i8"
     assert registry.dispatch_label("pallas_sq8r_fused", True) == "cuda_sq8r_fused"
     assert registry.dispatch_label("pallas_fused", False) == "torch"
 
@@ -214,6 +215,26 @@ def test_registry_api_and_errors():
         reg.inc("longbow_evictions_total", -1, reason="ttl")
     with pytest.raises(ValueError):
         reg.inc("longbow_evictions_total", why="ttl")
+
+
+def test_kernel_launches_reach_the_registry(monkeypatch):
+    """Kernel.count_launch adds one to the kernel's own count and to
+    longbow_kernel_launches_total{kernel}, this package's metric beside
+    the reference's catalog, which a node's /metrics exposes to another
+    process; a fresh registry declares it with no sample."""
+    from longbow_tpu_torch.ops._kernels import Kernel
+
+    monkeypatch.setattr(registry, "_global", registry.MetricsRegistry())
+    assert set(registry.PORT_METRICS).isdisjoint(registry._CATALOG)
+    fresh = registry.get_registry().text().decode()
+    assert "# TYPE longbow_kernel_launches_total counter" in fresh
+    assert not any(k[0].startswith("longbow_kernel_launches") for k in _samples(fresh))
+    kernel = Kernel("probe_kernel", "csrc/none.cu", bind=None)
+    for _ in range(3):
+        kernel.count_launch()
+    got = _samples(registry.get_registry().text().decode())
+    assert kernel.launches == 3
+    assert got[("longbow_kernel_launches_total", (("kernel", "probe_kernel"),))] == 3
 
 
 def test_registry_counts_under_threads():

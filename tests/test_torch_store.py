@@ -247,10 +247,13 @@ def test_parse_ticket_matches_jax():
             parse_ticket(bad)
 
 
-# the Flight binding and the client: the only modules that import pyarrow
-# (nothing on the card's path imports them)
+# the Flight binding, the client, and the cluster layer's coordinator and
+# replicator (their peers are clients): the only modules that import pyarrow
+# (a single node's path imports none of them)
 PYARROW_MODULES = ("longbow_tpu_torch/serving/flight_server.py",
-                   "longbow_tpu_torch/serving/client.py")
+                   "longbow_tpu_torch/serving/client.py",
+                   "longbow_tpu_torch/distributed/cluster.py",
+                   "longbow_tpu_torch/distributed/replicator.py")
 
 
 def test_port_imports_no_jax_pyarrow_or_reference_package():
@@ -287,9 +290,11 @@ def test_port_sources_name_no_forbidden_import():
             # the Flight bearer middleware's one lazy import, inside its
             # function (no other code path needs pyarrow)
             "longbow_tpu_torch/serving/security.py": ["\n    import pyarrow.flight as flight\n"],
-            # phase 13.8's gRPC binding, where pyarrow is installed
+            # phase 13.8's gRPC binding, where pyarrow is installed, and
+            # phase 14's cluster transport, which fails the phase without it
             "chip_smoke.py": ["\n        import pyarrow.flight  # noqa: F401\n",
-                              "\n    import pyarrow as pa\n"],
+                              "\n    import pyarrow as pa\n",
+                              "\n        import pyarrow.flight as flight\n"],
         }.get(rel, [])
         for line in lazy:
             assert text.count(line) == 1, (rel, line)
