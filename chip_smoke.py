@@ -258,7 +258,9 @@ Phases, each of which passes or ends the run with a non-zero exit:
                acknowledged, the seconds until node 2 holds them all, equal
                Merkle roots on the three, nodes 1's and 2's answers equal node
                0's; node 2 SIGKILLed, 10,000 new rows, 10,000 upserts and 1,000
-               deletes through node 0, node 2 restarted on its WAL: the seconds
+               deletes through node 0 (node 1's Merkle root must then equal node
+               0's: a replicated delete carries its origin's time), node 2
+               restarted on its WAL: the seconds
                from its readiness until its root equals node 0's, synced rows
                under 5x the 21,000 divergent ones, answers equal, no deleted id
                back, the upserted vectors bit for bit node 0's, a checkpoint
@@ -271,7 +273,32 @@ Phases, each of which passes or ends the run with a non-zero exit:
                against its plain version on the shadow's first launch; a dot
                dataset with the variable set stays on K1; 100,000 complex64 rows
                of D = 64 through exact_search equal to their [real, imag]
-               widening, float64 equal to float32.
+               widening, float64 equal to float32;
+ 16. operators - the operator entry points of longbow_tpu_torch/tools/, each run as
+               a subprocess the way an operator runs it (`python -m
+               longbow_tpu_torch.tools.<name>`), against `python -m
+               longbow_tpu_torch.serve` nodes on the card; each node's kernel
+               launches are read from its launch counter just before and just
+               after each part. 16.1 one node (a WAL) and the ops CLI: every
+               command; 100,000 x 128 rows put by the CLI, its searches (3 seeded
+               queries) equal to an in-process flat store of the same rows (rtol
+               1e-6, ids where untied), `ns-create --index sq8`, a snapshot
+               while it is empty, then a put and a search whose top-1 is the
+               query's own row on K2 (this node checks for compaction every 5 s
+               at fragmentation 0.1); 16.2 bench_tool
+               against that node, 8 s a mode: ingest of f32 rows into a flat
+               dataset and of int8 rows (an identity sq8 dataset), search, hybrid
+               (on the int8 dataset) and scan, each with 0 errors, K1 and K2
+               launched on the node; then micro on the card; 16.3 soak_mixed
+               against that node for 30 s:
+               0 search errors, every kept acknowledged write found first, no
+               deleted id in the final scan, at least one compaction counted;
+               16.4 chaos_soak: three replicated nodes, 128-d rows, 1,000 a write,
+               262,144 seed rows of phase 4's recipe, 60 s with node 1 killed at
+               25% and restarted at 55%: HEALED, every acknowledged row live on all
+               three nodes with equal Merkle roots, K1 launched on every node;
+               node 1's seconds from readiness to node 0's root, the rows synced
+               and the delta pulls.
 The last line of standard output is {"ok": true, "device": {...}}.
 
 Imports torch, numpy and longbow_tpu_torch only.
@@ -3770,8 +3797,10 @@ class NodeSet:
         dp, mp, xp = self.ports[i]
         env.update(self.env, LONGBOW_HOST="127.0.0.1", LONGBOW_DATA_PORT=str(dp),
                    LONGBOW_META_PORT=str(mp), LONGBOW_METRICS_PORT=str(xp),
-                   LONGBOW_NODE_ID=self.ids[i], LONGBOW_PEERS=",".join(self.specs),
+                   LONGBOW_NODE_ID=self.ids[i],
                    PYTHONPATH=str(repo) + os.pathsep + env.get("PYTHONPATH", ""))
+        if self.n > 1:  # a lone node is no cluster
+            env["LONGBOW_PEERS"] = ",".join(self.specs)
         if self.persist:
             env["LONGBOW_DATA_DIR"] = str(self.root / f"data{i}")
         if DEVICE == "cpu":
@@ -4314,6 +4343,22 @@ def cluster_replicated(sets, root, corpus, queries, flight) -> dict:
     c0.write(name, up_ids, up_vecs, {"category": up_ids % 1000}, metric="l2")
     c0.delete(name, gone.tolist())
     rs.wait_ready([0, 1], "14.3 writes with node 2 down")
+    # node 1 took the deletes from node 0's replication at node 0's time, so
+    # its root equals node 0's once the async queue has delivered them. The
+    # deletes come last, so node 1 holds node 0's count once all arrived; the
+    # roots (seconds of each node's Python at 1M rows) are asked from then on
+    t1 = time.perf_counter()
+    want, r0, r1 = n + HEAL_ROWS - HEAL_DELETES, None, None
+    while True:
+        if rs.live_rows(1, name) == want:
+            r0, r1 = merkle_roots(rs, [0, 1], name)
+            if r0 is not None and r0 == r1:
+                break
+        if time.perf_counter() - t1 > CLUSTER_DEADLINE_S:
+            fail(f"14.3: node 1's root {r1} never equalled node 0's {r0} after the deletes "
+                 f"(node 1 holds {rs.live_rows(1, name)} rows of {want})")
+        time.sleep(0.2)
+    d["node1_root_equal_node0_after_deletes_s"] = time.perf_counter() - t1
     t0 = time.perf_counter()
     rs.start(2)
     rs.wait_ready([2], "14.3 restart")
@@ -4383,7 +4428,9 @@ def cluster_replicated(sets, root, corpus, queries, flight) -> dict:
     d.update(restart_s=restart_s, heal_s=heal_s, divergent_rows=divergent,
              synced_rows=synced, node2_sync=rounds, checkpoint=cp)
     print(f"14.3 heal: node 2 SIGKILLed, {HEAL_ROWS} new rows, {HEAL_ROWS} upserts and "
-          f"{HEAL_DELETES} deletes through node 0; restarted on its WAL in {restart_s:.3f} s; "
+          f"{HEAL_DELETES} deletes through node 0; node 1's root equal to node 0's "
+          f"{d['node1_root_equal_node0_after_deletes_s']:.3f} s after them; "
+          f"restarted on its WAL in {restart_s:.3f} s; "
           f"its root equal to node 0's {heal_s:.3f} s after it was ready, {synced} rows synced "
           f"for {divergent} divergent (node 2's (seconds, synced rows, root matches): {trace}; "
           f"{rounds['merkle_compares']:.0f} root compares, {rounds['delta_pulls']:.0f} delta "
@@ -4530,6 +4577,260 @@ def phase_leftovers(bw: float, flops: float, reps: int, store_out: dict) -> dict
     return out
 
 
+# -- 16. the operator entry points ----------------------------------------------
+
+OPS_ROWS, OPS_DIM = 100_000, 128  # the rows the ops CLI puts
+OPS_SEARCH_SEEDS = (11, 12, 13)   # the CLI's query seeds (not the put's: no query is a row)
+# 16.2's modes, 16.3's soak and 16.4's run, cut from 10, 60 and 90 s for the phase's 300 s: on a
+# slow host the script took 1,109.1 s and this phase 296.1 s (H100 80GB HBM3, 700 W)
+BENCH_S = 8.0                     # each bench_tool mode against the node
+SOAK_S = 30                       # soak_mixed against the node
+# the node checks for compaction every 5 s at fragmentation 0.05 (the defaults, 30 s and 0.3, are
+# for the reference's 1,200 s soak): the soak's upserts, about 1,100 dead rows a second over
+# 100,000 seeded, cross 0.05 about every 5 s, so a host at half the rate still compacts
+SOAK_COMPACTION = {"LONGBOW_COMPACTION_INTERVAL_S": "5", "LONGBOW_COMPACTION_FRAG_THRESHOLD": "0.05"}
+CHAOS_S = 45                      # chaos_soak's run, node 1 killed at 25% and restarted at 55%
+CHAOS_DIM, CHAOS_BATCH = 128, 1_000
+CHAOS_SEED_ROWS = 262_144         # cut from phase 4's 1M for the script's time (14.3 heals 1M)
+TOOL_TIMEOUT_S = 600.0
+
+
+def run_tool(name: str, *args) -> list:
+    """`python -m longbow_tpu_torch.tools.<name> args` from the repo root, as an
+    operator runs it; its output is printed and returned as lines, and an exit
+    other than 0 fails the phase."""
+    import os
+    from pathlib import Path
+
+    repo = Path(__file__).resolve().parent
+    env = {k: v for k, v in os.environ.items() if not k.startswith("LONGBOW_")}
+    env["PYTHONPATH"] = str(repo) + os.pathsep + env.get("PYTHONPATH", "")
+    res = subprocess.run([sys.executable, "-m", f"longbow_tpu_torch.tools.{name}", *map(str, args)],
+                         cwd=repo, env=env, capture_output=True, text=True,
+                         timeout=TOOL_TIMEOUT_S, stdin=subprocess.DEVNULL)
+    if res.returncode != 0:
+        print(res.stdout[-6000:], res.stderr[-6000:], sep="\n", file=sys.stderr)
+        fail(f"16: {name} {' '.join(map(str, args))} exited with {res.returncode}")
+    return res.stdout.splitlines()
+
+
+def last_json(lines: list) -> dict:
+    return json.loads(lines[-1])
+
+
+def phase_operators(card: str) -> dict:
+    """16. the operator entry points against node processes on the card."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    t_phase = time.perf_counter()
+    root = Path(tempfile.mkdtemp(prefix="longbow_operators_"))
+    sets: list = []
+    out: dict = {"card": card}
+    try:
+        ns = NodeSet(1, root / "node", SOAK_COMPACTION, persist=True)
+        sets.append(ns)
+        ns.start(0)
+        out["node_ready_s"] = ns.wait_ready([0], "16 start")
+        out["ops"] = operators_ops(ns)
+        out["bench_tool"] = operators_bench(ns)
+        out["soak_mixed"] = operators_soak(ns)
+        ns.close()
+        sets.remove(ns)
+        out["chaos_soak"] = operators_chaos()
+    except BaseException:
+        for s in sets:
+            s.tails()
+        raise
+    finally:
+        for s in sets:
+            s.close()
+        shutil.rmtree(root, ignore_errors=True)
+    out["launches"] = {k: sum(out[part]["launches"][k] for part in
+                              ("ops", "bench_tool", "soak_mixed", "chaos_soak"))
+                       for k in KERNEL_NAMES}
+    out["seconds"] = time.perf_counter() - t_phase
+    emit({"operators": out})
+    return out
+
+
+def node_launches(ns, before: dict) -> dict:
+    """The node set's launches of each kernel since `before`, summed."""
+    return {k: int(sum(v)) for k, v in
+            launches_between(before, launch_counts(ns, range(ns.n))).items()}
+
+
+def operators_ops(ns) -> dict:
+    """16.1: every ops command against one node; search answers against an
+    in-process flat store of the same rows; an sq8 namespace on K2."""
+    from longbow_tpu_torch.store.vector_store import VectorStore
+
+    t0 = time.perf_counter()
+    dp, mp, _ = ns.ports[0]
+    addr = ("--host", "127.0.0.1", "--data-port", dp, "--meta-port", mp)
+
+    calls = []
+
+    def ops(*args) -> dict:
+        calls.append(args[0])
+        return last_json(run_tool("ops", *args, *addr))
+
+    before = launch_counts(ns, [0])
+    answers: dict = {}
+    answers["readiness"] = ops("readiness")
+    put = ops("put", "--rows", OPS_ROWS, "--dim", OPS_DIM)
+    if put["written"] != OPS_ROWS:
+        fail(f"16.1: put answered {put}")
+    rows = np.random.default_rng(0).standard_normal((OPS_ROWS, OPS_DIM), dtype=np.float32)
+    flat = VectorStore(device=DEVICE, dtype=torch.bfloat16, default_index_kind="flat")
+    flat.put("ops_test", np.arange(OPS_ROWS), rows)
+    searched = []
+    for seed in OPS_SEARCH_SEEDS:
+        got = ops("search", "--k", 10, "--seed", seed)
+        q = np.random.default_rng(seed).standard_normal((OPS_DIM,), dtype=np.float32)
+        want = flat.search("ops_test", q[None], 10, use_cache=False)
+        ids = np.asarray(got["ids"], np.int64)[None]
+        searched.append(same_answers(f"16.1 ops search (seed {seed})",
+                                     (ids, np.asarray(got["scores"], np.float32)[None],
+                                      np.ones(ids.shape, bool)),
+                                     (np.asarray(want[0], np.int64), want[1], want[2])))
+    flat.drop("ops_test")
+    del flat
+    answers["hybrid"] = ops("search", "--k", 10, "--seed", 11, "--text", "anything")
+    got = ops("get", "--limit", 10)
+    if got["rows"] != 10 or got["first_ids"] != list(range(10)):
+        fail(f"16.1: get answered {got}")
+    info = ops("info")
+    if info["total_records"] != OPS_ROWS or f"[{OPS_DIM}]" not in info["schema"]:
+        fail(f"16.1: info answered {info}")
+    if ops("delete", "--ids", "1,2,3") != {"deleted": 3}:
+        fail("16.1: delete did not remove 3 rows")
+    if ops("ns-create", "--dataset", "q8", "--dim", OPS_DIM, "--index", "sq8") != {"created": "q8"}:
+        fail("16.1: ns-create refused")
+    # a snapshot while the sq8 namespace holds no row (its quantizer untrained)
+    answers["snapshot"] = ops("snapshot")
+    ops("put", "--dataset", "q8", "--rows", OPS_ROWS, "--dim", OPS_DIM, "--seed", 5)
+    q8 = ops("search", "--dataset", "q8", "--k", 10, "--seed", 5)  # the query is row 0
+    if q8["ids"][0] != 0:
+        fail(f"16.1: the sq8 namespace's top-1 for its own row 0 is {q8['ids'][:3]}")
+    names = ops("ns-list")
+    if sorted(names) != ["ops_test", "q8"]:
+        fail(f"16.1: ns-list answered {names}")
+    status = ops("status")
+    kinds = {n: (d["index_kind"], d["live_rows"]) for n, d in status["datasets"].items()}
+    if kinds != {"ops_test": ("flat", OPS_ROWS - 3), "q8": ("sq8", OPS_ROWS)}:
+        fail(f"16.1: status holds {kinds}")
+    answers["mesh"] = ops("mesh")
+    health = ops("health")
+    if DEVICE == "cuda" and health["status"] != "healthy":
+        fail(f"16.1: health answered {health}")
+    if ops("edge", "--src", 4, "--dst", 5) != {"edge": [4, 5]}:
+        fail("16.1: edge refused")
+    path = ops("traverse", "--src", 4, "--dst", 5)["path"]
+    if path[0] != 4 or path[-1] != 5:
+        fail(f"16.1: traverse answered {path}")
+    if ops("drop", "--dataset", "q8") != {"dropped": True}:
+        fail("16.1: drop refused")
+    launched = node_launches(ns, before)
+    if DEVICE == "cuda" and min(launched.values()) == 0:
+        fail(f"16.1: a kernel was not launched on the node: {launched}")
+    secs = time.perf_counter() - t0
+    print(f"16.1 ops: {len(calls)} calls of {len(set(calls))} commands in {secs:.3f} s; "
+          f"{OPS_ROWS} x {OPS_DIM} rows put by the CLI, "
+          f"{len(OPS_SEARCH_SEEDS)} searches equal to an in-process flat store; an sq8 "
+          f"namespace finds its own row first; launches on the node {launched}", flush=True)
+    return {"seconds": secs, "calls": len(calls), "commands": sorted(set(calls)),
+            "search_equal": searched, "launches": launched,
+            "health": health["status"], "snapshot": answers["snapshot"]}
+
+
+def operators_bench(ns) -> dict:
+    """16.2: bench_tool's modes against the node, 0 errors each, then micro."""
+    dp, mp, _ = ns.ports[0]
+    addr = ("--host", "127.0.0.1", "--data-port", dp, "--meta-port", mp,
+            "--duration", BENCH_S, "--dim", OPS_DIM)
+    runs = (("ingest_f32", ("--mode", "ingest", "--dataset", "bench", "--index", "flat")),
+            ("ingest_i8", ("--mode", "ingest", "--dataset", "bench_i8", "--dtype", "i8")),
+            ("search", ("--mode", "search", "--dataset", "bench")),
+            ("hybrid", ("--mode", "hybrid", "--dataset", "bench_i8")),
+            ("scan", ("--mode", "scan", "--dataset", "bench")))
+    before = launch_counts(ns, [0])
+    out: dict = {}
+    for label, args in runs:
+        res = last_json(run_tool("bench_tool", *args, *addr))
+        print(f"16.2 bench_tool {label}: {json.dumps(res)}", flush=True)
+        if res["errors"] or not res["ops"]:
+            fail(f"16.2: bench_tool {label} answered {res}")
+        out[label] = res
+    kinds = {n: d["index_kind"] for n, d in ns.client(0).cluster_status()["datasets"].items()}
+    if kinds.get("bench") != "flat" or kinds.get("bench_i8") != "sq8":
+        fail(f"16.2: the datasets are {kinds}")
+    out["launches"] = node_launches(ns, before)
+    if DEVICE == "cuda" and min(out["launches"].values()) == 0:
+        fail(f"16.2: a kernel was not launched on the node: {out['launches']}")
+    micro = ("--mode", "micro") + (("--device", "cpu") if DEVICE == "cpu" else ())
+    out["micro"] = last_json(run_tool("bench_tool", *micro))
+    print(f"16.2 bench_tool micro on the {DEVICE}: {json.dumps(out['micro'])}; launches on "
+          f"the node over the modes {out['launches']}", flush=True)
+    return out
+
+
+def operators_soak(ns) -> dict:
+    """16.3: soak_mixed against the node for SOAK_S seconds."""
+    dp, mp, xp = ns.ports[0]
+    before = launch_counts(ns, [0])
+    compacted = metric_sum(ns.metrics(0), "longbow_compaction_operations_total")
+    t0 = time.perf_counter()
+    lines = run_tool("soak_mixed", SOAK_S, "--host", "127.0.0.1", "--data-port", dp,
+                     "--meta-port", mp, "--metrics-port", xp)
+    secs = time.perf_counter() - t0
+    res = last_json(lines)
+    compactions = metric_sum(ns.metrics(0), "longbow_compaction_operations_total") - compacted
+    launched = node_launches(ns, before)
+    for line in lines[-4:-1]:
+        print(f"16.3 soak_mixed: {line}", flush=True)
+    if not res["ok"] or res["serr"] or res["werr"] or not res["checked"] \
+            or res["top1_self_match"] != res["checked"] or res["deleted_ids_back"]:
+        fail(f"16.3: soak_mixed answered {res}")
+    if compactions < 1:
+        fail("16.3: no compaction ran during the soak")
+    if DEVICE == "cuda" and launched["fused_scan"] == 0:
+        fail(f"16.3: K1 was not launched on the node: {launched}")
+    print(f"16.3 soak_mixed: {secs:.3f} s; {res['writes']} rows written, {res['searches']} "
+          f"searches (p50 {res['search_p50_ms']:.3f}, p99 {res['search_p99_ms']:.3f} ms), "
+          f"{res['deletes']} deletes; {res['top1_self_match']}/{res['checked']} kept writes "
+          f"found first, no deleted id back; {compactions:.0f} compactions; launches {launched}",
+          flush=True)
+    return {**res, "seconds": secs, "compactions": compactions, "launches": launched}
+
+
+def operators_chaos() -> dict:
+    """16.4: chaos_soak on three replicated nodes at 128-d."""
+    args = ["--dim", CHAOS_DIM, "--batch", CHAOS_BATCH, "--seed-rows", CHAOS_SEED_ROWS,
+            "--duration", CHAOS_S]
+    if DEVICE == "cpu":
+        args += ["--device", "cpu"]
+    t0 = time.perf_counter()
+    lines = run_tool("chaos_soak", *args)
+    secs = time.perf_counter() - t0
+    res = last_json(lines)
+    for line in lines[:-1]:
+        print(f"16.4 chaos_soak: {line}", flush=True)
+    if "HEALED" not in lines or not res["every_row_on_every_node"] or res["heal_s"] is None:
+        fail(f"16.4: chaos_soak answered {res}")
+    launched = {k: [n[k] for n in res["kernel_launches_by_node"]] for k in KERNEL_NAMES}
+    if DEVICE == "cuda" and min(launched["fused_scan"]) == 0:
+        fail(f"16.4: K1 was not launched on every node: {launched['fused_scan']}")
+    print(f"16.4 chaos_soak: {secs:.3f} s; {res['rows_acked']} rows acknowledged, all live on "
+          f"the three nodes with equal roots; node 1's root equal to node 0's "
+          f"{res['heal_s']:.3f} s after its readiness, {res['synced_rows']} rows synced, "
+          f"{res['delta_pulls']:.0f} delta pulls; K1 launches by node {launched['fused_scan']}",
+          flush=True)
+    return {**res, "seconds": secs,
+            "launches": {k: int(sum(v)) for k, v in launched.items()}}
+
+
 def cluster_launches(cluster: dict, kernel: str) -> int:
     """A kernel's launches in phase 14's node processes, summed over nodes."""
     return int(sum(sum(cluster[part][f"{kernel}_launches_by_node"])
@@ -4590,6 +4891,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     cluster = run("14 cluster", phase_cluster, card)
     leftovers = run("15 leftovers", phase_leftovers, bw, flops, TIMED_LAUNCHES, store)
+    operators = run("16 operators", phase_operators, card)
     emit({"phase_seconds": took})
 
     served = next(c for c in kern["cases"] if c["tag"] == "served_batch")
@@ -4610,6 +4912,8 @@ def main() -> int:
         # the node processes' own launch counters over 14.1's and 14.3's searches
         "launches_cluster": cluster_launches(cluster, "k1"),
         "launches_coarse": leftovers["launches"]["fused_scan"],
+        # the node processes' own launch counters over phase 16's tools
+        "launches_operators": operators["launches"]["fused_scan"],
         "max_abs_err": max(c["max_abs_err"] for c in
                            kern["cases"] + graph["self_knn_cases"] + [kinds["k1_spill"]]
                            + [services["k1_services"], persist["k1_persistence"],
@@ -4651,6 +4955,7 @@ def main() -> int:
         "launches_flight": flight["launches"]["fused_codes_scan"],
         "launches_cluster": cluster_launches(cluster, "k2"),
         "launches_coarse": leftovers["launches"]["fused_codes_scan"],
+        "launches_operators": operators["launches"]["fused_codes_scan"],
         "max_abs_err": max(c["max_abs_err"] for c in
                            codes["cases"] + [kinds["k2_disk"], services["k2_services"],
                                              persist["k2_persistence"], flight["k2_flight"],

@@ -6,6 +6,7 @@ and CPU users pass device="cpu" explicitly.
 """
 from __future__ import annotations
 
+import os
 from typing import Optional, Union
 
 import torch
@@ -22,3 +23,12 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
             "plain PyTorch versions on the CPU"
         )
     return torch.device("cuda", torch.cuda.current_device())
+
+
+def entry_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
+    """The device of a process entry point (the server, the tools): `device`
+    when given, the CPU under LONGBOW_FORCE_CPU=1 (the reference's flag),
+    else the CUDA card (RuntimeError without one)."""
+    if device is None and os.environ.get("LONGBOW_FORCE_CPU") == "1":
+        return torch.device("cpu")
+    return resolve_device(device)

@@ -379,7 +379,9 @@ class ClusterCoordinator:
             pass
         return verdict
 
-    def on_delete(self, dataset, ids) -> bool:
+    def on_delete(self, dataset, ids, timestamp=None) -> bool:
+        """Sends a delete to the peers at the time the origin stamped on
+        it (timestamp), so that their tombstones equal its own."""
         if self.placement == "partitioned":
             # broadcast: only the owner holds the row, everyone else's
             # delete is an idempotent no-op (reference routes deletes by
@@ -388,11 +390,11 @@ class ClusterCoordinator:
             # snapshot: the probe thread inserts discovered peers
             # concurrently (dict mutation during iteration)
             for p in list(self._peers.values()):
-                p.replicate_delete(dataset, ids)
+                p.replicate_delete(dataset, ids, timestamp)
             return True
         if self.replicator is None:
             return True
-        return self.replicator.on_delete(dataset, ids)
+        return self.replicator.on_delete(dataset, ids, timestamp)
 
     def partition_put(
         self, dataset, ids, vectors, columns, metric, timestamp

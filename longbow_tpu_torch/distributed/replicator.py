@@ -86,15 +86,17 @@ class Peer:
             self.breaker.record_failure()
             return False
 
-    def replicate_delete(self, dataset, ids) -> bool:
+    def replicate_delete(self, dataset, ids, timestamp=None) -> bool:
+        """timestamp: the origin's delete time, sent as "timestamp" (a
+        longbow_tpu node ignores the key and stamps its own)."""
         if not self.breaker.allow():
             return False
         try:
             ids = [i.item() if hasattr(i, "item") else i for i in ids]
-            self.client._action(
-                "delete",
-                {"dataset": dataset, "ids": ids, "replicated": True},
-            )
+            body = {"dataset": dataset, "ids": ids, "replicated": True}
+            if timestamp is not None:
+                body["timestamp"] = float(timestamp)
+            self.client._action("delete", body)
             self.breaker.record_success()
             return True
         except Exception:
@@ -178,7 +180,7 @@ class PeerReplicator:
                     dataset, ids, vectors, columns, metric, ts, clock
                 )
                 if kind == "put"
-                else p.replicate_delete(dataset, ids)
+                else p.replicate_delete(dataset, ids, ts)
             )
 
         if len(peers) <= 1:
@@ -233,19 +235,19 @@ class PeerReplicator:
         self._observe_quorum("put", met, time.perf_counter() - t0)
         return met
 
-    def on_delete(self, dataset, ids) -> bool:
+    def on_delete(self, dataset, ids, timestamp=None) -> bool:
         if self.mode == "async":
             try:
                 self._q.put_nowait((
                     time.time(),
-                    ("delete", dataset, ids, None, None, None, None,
+                    ("delete", dataset, ids, None, None, None, timestamp,
                      None),
                 ))
                 return True
             except queue.Full:
                 return False
         t0 = time.perf_counter()
-        acks = self._fanout("delete", dataset, ids, None, None)
+        acks = self._fanout("delete", dataset, ids, None, None, None, timestamp)
         met = acks >= required_acks(self.level, len(self.peers))
         self._observe_quorum("delete", met, time.perf_counter() - t0)
         return met

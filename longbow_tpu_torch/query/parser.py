@@ -133,6 +133,15 @@ def _parse_filters(raw) -> list:
     return out
 
 
+def parse_consistency(raw) -> str:
+    """A read consistency level as a request sends it -> "", "ONE",
+    "QUORUM" or "ALL" (case-insensitive); anything else is a ValueError."""
+    level = str(raw or "").upper()
+    if level not in ("", "ONE", "QUORUM", "ALL"):
+        raise ValueError(f"consistency must be ONE|QUORUM|ALL, got {level!r}")
+    return level
+
+
 def parse_search_request(obj: dict) -> VectorSearchRequest:
     if not isinstance(obj, dict):
         raise ValueError("search request must be an object")
@@ -156,14 +165,10 @@ def parse_search_request(obj: dict) -> VectorSearchRequest:
         fusion=str(obj.get("fusion", "linear") or "linear"),
         include_vectors=bool(obj.get("include_vectors", False)),
         vector_format=obj.get("vector_format", "") or "",
-        consistency=str(obj.get("consistency", "") or "").upper(),
+        consistency=parse_consistency(obj.get("consistency")),
     )
     if req.k <= 0:
         raise ValueError(f"k must be positive, got {req.k}")
-    if req.consistency not in ("", "ONE", "QUORUM", "ALL"):
-        raise ValueError(
-            f"consistency must be ONE|QUORUM|ALL, got {req.consistency!r}"
-        )
     if req.vector_format not in ("", "f32", "f16", "quantized"):
         raise ValueError(
             f"vector_format must be f32|f16|quantized, "

@@ -39,20 +39,13 @@ from typing import Optional
 import torch
 
 from longbow_tpu_torch.config import Config, load_config
-from longbow_tpu_torch.device import resolve_device
+from longbow_tpu_torch.device import entry_device
 from longbow_tpu_torch.metrics import get_registry
 from longbow_tpu_torch.serving.flight_handlers import FlightHandlers
 from longbow_tpu_torch.serving.middleware import MiddlewareChain
 from longbow_tpu_torch.utils.logging import setup_logging
 
 JOIN_S = 5.0  # the longest stop() waits for each background thread
-
-
-def serve_device() -> torch.device:
-    """The CPU under LONGBOW_FORCE_CPU=1, else the CUDA card."""
-    if os.environ.get("LONGBOW_FORCE_CPU") == "1":
-        return torch.device("cpu")
-    return resolve_device(None)
 
 
 def has_discovery(cfg: Config) -> bool:
@@ -173,7 +166,8 @@ class Runtime:
 
 def build_runtime(cfg: Optional[Config] = None, *, device=None) -> Runtime:
     """The serving process without its transport, from a Config (None:
-    load_config() of the environment). device: None means serve_device()."""
+    load_config() of the environment). device: None means entry_device():
+    the CUDA card, or the CPU under LONGBOW_FORCE_CPU=1."""
     from longbow_tpu_torch.index.hnsw import HNSWConfig
     from longbow_tpu_torch.store.compaction import (
         CompactionWorker,
@@ -191,7 +185,7 @@ def build_runtime(cfg: Optional[Config] = None, *, device=None) -> Runtime:
     cfg = cfg or load_config()
     # a partitioned node without a dialable id raises before any state exists
     self_id = node_identity(cfg) if has_discovery(cfg) else None
-    device = serve_device() if device is None else torch.device(device)
+    device = entry_device(device)
     log = setup_logging()
     log.info("starting longbow-tpu-torch", extra={"fields": {"config": vars(cfg)}})
 

@@ -38,7 +38,12 @@ import numpy as np
 import torch
 
 from longbow_tpu_torch.metrics import get_registry
-from longbow_tpu_torch.query.parser import _parse_filters, parse_search_request, parse_ticket
+from longbow_tpu_torch.query.parser import (
+    _parse_filters,
+    parse_consistency,
+    parse_search_request,
+    parse_ticket,
+)
 from longbow_tpu_torch.serving.errors import (
     BadRequestError,
     NotFoundError,
@@ -720,6 +725,10 @@ class FlightHandlers:
         hy_fusion = cmd.get("fusion", "linear") or "linear"
         hy_galpha = float(cmd.get("graph_alpha", 0.0))
         hy_gdepth = int(cmd.get("graph_depth", 2))
+        try:  # the ticket's rule (parse_search_request)
+            consistency = parse_consistency(cmd.get("consistency"))
+        except ValueError as e:
+            raise BadRequestError(e) from e
         metric, str_ids, ds_metric = "", False, None
         try:
             ds = self.store.get(dataset)
@@ -762,7 +771,7 @@ class FlightHandlers:
                           "graph_alpha": hy_galpha, "graph_depth": hy_gdepth}
                 ids, scores, ok = self._global_search(
                     dataset, qv, k, raw_filters=cmd.get("filters"), local=(ids, scores, ok),
-                    metric=ds_metric, consistency=cmd.get("consistency"), hybrid=hy,
+                    metric=ds_metric, consistency=consistency, hybrid=hy,
                 )
             qi, ji = np.nonzero(np.asarray(ok))
             id_vals = ids[qi, ji]
@@ -934,22 +943,28 @@ class FlightHandlers:
             return ok({"dropped": dropped})
         if name in ("delete", "Delete", "delete-vector"):
             r = req()
+            # a port peer's replicated delete carries its origin's time and
+            # is applied last-writer-wins; a client's, or a longbow_tpu
+            # peer's (no time), is stamped here
+            origin_ts = r.get("timestamp") if r.get("replicated") else None
+            ts = time.time() if origin_ts is None else float(origin_ts)
+            at = {"timestamp": ts, "replicated": origin_ts is not None}
             ids = r.get("ids")
             if ids is None and "id" in r:
                 # the reference SDK's shape: one stringified id a call; tried
                 # as sent (string ids), then as an int
                 raw = r["id"]
                 ids = [raw]
-                n = self.store.delete(r["dataset"], ids)
+                n = self.store.delete(r["dataset"], ids, **at)
                 if n == 0 and isinstance(raw, str) and raw.lstrip("-").isdigit():
                     ids = [int(raw)]
-                    n = self.store.delete(r["dataset"], ids)
+                    n = self.store.delete(r["dataset"], ids, **at)
             else:
                 ids = ids or []
-                n = self.store.delete(r["dataset"], ids)
+                n = self.store.delete(r["dataset"], ids, **at)
             self.audit.record("delete", r["dataset"], {"n": n})
             if self.cluster is not None and not r.get("replicated"):
-                self.cluster.on_delete(r["dataset"], ids)
+                self.cluster.on_delete(r["dataset"], ids, ts)
             return ok({"deleted": n})
         if name == "VectorSearch":
             sreq = parse_search_request(json.loads(body))

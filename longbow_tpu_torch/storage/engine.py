@@ -256,7 +256,11 @@ class StorageEngine:
         cols = ds.columns.export_state()
         aux = {f"colnum:{k}": v for k, v in cols["numeric"].items()}
         aux.update({f"colstr:{k}": v for k, v in cols["str_codes"].items()})
-        state = ds.index.export_state()
+        # an index that holds no row (never written, or emptied by
+        # compaction) may have no state to export: sq8, sq8r, ivf and disk
+        # train on their first add. Recovery declares it again from the
+        # meta and keeps the LWW map of the blob's json
+        state = ds.index.export_state() if len(ds.index) else {}
         if ds.device.type == "cpu":
             # on the CPU, export_state's arrays may be views of the live
             # tensors, which later writes change in place
@@ -333,7 +337,12 @@ class StorageEngine:
             if meta.get("version", 1) >= 2 and blob["index_state"].get("kind"):
                 store.restore_dataset(name, blob)
             else:
-                store.get_or_create(name, meta["dim"], meta.get("metric"))
+                store.get_or_create(name, meta["dim"], meta.get("metric"),
+                                    index_kind=meta.get("index_kind"),
+                                    index_params=meta.get("index_params"))
+                # no row is left, but the tombstones are: a peer's stale
+                # put or delta must still lose to them
+                store.get(name)._lww = {k: ts for k, ts in blob["json"].get("lww", [])}
             ds = store.get(name)
             if blob["bm25"]:
                 ds.bm25 = BM25Index.import_state(blob["bm25"])

@@ -253,15 +253,34 @@ class Dataset:
         """Anti-entropy tombstones, LWW-checked atomically under the
         dataset lock: a concurrent newer local put survives and its
         timestamp never rolls back to the remote tombstone's."""
+        keys = [self._key(np.asarray(uid)) for uid in ids]
+        return self._tombstone(keys, list(tss), lww=True, held_only=False)
+
+    def delete(self, ids, timestamp=None, *, replicated: bool = False) -> int:
+        """Delete by user id; returns the number removed
+        (reference: DoAction 'delete', store_actions.go:103). Every
+        tombstone bears one time, `timestamp` or now. replicated: a peer's
+        delete at its origin's time, under apply_remote_tombstones' LWW
+        rule; like the origin's delete, it stamps only the rows held, so
+        the replicas' Merkle leaves stay equal to the origin's."""
+        ts = time.time() if timestamp is None else float(timestamp)
+        keys = [self._key(uid) for uid in np.asarray(ids)]
+        return self._tombstone(keys, [ts] * len(keys), lww=replicated, held_only=True)
+
+    def _tombstone(self, keys, tss, *, lww: bool, held_only: bool) -> int:
+        """Removes the rows of `keys` and stamps each tombstone with its
+        time. lww: a key whose last write is at least as new is left.
+        held_only: a key this dataset does not hold gets no tombstone.
+        Returns the tombstones stamped."""
         with self._lock:
             rows = []
             n = 0
-            for uid, ts in zip(ids, tss):
-                key = self._key(np.asarray(uid))
-                local = self._lww.get(key)
-                if local is not None and local >= ts:
+            for key, ts in zip(keys, tss):
+                if lww and self._lww.get(key, -np.inf) >= ts:
                     continue
                 row = self._id_to_row.pop(key, None)
+                if row is None and held_only:
+                    continue
                 self._lww[key] = ts
                 n += 1
                 if row is not None:
@@ -274,26 +293,6 @@ class Dataset:
                 self._row_ids_np = None
                 self.filter_cache.invalidate()
             return n
-
-    def delete(self, ids) -> int:
-        """Delete by user id; returns the number removed
-        (reference: DoAction 'delete', store_actions.go:103)."""
-        with self._lock:
-            rows = []
-            for uid in np.asarray(ids):
-                key = self._key(uid)
-                row = self._id_to_row.pop(key, None)
-                if row is not None:
-                    rows.append(row)
-                    self._lww[key] = time.time()
-                    self.bm25.remove(key)
-                    if row < len(self._row_to_id):
-                        self._row_to_id[row] = None
-            if rows:
-                self.index.delete_rows(np.asarray(rows))
-                self._row_ids_np = None
-                self.filter_cache.invalidate()
-            return len(rows)
 
     # ------------------------------------------------------------------
 

@@ -418,13 +418,17 @@ class VectorStore:
                 self.eviction.record_access(found)
         return out
 
-    def delete(self, dataset: str, ids, *, _log: bool = True) -> int:
-        """The 'delete' action: tombstone rows by user id."""
+    def delete(self, dataset: str, ids, *, timestamp=None, replicated: bool = False,
+               _log: bool = True) -> int:
+        """The 'delete' action: tombstone rows by user id at `timestamp`
+        (default: now). replicated: a peer's delete at its origin's time,
+        applied last-writer-wins (Dataset.delete). The WAL frame
+        carries no time either way, as the reference's."""
         ds = self.get(dataset)
         with self._guard(_log):
             if self.engine is not None and _log:
                 self.engine.log_delete(dataset, ids)
-            n = ds.delete(ids)
+            n = ds.delete(ids, timestamp, replicated=replicated)
         self.query_cache.clear()
         self._observe_dataset(ds)
         return n

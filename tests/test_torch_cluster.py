@@ -480,6 +480,37 @@ def test_exchange_batch_search_fans_out(three_partitioned_nodes):
     assert _count(n0.store, "xin") < 30
 
 
+def _exchange_search_at(client, dataset, q, consistency):
+    """A DoExchange search whose command names a consistency level (the
+    client sends none)."""
+    import pyarrow as pa
+
+    cmd = {"protocol": "search", "dataset": dataset, "k": 1, "consistency": consistency}
+    writer, reader = client._dc().do_exchange(
+        flight.FlightDescriptor.for_command(json.dumps(cmd).encode()), options=client._opts)
+    writer.begin(pa.schema([pa.field("vector", pa.list_(pa.float32(), q.shape[1]))]))
+    writer.write_table(pa.table({"vector": pa.FixedSizeListArray.from_arrays(
+        pa.array(q.reshape(-1), pa.float32()), q.shape[1])}))
+    try:
+        return pa.Table.from_batches([reader.read_chunk().data])
+    finally:
+        writer.close()
+
+
+def test_exchange_search_parses_its_consistency(three_partitioned_nodes):
+    """The exchange reads its level by the ticket's rule: any case of ONE,
+    QUORUM or ALL; anything else answers a bad request, not a KeyError."""
+    n0, _, _ = three_partitioned_nodes
+    v = _vecs(60, seed=23)
+    n0.client.write("xcons", np.arange(60), v)
+    for level in ("quorum", "All", "one", ""):
+        t = _exchange_search_at(n0.client, "xcons", v[:4] + 0.0005, level)
+        assert t.column("id").to_pylist() == [0, 1, 2, 3], level
+    with pytest.raises(flight.FlightServerError,
+                       match="bad request: consistency must be ONE|QUORUM|ALL, got 'BOGUS'"):
+        _exchange_search_at(n0.client, "xcons", v[:4], "bogus")
+
+
 # -- across the two packages, over loopback --------------------------------------
 
 

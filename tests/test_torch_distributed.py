@@ -539,6 +539,37 @@ def test_async_replication(two_nodes):
         rep.close()
 
 
+@pytest.mark.parametrize("mode", ["async", "quorum"])
+def test_replicated_delete_carries_the_origin_time(two_nodes, mode):
+    """A delete through the origin's handlers reaches the replica with the
+    time the origin stamped on it: equal tombstone times and Merkle roots
+    with no anti-entropy round. A newer write on the replica survives the
+    delete, and ids neither node held get no tombstone on either."""
+    (s1, h1), (s2, h2) = two_nodes
+    v = _vecs(40)
+    for s in (s1, s2):
+        s.put("t", np.arange(40), v, timestamp=100.0)
+    s2.put("t", np.arange(39, 40), v[39:], timestamp=1e12)  # newer than any delete
+    coord = ClusterCoordinator(s1, _spec(h1), [_spec(h2)], replication_mode=mode,
+                               sync_interval_s=3600)
+    h1.data_server.handlers.cluster = coord
+    try:
+        h1.data_server.handlers.do_action("delete", json.dumps(
+            {"dataset": "t", "ids": [3, 5, 17, 39, 1000]}).encode())
+        coord.replicator.drain()
+        _wait(lambda: s2.get("t").live_count == 37, "the replicated delete")
+        lww1, lww2 = s1.get("t")._lww, s2.get("t")._lww
+        assert len({lww1[i] for i in (3, 5, 17)}) == 1  # one stamp a delete
+        assert {i: lww2[i] for i in (3, 5, 17)} == {i: lww1[i] for i in (3, 5, 17)}
+        assert 1000 not in lww1 and 1000 not in lww2
+        assert lww2[39] == 1e12 and 39 in s2.get("t")._id_to_row
+        s1.put("t", np.arange(39, 40), v[39:], timestamp=1e12)  # the newer write, on both
+        assert s1.get("t").merkle_state() == s2.get("t").merkle_state()
+    finally:
+        h1.data_server.handlers.cluster = None
+        coord.stop()
+
+
 def test_quorum_replication_counts_acks(two_nodes):
     _, (s2, h2) = two_nodes
     good = _peer(h2)

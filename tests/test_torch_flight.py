@@ -617,11 +617,9 @@ def test_errors_agree(loaded, case):
 
 
 @pytest.mark.parametrize("name", ["region-summary", "merkle-state", "export-delta"])
-def test_cluster_layer_actions_refused(pair, name):
+def test_cluster_actions_equal_jax(pair, name):
     """The cluster layer's three actions answer as longbow_tpu's do (the
-    rows carry one origin timestamp, so that the LWW state is equal).
-    (The name dates from when the package refused them; it now checks
-    their answers against longbow_tpu's.)"""
+    rows carry one origin timestamp, so that the LWW state is equal)."""
     t = _table(np.arange(40), _ints(40, seed=3), columns={"price": np.arange(40.0)})
     pair.put("d", t.replace_schema_metadata({"longbow.ts": "1000.5"}))
     pair.tstore.delete("d", [3])

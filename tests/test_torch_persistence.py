@@ -699,6 +699,55 @@ def test_capture_copies_the_columns(tmp_path):
     np.testing.assert_array_equal(blob["index_state"]["valid"], valid)
 
 
+@pytest.mark.parametrize("kind", ["sq8", "sq8r", "ivf", "disk", "pq", "flat"])
+def test_declared_empty_dataset_snapshots_and_recovers(tmp_path, kind):
+    """A dataset declared with a kind and no rows yet (a quantizer not
+    trained) snapshots, recovers as the same kind and takes rows after;
+    longbow_tpu reads the snapshot (its own export of such a dataset
+    raises, ROADMAP section 3)."""
+    params = {"path": str(tmp_path / "rows.bin")} if kind == "disk" else None
+    st = VectorStore(persist_dir=tmp_path)
+    st.get_or_create("e", 16, "l2", index_kind=kind, index_params=params)
+    st.put("full", np.arange(50), _vecs(50, 16))
+    st.snapshot()
+    back = VectorStore(persist_dir=tmp_path)
+    assert back.get("e").index_kind == kind and back.get("e").live_count == 0
+    assert back.get("full").live_count == 50
+    v = _vecs(300, 16, seed=4)
+    back.put("e", np.arange(300), v)
+    ids, _, _ = back.search("e", v[7:8], 1, use_cache=False)
+    assert ids[0, 0] == 7
+    assert set(JaxStore(persist_dir=tmp_path).list_datasets()) == {"e", "full"}
+
+
+@pytest.mark.parametrize("how", ["compacted", "remote_tombstones"])
+def test_emptied_dataset_keeps_its_tombstones_across_a_restart(tmp_path, how):
+    """A dataset whose index holds no row but whose LWW map holds
+    tombstones (every row deleted and compacted away, or a replica that
+    only took a peer's tombstones) recovers the same tombstones and Merkle
+    state, so a stale replicated put still loses to them."""
+    from longbow_tpu_torch.store.compaction import compact_dataset
+
+    st = VectorStore(persist_dir=tmp_path)
+    if how == "compacted":
+        st.put("d", np.arange(40), _vecs(40, 16), timestamp=100.0)
+        st.delete("d", np.arange(40), timestamp=200.0)
+        compact_dataset(st.get("d"))
+    else:
+        st.get_or_create("d", 16, "l2", index_kind="sq8")
+        st.get("d").apply_remote_tombstones(np.arange(40), [200.0] * 40)
+    ds = st.get("d")
+    assert len(ds.index) == 0 and len(ds._lww) == 40
+    lww, merkle = dict(ds._lww), ds.merkle_state()
+    st.snapshot()
+    st.close()
+    back = VectorStore(persist_dir=tmp_path)
+    assert back.get("d")._lww == lww
+    assert back.get("d").merkle_state() == merkle
+    back.put("d", np.arange(5), _vecs(5, 16), timestamp=150.0)  # older than the delete
+    assert back.get("d").live_count == 0
+
+
 def test_version_1_snapshot_raises(tmp_path):
     store = VectorStore(persist_dir=tmp_path, wal_sync="always")
     store.put("s", np.arange(4), _vecs(4, 8))

@@ -244,10 +244,9 @@ def test_card_path_imports_and_runs_with_pyarrow_blocked(tmp_path):
     assert res.returncode == 0 and res.stdout.strip().endswith("ok"), res.stderr[-3000:]
 
 
-def test_cluster_other_than_none_is_refused(tmp_path):
+def test_cluster_coordinator_is_served(tmp_path):
     """A cluster coordinator is served: the handlers and both listeners
-    of a process hold the one given. (The name dates from when the
-    package refused any coordinator; it now checks the opposite.)"""
+    of a process hold the one given."""
     from longbow_tpu_torch.distributed.cluster import ClusterCoordinator
     from longbow_tpu_torch.serving.flight_server import LongbowFlightServer
 
@@ -275,10 +274,8 @@ def test_main_refuses_a_peer_list(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("name", ["region-summary", "merkle-state", "export-delta"])
-def test_cluster_layer_actions_answer_with_their_error(name):
-    """The three actions answer on a single node (no cluster needed).
-    (The name dates from when they answered with a cluster-layer error;
-    it now checks their answers.)"""
+def test_cluster_actions_answer_on_a_single_node(name):
+    """The three actions answer on a single node (no cluster needed)."""
     store = VectorStore(device="cpu")
     store.put("d", np.arange(5), _vecs(5), timestamp=7.0)
     h = FlightHandlers(store)

@@ -256,6 +256,9 @@ PYARROW_MODULES = ("longbow_tpu_torch/serving/flight_server.py",
                    "longbow_tpu_torch/distributed/replicator.py")
 
 
+OPERATOR_TOOLS = ("ops", "bench_tool", "soak_mixed", "chaos_soak", "start_local_cluster")
+
+
 def test_port_imports_no_jax_pyarrow_or_reference_package():
     modules = sorted(
         ".".join(p.relative_to(REPO).with_suffix("").parts)
@@ -275,6 +278,29 @@ def test_port_imports_no_jax_pyarrow_or_reference_package():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert len(modules) >= 15
+    assert {f"longbow_tpu_torch.tools.{t}" for t in OPERATOR_TOOLS} <= set(modules)
+
+
+@pytest.mark.parametrize("tool", OPERATOR_TOOLS)
+def test_tool_imports_no_jax_or_reference_package(tool):
+    """Each tool's --help, with the client its commands call, imports
+    neither jax nor longbow_tpu."""
+    code = (
+        "import runpy, sys\n"
+        f"sys.argv = ['{tool}', '--help']\n"
+        "try:\n"
+        f"    runpy.run_module('longbow_tpu_torch.tools.{tool}', run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e.code\n"
+        "import longbow_tpu_torch.serving.client\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'longbow_tpu')]\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "usage" in proc.stdout
 
 
 def test_port_sources_name_no_forbidden_import():
