@@ -16,9 +16,20 @@ Phases, each of which passes or ends the run with a non-zero exit:
                beside the same rows in random order; times the kernel, the
                plain version and torch.matmul + torch.topk over the same scores
                (a two-call yardstick: no single PyTorch call computes K1); each
-               case names the variant that ran ("wgmma" or "mma"), a wgmma
-               case is also timed through the mma.sync variant ("prev_ms"),
-               and the served shape must run wgmma;
+               case names the variant that ran ("wgmma" or "mma") and must
+               launch the variant scan_variant names, a wgmma case is also
+               timed through the mma.sync variant ("prev_ms") and both
+               kernels alone ("kernel_ms", "prev_kernel_ms"), and the served
+               shape must run wgmma; the small batches B = 1, 5, 16, 48 and
+               57 (the single query, Flight's and the coalescer's groups) at
+               every query-block width of the wgmma variant, k 10 and 64, l2
+               and ip, a filter, fewer valid rows than k, a ragged last tile
+               and adversarial order, each also forced onto wgmma where
+               scan_variant picks mma, and 1,000 x 131,072 (the mesh shard);
+               the run fails if a case that scan_variant sends to wgmma has a
+               slower kernel there than on mma.sync; then step 0's sweep of
+               both variants at the main paths' shapes beside the bound and
+               matmul + topk (tools/probe_scan_variants.py);
   4. store   - the main path: VectorStore.put / search / delete on 1,000,000 x 128
                clustered rows in bf16 (a flat index), recall@10 against the f32
                exact_search oracle, a filtered search, deletes, and 100,000-row
@@ -35,8 +46,12 @@ Phases, each of which passes or ends the run with a non-zero exit:
                fold at B = 1000, k = 64; a ragged last tile (N - 77), B = 17,
                D = 64, and adversarial order as for K1; times the kernel, the
                plain version and torch.addmm + torch.topk over the same scores
-               (a two-call yardstick, without the group term), with "variant"
-               and "prev_ms" as for K1;
+               (a two-call yardstick, without the group term), with "variant",
+               "prev_ms", the kernels alone and the gates as for K1, and the
+               small batches B = 1, 5, 16 and 48 at 1,048,576 x 128 (k 10
+               and 64, a filter, the dot fold, fewer valid rows than k,
+               ragged, adversarial), B = 5 and 16 on the 10M x 96 codes with
+               a bf16 group term, and 1,000 x 131,072;
   6. quantized store - the slice's path: VectorStore with an sq8r dataset at
                Deep-10M's shape (10,000,000 x 96 clustered rows), recall@10
                against exact search over the dequantized rows (gate 0.99) and
@@ -299,6 +314,11 @@ Phases, each of which passes or ends the run with a non-zero exit:
                three nodes with equal Merkle roots, K1 launched on every node;
                node 1's seconds from readiness to node 0's root, the rows synced
                and the delta pulls.
+The run fails unless the launches of phase 4's single queries, phase 11's
+coalesced groups, phase 12's mesh shards and phase 13's ticket groups include
+the variant scan_variant names for them; the kernels line gives every phase's
+launches by variant (phases 14 and 16 from the nodes' own counters; 16.4's
+chaos soak counts launches only) and the served small shapes' times.
 The last line of standard output is {"ok": true, "device": {...}}.
 
 Imports torch, numpy and longbow_tpu_torch only.
@@ -460,9 +480,10 @@ def compare(name, dk, ik, dp, ip_) -> float:
 
 
 def phase_kernels(bw: float, flops: float, reps: int) -> dict:
+    from longbow_tpu_torch.ops._kernels import FUSED_SCAN
     from longbow_tpu_torch.ops.distance import Metric
     from longbow_tpu_torch.ops.scan import (
-        fused_flat_search, fused_flat_search_plain, scan_variant,
+        fused_flat_search, fused_flat_search_plain, scan_variant, wgmma_takes, wgmma_width,
     )
 
     dev = torch.device(DEVICE)
@@ -524,6 +545,14 @@ def phase_kernels(bw: float, flops: float, reps: int) -> dict:
     cases.append(dict(metric=Metric.L2, b=128, k=64, corpus=c128, norms=n128,
                       valid=allv, extra=None, qscale=0.1, force="wgmma",
                       tag="adversarial_rows_in_random_order"))
+    # the small batches, at every query-block width of the wgmma variant
+    # (16 queries for B <= 16, 64 for 48 and 57) and beside mma.sync
+    cases += small_batch_cases(dict(metric=Metric.L2, k=64, corpus=c128, norms=n128,
+                                    valid=tomb, extra=None), Metric, rows, allv,
+                               (c_adv, n_adv), ragged)
+    cases.append(dict(metric=Metric.L2, b=1000, k=64, corpus=c128[:131_072],
+                      norms=n128[:131_072], valid=tomb[:131_072], extra=None,
+                      tag="served_mesh_shard"))
 
     results = []
     for cs in cases:
@@ -533,17 +562,24 @@ def phase_kernels(bw: float, flops: float, reps: int) -> dict:
         kw = dict(extra_mask=cs["extra"], device=dev)
         name = f"{cs['tag']} {cs['metric']} B={cs['b']} k={cs['k']} N={n} D={d}"
         # the wrapper's own choice, unless the case asks for a variant
-        variant = cs.get("force") or scan_variant(
-            cs["b"], n, d, cs["k"], cs["corpus"].data_ptr() % 16 == 0)
+        aligned = cs["corpus"].data_ptr() % 16 == 0
+        variant = cs.get("force") or scan_variant(cs["b"], n, d, cs["k"], aligned)
         kernel_kw = dict(kw, variant=cs.get("force"))
-        dk, ik = fused_flat_search(*args, **kernel_kw)
+        dk, ik = launched_as(FUSED_SCAN, variant, name,
+                             lambda: fused_flat_search(*args, **kernel_kw))
         dp, ip_ = fused_flat_search_plain(*args, **kw)
         torch.cuda.synchronize()
         err = compare(name, dk, ik, dp, ip_)
+        if variant == "mma" and wgmma_takes(cs["b"], d, cs["k"], aligned):
+            # forced: the other variant, held to the same plain answer
+            compare(name + " forced wgmma",
+                    *fused_flat_search(*args, **dict(kw, variant="wgmma")), dp, ip_)
         ms = time_ms(lambda: fused_flat_search(*args, **kernel_kw), reps)
         prev_ms = None  # the mma.sync variant on a shape that wgmma serves
         if variant == "wgmma":
             prev_ms = time_ms(lambda: fused_flat_search(*args, **dict(kw, variant="mma")), reps)
+        kms = kernel_ms(("wgmma", "mma") if variant == "wgmma" else ("mma",), True, args, kw,
+                        reps)
         plain_ms = time_ms(lambda: fused_flat_search_plain(*args, **kw), PLAIN_LAUNCHES)
         qb = q.to(torch.bfloat16)
         corpus = cs["corpus"]
@@ -554,24 +590,125 @@ def phase_kernels(bw: float, flops: float, reps: int) -> dict:
         moved = n * d * 2 + n * 4 + n + b * d * 4 + b * k * 8
         bound_by = "bytes" if moved / bw >= 2 * b * n * d / flops else "operations"
         bound_ms = 1e3 * max(moved / bw, 2 * b * n * d / flops)
-        row = dict(case=name, variant=variant, max_abs_err=err, ms=ms, prev_ms=prev_ms,
-                   plain_ms=plain_ms, matmul_topk_ms=mm_ms, bound_ms=bound_ms,
-                   bound_by=bound_by, b=b, k=k, n=n, d=d, metric=cs["metric"],
-                   tag=cs["tag"])
+        row = dict(case=name, variant=variant, chosen="force" not in cs,
+                   nq=wgmma_width(b) if variant == "wgmma" else None, max_abs_err=err, ms=ms,
+                   prev_ms=prev_ms, kernel_ms=kms[variant], prev_kernel_ms=kms.get("mma")
+                   if variant == "wgmma" else None, plain_ms=plain_ms, matmul_topk_ms=mm_ms,
+                   bound_ms=bound_ms, bound_by=bound_by, b=b, k=k, n=n, d=d,
+                   metric=cs["metric"], tag=cs["tag"])
         results.append(row)
         emit({"kernel_case": row})
     check_variants("fused_scan", results)
     return {"cases": results}
 
 
+def small_batch_cases(base: dict, Metric, rows, allv, adversarial: tuple, ragged: int) -> list:
+    """K1's cases at the small batches the main paths serve: B = 1, 5, 16
+    and 48 (and 57, the coalescer's group) at k = 10 and 64, l2 and ip,
+    with tombstones; a filter, fewer valid rows than k, a ragged last
+    tile and rows in adversarial order at several widths."""
+    out = [dict(base, b=b, k=k, metric=m, tag=f"small_b{b}")
+           for b in (5, 16, 48) for k in (10, 64) for m in (Metric.L2, Metric.DOT)]
+    out += [dict(base, b=1, tag="served_single_query"), dict(base, b=48, tag="served_flight_group"),
+            dict(base, b=57, tag="served_coalescer_group")]
+    out += [dict(base, b=b, extra=rows % 10 == 3, tag="small_filter") for b in (5, 48)]
+    out += [dict(base, b=b, valid=rows < 20, tag="small_fewer_valid_than_k") for b in (1, 16)]
+    out += [dict(base, b=b, corpus=base["corpus"][:ragged], norms=base["norms"][:ragged],
+                 valid=base["valid"][:ragged], tag="small_ragged_last_tile") for b in (1, 48)]
+    out += [dict(base, b=b, corpus=adversarial[0], norms=adversarial[1], valid=allv, qscale=0.1,
+                 tag="small_adversarial_order") for b in (5, 48)]
+    return out
+
+
+def kernel_ms(variants: tuple, flat: bool, args: tuple, kw: dict, reps: int) -> dict:
+    """{variant: ms} of each variant's kernel alone on the inputs its
+    wrapper prepares from (args, kw): the launcher's go() back to back, the
+    median device time a launch (tools/probe_scan_variants.py kernel_ms);
+    nothing counts."""
+    from longbow_tpu_torch.ops import scan
+    from longbow_tpu_torch.tools.probe_scan_variants import kernel_ms as time_kernel
+
+    if flat:
+        corpus, qc, qn, vn, l2 = scan._prepare(*args, kw.get("extra_mask"), False, DEVICE)
+        qc, qn, vn = qc.contiguous(), qn.contiguous(), vn.contiguous().clone()
+        go = {v: scan.flat_launcher(scan.FUSED_SCAN, v, corpus, qc, qn, vn, args[4], l2)[0]
+              for v in variants}
+    else:
+        codes, qs, qn, vn, gt = scan._prepare_codes(*args, kw.get("group_term"),
+                                                    kw.get("extra_mask"), DEVICE)
+        qs, qn, vn = qs.contiguous(), qn.contiguous(), vn.contiguous().clone()
+        gt = None if gt is None else gt.contiguous()
+        go = {v: scan.codes_launcher(scan.FUSED_CODES_SCAN, v, codes, qs, qn, vn, gt, args[5])[0]
+              for v in variants}
+    return {v: time_kernel(go[v], reps) for v in variants}
+
+
+def launched_as(kernel, variant: str, name: str, call):
+    """call() once, which must launch `kernel` once in `variant`; the
+    launch does not count."""
+    held = hold_counts(kernel)
+    kernel.by_variant = {}
+    out = call()
+    ran = dict(kernel.by_variant)
+    restore_counts(kernel, held)
+    if ran != {variant: 1}:
+        fail(f"{name}: launched {ran}, not the {variant} variant scan_variant names")
+    return out
+
+
+# the served shapes' tags; each must run what scan_variant names for it
+SERVED_TAGS = ("served_batch", "served_single_query", "served_flight_group",
+               "served_coalescer_group", "served_mesh_shard")
+# cases whose selection work is their data's (rows by decreasing distance,
+# fewer valid rows than k): held to the plain version, timed, and not to the
+# speed gate, which scan_variant, a function of the shape, cannot meet there.
+# The checks on a path's recorded arguments (check_build_scan,
+# check_codes_call) are the paths' own data too: timed beside mma.sync, not
+# gated (the Flight int8 dataset's integer codes tie at 1,000 x 131,072)
+DATA_EDGE_TAGS = ("fewer_valid_than_k", "all_masked", "small_fewer_valid_than_k",
+                  "adversarial_order", "small_adversarial_order")
+
+
 def check_variants(kernel: str, results: list) -> None:
-    """The served shape ran the wgmma variant, and both variants ran."""
-    served = next(r for r in results if r["tag"] == "served_batch")
-    if served["variant"] != "wgmma":
-        fail(f"{kernel}: the served shape ran the {served['variant']} variant")
+    """The served shapes ran the wgmma variant, both variants ran, and no
+    case that scan_variant sends to wgmma (but DATA_EDGE_TAGS') was slower
+    there than on mma.sync in this run."""
+    for r in results:
+        if r["tag"] in SERVED_TAGS and r["variant"] != "wgmma":
+            fail(f"{kernel}: the served shape {r['case']} ran the {r['variant']} variant")
     ran = {r["variant"] for r in results}
     if ran != {"wgmma", "mma"}:
         fail(f"{kernel}: only the {sorted(ran)} variant ran")
+    slower = [f"{r['case']}: kernel {r['kernel_ms']:.3f} ms, mma.sync {r['prev_kernel_ms']:.3f}"
+              for r in results if r["chosen"] and r["variant"] == "wgmma"
+              and r["tag"] not in DATA_EDGE_TAGS and r["kernel_ms"] > r["prev_kernel_ms"]]
+    if slower:
+        fail(f"{kernel}: scan_variant picks wgmma where its kernel ran slower than mma.sync: "
+             f"{slower}")
+
+
+def phase_sweep(bw: float, flops: float) -> list:
+    """Both variants of K1 and K2 at the main paths' shapes, beside the
+    bound and torch.matmul + torch.topk on the same inputs
+    (tools/probe_scan_variants.py); none of these launches counts."""
+    from longbow_tpu_torch.ops import _kernels
+    from longbow_tpu_torch.tools.probe_scan_variants import SHAPES, sweep
+
+    held = [hold_counts(k) for k in _kernels.KERNELS]
+    rows = sweep(SHAPES, bw, flops, TIMED_LAUNCHES, emit=lambda r: emit({"variant_sweep": r}))
+    for k, h in zip(_kernels.KERNELS, held):
+        restore_counts(k, h)
+    torch.cuda.empty_cache()
+    return rows
+
+
+def served_ran(label: str, phase: dict, kernel: str, variant: str) -> None:
+    """A path's launches of `kernel` include the variant scan_variant names
+    for its served shape."""
+    got = phase["launches_by_variant"][kernel]
+    if not got.get(variant):
+        fail(f"{label}: the served shape's {variant} variant of {kernel} was not launched "
+             f"(launches by variant {got})")
 
 
 # -- 4. store (the main path) ---------------------------------------------
@@ -586,6 +723,7 @@ def recall_at(served_ids, truth) -> float:
 def phase_store() -> dict:
     from longbow_tpu_torch.ops import _kernels
     from longbow_tpu_torch.ops.distance import Metric, exact_search
+    from longbow_tpu_torch.ops.scan import scan_variant
     from longbow_tpu_torch.query.parser import Filter
     from longbow_tpu_torch.store.vector_store import VectorStore
 
@@ -616,6 +754,8 @@ def phase_store() -> dict:
         store.search("sift", queries[j:j + 1], 10)
         lat.append(time.perf_counter() - t)
     out["p50_single_query_ms"] = 1e3 * statistics.median(lat)
+    # the variant a single query's pool of 64 takes over the dataset's rows
+    out["single_query_variant"] = scan_variant(1, ds.index.capacity, D_STORE, 64, True)
 
     served, _, ok = store.search("sift", queries, 10)
     batch_s = []
@@ -672,7 +812,7 @@ def phase_store() -> dict:
             fail(f"{metric}: recall@10 {r} against exact_search < {RECALL_GATE}")
 
     torch.cuda.synchronize()
-    out["launches"] = {k.name: k.launches for k in _kernels.KERNELS}
+    out.update(_kernels.launch_counts())
     if _kernels.FUSED_SCAN.launches == 0:
         fail("kernel fused_scan was not launched on the flat path")
     emit({"store": out})
@@ -682,9 +822,10 @@ def phase_store() -> dict:
 # -- 5. codes (kernel K2) ---------------------------------------------------
 
 def phase_codes_kernels(bw: float, flops: float, reps: int) -> dict:
+    from longbow_tpu_torch.ops._kernels import FUSED_CODES_SCAN
     from longbow_tpu_torch.ops.distance import MASKED
     from longbow_tpu_torch.ops.scan import (
-        fused_codes_search, fused_codes_search_plain, scan_variant,
+        fused_codes_search, fused_codes_search_plain, scan_variant, wgmma_takes, wgmma_width,
     )
 
     dev = torch.device(DEVICE)
@@ -710,7 +851,7 @@ def phase_codes_kernels(bw: float, flops: float, reps: int) -> dict:
     gcid = torch.randint(0, 1024, (N_CODES // 128,), generator=g, device=dev)
     base = dict(codes=c96, norms=n96, valid=tomb, gcid=gcid, extra=None, gt=None, fold="l2")
     cases = [dict(base, b=b, k=k, tag="sq8_fold") for b in (1, 128, 1000) for k in (10, 64)]
-    cases += [dict(base, b=1, k=64, gt="bf16", tag="sq8r_gt_bf16"),
+    cases += [dict(base, b=1, k=64, gt="bf16", tag="served_single_query"),
               dict(base, b=1000, k=64, gt="bf16", tag="served_batch"),
               dict(base, b=1000, k=64, gt="f32", tag="sq8r_gt_f32"),
               dict(base, b=128, k=64, fold="dot", tag="dot_fold"),
@@ -746,6 +887,22 @@ def phase_codes_kernels(bw: float, flops: float, reps: int) -> dict:
                    qscale=0.05, force="wgmma", tag="adversarial_order"),
               dict(d128, valid=allv, b=128, k=64, qscale=0.05, force="wgmma",
                    tag="adversarial_rows_in_random_order")]
+    # the small batches, at every query-block width of the wgmma variant
+    cases += [dict(d128, b=b, k=k, tag=f"small_b{b}") for b in (1, 5, 16, 48) for k in (10, 64)]
+    cases += [dict(base, b=b, k=64, gt="bf16", tag="small_sq8r_gt_bf16") for b in (5, 16)]
+    cases += [dict(d128, b=5, k=64, fold="dot", tag="small_dot_fold"),
+              dict(d128, b=5, k=64, extra=torch.arange(N_KERNEL, device=dev) % 10 == 3,
+                   tag="small_filter"),
+              dict(d128, b=16, k=64, valid=torch.arange(N_KERNEL, device=dev) < 20,
+                   tag="small_fewer_valid_than_k"),
+              dict(d128, b=5, k=64, valid=allv, codes=c128[worst_first].contiguous(),
+                   norms=n128[worst_first].contiguous(), qscale=0.05,
+                   tag="small_adversarial_order")]
+    cases += [dict(d128, b=b, k=64, codes=c128[:N_KERNEL - 77], norms=n128[:N_KERNEL - 77],
+                   valid=d128["valid"][:N_KERNEL - 77], tag="small_ragged_last_tile")
+              for b in (1, 48)]
+    cases.append(dict(d128, b=1000, k=64, codes=c128[:131_072], norms=n128[:131_072],
+                      valid=d128["valid"][:131_072], tag="served_mesh_shard"))
 
     c16 = {}  # bf16 copies of the codes for the yardstick, made outside the timing
     results = []
@@ -767,16 +924,24 @@ def phase_codes_kernels(bw: float, flops: float, reps: int) -> dict:
         kw = dict(group_term=gt, extra_mask=cs["extra"], clamp_zero=clamp, device=dev)
         name = (f"{cs['tag']} {cs['fold']} gt={cs['gt']} B={b} k={k} N={n} D={d}")
         # the wrapper's own choice, unless the case asks for a variant
-        variant = cs.get("force") or scan_variant(b, n, d, k, codes.data_ptr() % 16 == 0)
+        aligned = codes.data_ptr() % 16 == 0
+        variant = cs.get("force") or scan_variant(b, n, d, k, aligned, "fused_codes_scan")
         kernel_kw = dict(kw, variant=cs.get("force"))
-        dk, ik = fused_codes_search(*args, **kernel_kw)
+        dk, ik = launched_as(FUSED_CODES_SCAN, variant, name,
+                             lambda: fused_codes_search(*args, **kernel_kw))
         dp, ip_ = fused_codes_search_plain(*args, **kw)
         torch.cuda.synchronize()
         err = compare(name, dk, ik, dp, ip_)
+        if variant == "mma" and wgmma_takes(b, d, k, aligned):
+            # forced: the other variant, held to the same plain answer
+            compare(name + " forced wgmma",
+                    *fused_codes_search(*args, **dict(kw, variant="wgmma")), dp, ip_)
         ms = time_ms(lambda: fused_codes_search(*args, **kernel_kw), reps)
         prev_ms = None  # the mma.sync variant on a shape that wgmma serves
         if variant == "wgmma":
             prev_ms = time_ms(lambda: fused_codes_search(*args, **dict(kw, variant="mma")), reps)
+        kms = kernel_ms(("wgmma", "mma") if variant == "wgmma" else ("mma",), False, args, kw,
+                        reps)
         plain_ms = time_ms(lambda: fused_codes_search_plain(*args, **kw), PLAIN_LAUNCHES)
         if id(codes) not in c16:
             c16[id(codes)] = codes.to(torch.bfloat16)
@@ -790,10 +955,12 @@ def phase_codes_kernels(bw: float, flops: float, reps: int) -> dict:
         moved = n * d + n * 4 + n + gt_bytes + b * d * 4 + b * 4 + b * k * 8
         bound_by = "bytes" if moved / bw >= 2 * b * n * d / flops else "operations"
         bound_ms = 1e3 * max(moved / bw, 2 * b * n * d / flops)
-        row = dict(case=name, variant=variant, max_abs_err=err, ms=ms, prev_ms=prev_ms,
-                   plain_ms=plain_ms, addmm_topk_ms=yard_ms, bound_ms=bound_ms,
-                   bound_by=bound_by, b=b, k=k, n=n, d=d, fold=cs["fold"], gt=cs["gt"],
-                   tag=cs["tag"])
+        row = dict(case=name, variant=variant, chosen="force" not in cs,
+                   nq=wgmma_width(b) if variant == "wgmma" else None, max_abs_err=err, ms=ms,
+                   prev_ms=prev_ms, kernel_ms=kms[variant], prev_kernel_ms=kms.get("mma")
+                   if variant == "wgmma" else None, plain_ms=plain_ms, addmm_topk_ms=yard_ms,
+                   bound_ms=bound_ms, bound_by=bound_by, b=b, k=k, n=n, d=d, fold=cs["fold"],
+                   gt=cs["gt"], tag=cs["tag"])
         results.append(row)
         emit({"codes_kernel_case": row})
     check_variants("fused_codes_scan", results)
@@ -959,7 +1126,7 @@ def phase_quantized_store():
         fail(f"int8 sq8: recall@10 {r} < {QUANT_RECALL_GATE}")
 
     torch.cuda.synchronize()
-    out["launches"] = {k.name: k.launches for k in _kernels.KERNELS}
+    out.update(_kernels.launch_counts())
     if _kernels.FUSED_CODES_SCAN.launches == 0:
         fail("kernel fused_codes_scan was not launched on the quantized path")
     emit({"quantized_store": {k: v for k, v in out.items() if not k.startswith("sq8")}})
@@ -1034,6 +1201,16 @@ def recorded_self_knn(build) -> tuple:
     return first_call(graph_build, "fused_flat_search", build, "the build")
 
 
+def hold_counts(kernel) -> tuple:
+    """A kernel's launch counts now, for restore_counts: launches made to
+    compare a kernel with its plain version, or to time it, do not count."""
+    return kernel.launches, dict(kernel.by_variant)
+
+
+def restore_counts(kernel, held: tuple) -> None:
+    kernel.launches, kernel.by_variant = held[0], dict(held[1])
+
+
 def scan_row(name, variant, err, ms, plain_ms, moved, ops, bw, flops, **extra) -> dict:
     """One kernel case: times beside the bound, the larger of the bytes
     over the memory rate and the operations over the bf16 peak."""
@@ -1054,7 +1231,7 @@ def check_build_scan(label: str, call: tuple, bw: float, flops: float, reps: int
         fused_flat_search, fused_flat_search_plain, scan_variant,
     )
 
-    held = FUSED_SCAN.launches  # launches made to compare and to time do not count
+    held = hold_counts(FUSED_SCAN)  # launches made to compare and to time do not count
     args, kw = call
     q, corpus, _, _, k = args[:5]
     (b, d), n = q.shape, corpus.shape[0]
@@ -1071,12 +1248,20 @@ def check_build_scan(label: str, call: tuple, bw: float, flops: float, reps: int
         if not torch.all((ik == own).any(dim=1)):
             fail(f"{name}: a row did not find itself among its {k} nearest")
     ms = time_ms(lambda: fused_flat_search(*args, **kw), reps)
+    prev_ms = None  # the mma.sync variant on a shape that wgmma serves
+    if variant == "wgmma":
+        prev_ms = time_ms(lambda: fused_flat_search(*args, **dict(kw, variant="mma")), reps)
+    kms = kernel_ms(("wgmma", "mma") if variant == "wgmma" else ("mma",), True,
+                    (*args[:5], args[5] if len(args) > 5 else "l2"), kw, reps)
     plain_ms = time_ms(lambda: fused_flat_search_plain(*args, **kw), PLAIN_LAUNCHES)
+    qb = torch.as_tensor(q, device=corpus.device).to(corpus.dtype)
+    mm_ms = time_ms(lambda: torch.topk(torch.matmul(qb, corpus.T), k, dim=1), reps)
     masks = 1 if kw.get("extra_mask") is None else 2
     moved = n * d * 2 + n * 4 + masks * n + b * d * q.element_size() + b * k * 8
     row = scan_row(name, variant, err, ms, plain_ms, moved, 2 * b * n * d, bw, flops,
-                   b=b, k=k, n=n, d=d, tag=label)
-    FUSED_SCAN.launches = held
+                   prev_ms=prev_ms, kernel_ms=kms[variant], prev_kernel_ms=kms.get("mma"),
+                   matmul_topk_ms=mm_ms, b=b, k=k, n=n, d=d, tag=label)
+    restore_counts(FUSED_SCAN, held)
     emit({"kernel_case": row})
     return row
 
@@ -1089,24 +1274,34 @@ def check_codes_call(label: str, call: tuple, bw: float, flops: float, reps: int
         fused_codes_search, fused_codes_search_plain, scan_variant,
     )
 
-    held = FUSED_CODES_SCAN.launches
+    held = hold_counts(FUSED_CODES_SCAN)
     args, kw = call
     qs, _, codes, _, _, k = args
     (b, d), n = qs.shape, codes.shape[0]
     name = f"{label} B={b} k={k} N={n} D={d}"
-    variant = scan_variant(b, n, d, k, codes.data_ptr() % 16 == 0)
+    variant = scan_variant(b, n, d, k, codes.data_ptr() % 16 == 0, "fused_codes_scan")
     plain_kw = {key: v for key, v in kw.items() if key != "variant"}
     dk, ik = fused_codes_search(*args, **kw)
     dp, ip_ = fused_codes_search_plain(*args, **plain_kw)
     torch.cuda.synchronize()
     err = compare(name, dk, ik, dp, ip_)
     ms = time_ms(lambda: fused_codes_search(*args, **kw), reps)
+    prev_ms = None  # the mma.sync variant on a shape that wgmma serves
+    if variant == "wgmma":
+        prev_ms = time_ms(lambda: fused_codes_search(*args, **dict(kw, variant="mma")), reps)
+    kms = kernel_ms(("wgmma", "mma") if variant == "wgmma" else ("mma",), False, args, plain_kw,
+                    reps)
     plain_ms = time_ms(lambda: fused_codes_search_plain(*args, **plain_kw), PLAIN_LAUNCHES)
+    qb = torch.as_tensor(qs, device=codes.device).to(torch.bfloat16)
+    codes16 = codes.to(torch.bfloat16)
+    mm_ms = time_ms(lambda: torch.topk(torch.matmul(qb, codes16.T), k, dim=1), reps)
+    del codes16
     masks = 1 if kw.get("extra_mask") is None else 2
     moved = n * d + n * 4 + masks * n + b * d * 4 + b * 4 + b * k * 8
     row = scan_row(name, variant, err, ms, plain_ms, moved, 2 * b * n * d, bw, flops,
-                   b=b, k=k, n=n, d=d, tag=label)
-    FUSED_CODES_SCAN.launches = held
+                   prev_ms=prev_ms, kernel_ms=kms[variant], prev_kernel_ms=kms.get("mma"),
+                   matmul_topk_ms=mm_ms, b=b, k=k, n=n, d=d, tag=label)
+    restore_counts(FUSED_CODES_SCAN, held)
     emit({"codes_kernel_case": row})
     return row
 
@@ -1315,7 +1510,7 @@ def phase_graph(bw: float, flops: float, reps: int) -> dict:
     out["self_knn_cases"] = scans
 
     torch.cuda.synchronize()
-    out["launches"] = {k.name: k.launches for k in _kernels.KERNELS}
+    out.update(_kernels.launch_counts())
     if _kernels.FUSED_SCAN.launches == 0:
         fail("kernel fused_scan was not launched on the graph tier's path")
     emit({"graph_tier": {k: v for k, v in out.items()
@@ -1539,7 +1734,7 @@ def phase_index_kinds(bw: float, flops: float, reps: int) -> dict:
         store.drop(name)
 
     torch.cuda.synchronize()
-    out["launches"] = {k.name: k.launches for k in _kernels.KERNELS}
+    out.update(_kernels.launch_counts())
     for kernel in _kernels.KERNELS:
         if kernel.launches == 0:
             fail(f"kernel {kernel.name} was not launched on the index kinds' path")
@@ -1741,7 +1936,7 @@ def phase_services(bw: float, flops: float, reps: int, flat_ingest_rows_per_s: f
         torch.cuda.synchronize()
     finally:
         VectorStore.search, compaction.compact_dataset = real_search, real_compact
-    out["launches"] = {k.name: k.launches for k in _kernels.KERNELS}
+    out.update(_kernels.launch_counts())
     for kernel in _kernels.KERNELS:
         if kernel.launches == 0:
             fail(f"kernel {kernel.name} was not launched on the services' path")
@@ -2412,7 +2607,7 @@ def phase_persistence(bw: float, flops: float, reps: int, card: str, flat_rate: 
         shutil.rmtree(g_dir)
 
         torch.cuda.synchronize()
-        out["launches"] = {k.name: k.launches for k in _kernels.KERNELS}
+        out.update(_kernels.launch_counts())
 
         # the WAL's append backends: which one serves, at what rate
         wal_try: dict = {}
@@ -2709,7 +2904,7 @@ def phase_serving(bw: float, flops: float, reps: int, flat_rate: float) -> dict:
           f"config read the reference's environment ({len(REFERENCE_ENV)} names)", flush=True)
 
     torch.cuda.synchronize()
-    out["launches"] = {k.name: k.launches for k in _kernels.KERNELS}
+    out.update(_kernels.launch_counts())
     out["k1_serving"] = check_build_scan("serving coalesced group", call, bw, flops, reps,
                                          finds_itself=False)
     out["seconds"] = time.perf_counter() - t_phase
@@ -2832,12 +3027,12 @@ def phase_mesh(bw: float, flops: float, reps: int, flat_store, graph_store,
                          for j in range(n_shards)]
             ds_, rs_ = [p[0] for p in parts], [p[1] for p in parts]
             d["merge_ms"] = time_ms(lambda: merge_shards(ds_, rs_, 10), reps)
-            held = _kernels.FUSED_SCAN.launches  # timing launches do not count
+            held = hold_counts(_kernels.FUSED_SCAN)  # timing launches do not count
             with inner._mu:
                 d["local_searches_ms"] = time_ms(
                     lambda: [inner.local_search(j, q_t, 10, None, "l2", False)
                              for j in range(n_shards)], 3)
-            _kernels.FUSED_SCAN.launches = held
+            restore_counts(_kernels.FUSED_SCAN, held)
         dead = np.random.default_rng(2).choice(N_STORE, MESH_DELETES, replace=False)
         if store.delete(name, dead) != MESH_DELETES:
             fail(f"{name}: delete did not remove {MESH_DELETES} ids")
@@ -2974,7 +3169,7 @@ def phase_mesh(bw: float, flops: float, reps: int, flat_store, graph_store,
     store.drop("mg")
 
     torch.cuda.synchronize()
-    out["launches"] = {k.name: k.launches for k in _kernels.KERNELS}
+    out.update(_kernels.launch_counts())
     out["seconds"] = time.perf_counter() - t_phase
     emit({"mesh": {k: v for k, v in out.items() if k in ("launches", "seconds")}})
     return out
@@ -3712,7 +3907,7 @@ def phase_flight(bw: float, flops: float, reps: int, flat_rate: float) -> dict:
         out["grpc_binding"] = d8
 
         torch.cuda.synchronize()
-        out["launches"] = {k.name: k.launches for k in _kernels.KERNELS}
+        out.update(_kernels.launch_counts())
         if out["launches"]["fused_scan"] == 0 or out["launches"]["fused_codes_scan"] == 0:
             fail(f"13: a kernel of the path was not launched: {out['launches']}")
     finally:
@@ -3909,23 +4104,42 @@ def ring_owners(nodes: list, keys) -> np.ndarray:
 
 
 KERNEL_NAMES = ("fused_scan", "fused_codes_scan")
+VARIANTS = ("mma", "wgmma")
 
 
 def launch_counts(ns, idxs) -> dict:
-    """Each node's kernel launches so far, from its own launch counter
-    (longbow_kernel_launches_total{kernel} on its metrics port, which
-    the kernel's wrapper bumps where it launches)."""
+    """Each node's kernel launches so far, from its own launch counters
+    (longbow_kernel_launches_total{kernel} and, under "kernel:variant",
+    longbow_kernel_variant_launches_total{kernel,variant} on its metrics
+    port, which the kernel's wrapper bumps where it launches)."""
     out = {}
     for i in idxs:
         m = ns.metrics(i)
         out[i] = {k: metric_sum(m, "longbow_kernel_launches_total", kernel=k)
                   for k in KERNEL_NAMES}
+        out[i].update({f"{k}:{v}": metric_sum(m, "longbow_kernel_variant_launches_total",
+                                              kernel=k, variant=v)
+                       for k in KERNEL_NAMES for v in VARIANTS})
     return out
 
 
 def launches_between(before: dict, after: dict) -> dict:
-    """{kernel: [launches of each node between the two readings]}."""
-    return {k: [after[i][k] - before[i][k] for i in sorted(before)] for k in KERNEL_NAMES}
+    """{kernel (or "kernel:variant"): [launches of each node between the
+    two readings]}."""
+    first = before[min(before)]
+    return {k: [after[i][k] - before[i][k] for i in sorted(before)] for k in first}
+
+
+def variant_totals(launched: dict) -> dict:
+    """{kernel: {variant: launches summed over the nodes}} from
+    launches_between's "kernel:variant" entries (variants never launched
+    left out)."""
+    out: dict = {k: {} for k in KERNEL_NAMES}
+    for key, per_node in launched.items():
+        if ":" in key and sum(per_node):
+            kernel, variant = key.split(":")
+            out[kernel][variant] = int(sum(per_node))
+    return out
 
 
 def arrow_answer(tbl, b: int, k: int = 10) -> tuple:
@@ -4142,6 +4356,7 @@ def cluster_partitioned(sets, root, corpus, queries, truth, flat_ans, assign, fl
         metric_sum(m0, "longbow_global_search_fanout_size_count"), 1)
     d.update(k1_launches_by_node=launched["fused_scan"],
              k2_launches_by_node=launched["fused_codes_scan"],
+             launches_by_variant=variant_totals(launched),
              scan_dispatches_by_node=searches, mean_fanout=fan)
     print(f"14.1 search: 1,000 queries as one DoExchange batch {d['batch_ms']:.3f} ms, recall@10 "
           f"{d['recall_at_10']:.4f}, top-10 overlap with one flat dataset "
@@ -4415,11 +4630,12 @@ def cluster_replicated(sets, root, corpus, queries, flight) -> dict:
         if not np.array_equal(vec[0].view(np.uint32), vec[1].view(np.uint32)):
             fail("14.3: the upserted rows' vectors on node 2 are not node 0's")
     after_heal = launches_between(count1, launch_counts(rs, range(rs.n)))
-    launched = {k: [a + b for a, b in zip(before_kill[k], after_heal[k])] for k in KERNEL_NAMES}
+    launched = {k: [a + b for a, b in zip(before_kill[k], after_heal[k])] for k in before_kill}
     if DEVICE == "cuda" and min(launched["fused_scan"]) == 0:
         fail(f"14.3: K1 was not launched on every node: {launched['fused_scan']}")
     d.update(k1_launches_by_node=launched["fused_scan"],
-             k2_launches_by_node=launched["fused_codes_scan"])
+             k2_launches_by_node=launched["fused_codes_scan"],
+             launches_by_variant=variant_totals(launched))
     cp = c0._action("checkpoint", {})
     peers = sorted(rs.ids[1:])
     if not (cp.get("ok") and sorted(cp.get("prepared", [])) == peers
@@ -4517,9 +4733,10 @@ def phase_leftovers(bw: float, flops: float, reps: int, store_out: dict) -> dict
     truth = truth.cpu().numpy()
     out["recall_at_10"] = recall_at(res["a"][0], truth)
     gate("15 coarse shadow", out["recall_at_10"], RECALL_GATE)
+    held_k2 = hold_counts(_kernels.FUSED_CODES_SCAN)
     _, pool = scan_mod.fused_codes_search(*k2_call[0], **k2_call[1])
     pool = pool.cpu().numpy()
-    _kernels.FUSED_CODES_SCAN.launches = launches["fused_codes_scan"]
+    restore_counts(_kernels.FUSED_CODES_SCAN, held_k2)
     out["pool_contains_true_top10"] = float(np.mean(
         [len(set(truth[r]) & set(pool[r])) / 10 for r in range(len(truth))]))
     out.update(batch_1000_ms=1e3 * statistics.median(batch_s),
@@ -4539,7 +4756,7 @@ def phase_leftovers(bw: float, flops: float, reps: int, store_out: dict) -> dict
     out["dot"] = {"rows": N_SMALL, "k1_launches": dot_k1, "k2_launches": 0,
                   "recall_at_10_vs_exact": recall_at(got_dot, want_dot)}
     gate("15 dot with the shadow asked for", out["dot"]["recall_at_10_vs_exact"], RECALL_GATE)
-    out["launches"] = {k.name: k.launches for k in _kernels.KERNELS}
+    out.update(_kernels.launch_counts())
 
     # complex64 rows as their [real, imag] widening; float64 as float32
     rng = np.random.default_rng(15)
@@ -4650,13 +4867,18 @@ def phase_operators(card: str) -> dict:
     out["launches"] = {k: sum(out[part]["launches"][k] for part in
                               ("ops", "bench_tool", "soak_mixed", "chaos_soak"))
                        for k in KERNEL_NAMES}
+    # by variant: 16.1-16.3's node (chaos_soak's own line counts launches only)
+    out["launches_by_variant"] = variant_totals(
+        {key: [out[part]["launches"].get(key, 0) for part in ("ops", "bench_tool", "soak_mixed")]
+         for key in out["ops"]["launches"]})
     out["seconds"] = time.perf_counter() - t_phase
     emit({"operators": out})
     return out
 
 
 def node_launches(ns, before: dict) -> dict:
-    """The node set's launches of each kernel since `before`, summed."""
+    """The node set's launches of each kernel (and "kernel:variant") since
+    `before`, summed."""
     return {k: int(sum(v)) for k, v in
             launches_between(before, launch_counts(ns, range(ns.n))).items()}
 
@@ -4733,7 +4955,7 @@ def operators_ops(ns) -> dict:
     if ops("drop", "--dataset", "q8") != {"dropped": True}:
         fail("16.1: drop refused")
     launched = node_launches(ns, before)
-    if DEVICE == "cuda" and min(launched.values()) == 0:
+    if DEVICE == "cuda" and min(launched[k] for k in KERNEL_NAMES) == 0:
         fail(f"16.1: a kernel was not launched on the node: {launched}")
     secs = time.perf_counter() - t0
     print(f"16.1 ops: {len(calls)} calls of {len(set(calls))} commands in {secs:.3f} s; "
@@ -4767,7 +4989,7 @@ def operators_bench(ns) -> dict:
     if kinds.get("bench") != "flat" or kinds.get("bench_i8") != "sq8":
         fail(f"16.2: the datasets are {kinds}")
     out["launches"] = node_launches(ns, before)
-    if DEVICE == "cuda" and min(out["launches"].values()) == 0:
+    if DEVICE == "cuda" and min(out["launches"][k] for k in KERNEL_NAMES) == 0:
         fail(f"16.2: a kernel was not launched on the node: {out['launches']}")
     micro = ("--mode", "micro") + (("--device", "cpu") if DEVICE == "cpu" else ())
     out["micro"] = last_json(run_tool("bench_tool", *micro))
@@ -4837,10 +5059,20 @@ def cluster_launches(cluster: dict, kernel: str) -> int:
                    for part in ("partitioned", "replicated")))
 
 
+def small_rows(cases: list) -> list:
+    """The served small shapes' cases for the kernels line: the time, the
+    mma.sync time in the same run, the bound and the yardstick."""
+    keys = ("case", "variant", "nq", "ms", "prev_ms", "kernel_ms", "prev_kernel_ms", "plain_ms",
+            "matmul_topk_ms", "addmm_topk_ms", "bound_ms", "bound_by")
+    return [{k: c[k] for k in keys if k in c} for c in cases if c["tag"] in SERVED_TAGS]
+
+
 def recorded_fields(prefix: str, row: dict) -> dict:
     """A kernel's check on a path's recorded arguments, for the kernels line."""
     return {f"{prefix}_{key}": row[src] for key, src in (
-        ("shape", "case"), ("variant", "variant"), ("ms", "ms"), ("plain_ms", "plain_ms"),
+        ("shape", "case"), ("variant", "variant"), ("ms", "ms"), ("prev_ms", "prev_ms"),
+        ("kernel_ms", "kernel_ms"), ("prev_kernel_ms", "prev_kernel_ms"),
+        ("plain_ms", "plain_ms"), ("matmul_topk_ms", "matmul_topk_ms"),
         ("bound_ms", "bound_ms"), ("bound_by", "bound_by"))}
 
 
@@ -4859,6 +5091,7 @@ def main() -> int:
 
     run("2 build", phase_build)
     kern = run("3 kernels", phase_kernels, bw, flops, TIMED_LAUNCHES)
+    run("3 sweep", phase_sweep, bw, flops)
     store = run("4 store", phase_store)
     codes = run("5 codes", phase_codes_kernels, bw, flops, TIMED_LAUNCHES)
     torch.cuda.empty_cache()
@@ -4893,6 +5126,19 @@ def main() -> int:
     leftovers = run("15 leftovers", phase_leftovers, bw, flops, TIMED_LAUNCHES, store)
     operators = run("16 operators", phase_operators, card)
     emit({"phase_seconds": took})
+    served_ran("4 store, single queries", store, "fused_scan", store["single_query_variant"])
+    served_ran("11 coalescer groups", serving, "fused_scan", serving["k1_serving"]["variant"])
+    served_ran("12 mesh shards", mesh, "fused_scan", mesh["mesh8"]["k1_shard"]["variant"])
+    served_ran("13 Flight ticket groups", flight, "fused_scan", flight["k1_flight"]["variant"])
+    by_phase = {"store": store, "quantized_store": quant, "graph_tier": graph,
+                "index_kinds": kinds, "services": services, "persistence": persist,
+                "serving": serving, "mesh": mesh, "flight": flight,
+                "cluster_partitioned": cluster["partitioned"],
+                "cluster_replicated": cluster["replicated"], "coarse": leftovers,
+                "operators_16_1_to_3": operators}
+
+    def by_variant(kernel: str) -> dict:
+        return {label: ph["launches_by_variant"][kernel] for label, ph in by_phase.items()}
 
     served = next(c for c in kern["cases"] if c["tag"] == "served_batch")
     served2 = next(c for c in codes["cases"] if c["tag"] == "served_batch")
@@ -4940,6 +5186,8 @@ def main() -> int:
         "library_ms": None,
         "matmul_topk_ms": served["matmul_topk_ms"],
         "shape": served["case"],
+        "launches_by_variant": by_variant("fused_scan"),
+        "small_batches": small_rows(kern["cases"]),
     }, {
         "name": "fused_codes_scan",
         "route": "cuda",
@@ -4974,6 +5222,8 @@ def main() -> int:
         "library_ms": None,
         "addmm_topk_ms": served2["addmm_topk_ms"],
         "shape": served2["case"],
+        "launches_by_variant": by_variant("fused_codes_scan"),
+        "small_batches": small_rows(codes["cases"]),
     }]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -25,17 +25,16 @@
 // over the codes, one per query block.
 //
 // Two variants; ops/scan.py::scan_variant picks one from the shape:
-//   - "wgmma" (scan_wgmma.cuh, longbow_fused_codes_scan_wgmma): B > 16,
-//     K <= 64, D of 64, 96 or 128, 16-byte aligned codes: the served
-//     batches. 128 queries per block (half the passes of the other
-//     variant), a ring of 128-row tiles filled by cp.async.bulk from one
-//     producer lane and handed over through mbarriers, the codes
+//   - "wgmma" (scan_wgmma.cuh, longbow_fused_codes_scan_wgmma): K <= 64,
+//     D of 64, 96 or 128, 16-byte aligned codes, any batch: the served
+//     shapes. 16, 32, 64 or 128 queries per block (the narrowest that
+//     holds the batch), a ring of 128-row tiles filled by cp.async.bulk
+//     from one producer lane and handed over through mbarriers, the codes
 //     converted to bf16 once per warpgroup as the register operand of
-//     wgmma.mma_async m64n128k16, the group term read 8 tiles at a time
+//     wgmma.mma_async m64nNQk16, the group term read 8 tiles at a time
 //     by a warp of its own, and no block-wide barrier per tile;
-//   - "mma" (this file, longbow_fused_codes_scan): every other shape:
-//     single queries and small batches, K up to 512, any D, unaligned
-//     rows. A grid of (query blocks, corpus splits) sized to fill the SMs
+//   - "mma" (this file, longbow_fused_codes_scan): every other shape: K
+//     up to 512, any D, unaligned rows. A grid of (query blocks, corpus splits) sized to fill the SMs
 //     in one wave, a cp.async ring of two code tiles (16 codes per copy)
 //     and their norm rows, query fragments held in registers for
 //     D <= 128, mma.sync m16n8k16, one barrier per tile, and the shared
@@ -308,15 +307,15 @@ fused_codes_kernel(const __nv_bfloat16* __restrict__ qs, const float* __restrict
   }
 }
 
-// Launch tiling C (passed as a tag) on `stream`.
+// Launch tiling C (passed as a tag) on `stream` of `device`.
 template <int WM, int WN, int NT, int ST, int ME>
-cudaError_t launch(Cfg<WM, WN, NT, ST, ME>, const void* qs, const void* qn, const void* codes,
+cudaError_t launch(Cfg<WM, WN, NT, ST, ME>, int device, const void* qs, const void* qn, const void* codes,
                    const void* vn, const void* gt, int gt_kind, int G, int B, int N, int D, int K,
                    int S, int rows_per_split, int cap, int smem, void* out_d, void* out_i,
                    cudaStream_t stream) {
   using C = Cfg<WM, WN, NT, ST, ME>;
   auto kern = fused_codes_kernel<WM, WN, NT, ST, ME>;
-  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t e = allow_smem(reinterpret_cast<const void*>(kern), device, smem);
   if (e != cudaSuccess) return e;
   const int vec16 = (D % 16 == 0) && (reinterpret_cast<uintptr_t>(codes) % 16 == 0);
   dim3 grid((B + C::QB - 1) / C::QB, S);
@@ -329,12 +328,10 @@ cudaError_t launch(Cfg<WM, WN, NT, ST, ME>, const void* qs, const void* qn, cons
 
 // Blocks of tiling C that fit on one SM with `smem` bytes (0 if none).
 template <int WM, int WN, int NT, int ST, int ME>
-cudaError_t blocks_per_sm(Cfg<WM, WN, NT, ST, ME>, int smem, int* nb) {
+cudaError_t occupancy_of(Cfg<WM, WN, NT, ST, ME>, int device, int smem, int* nb) {
   auto kern = fused_codes_kernel<WM, WN, NT, ST, ME>;
-  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return e;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(nb, kern, Cfg<WM, WN, NT, ST, ME>::THREADS,
-                                                       smem);
+  return blocks_per_sm(reinterpret_cast<const void*>(kern), device,
+                       Cfg<WM, WN, NT, ST, ME>::THREADS, smem, nb);
 }
 
 }  // namespace
@@ -350,8 +347,9 @@ int longbow_fused_codes_scan_plan(int device, int B, int N, int D, int K, int* p
     return cfg == 0 ? smem_bytes(Wide::QB, Wide::TN, Wide::STAGES_, nchunks, cap)
                     : smem_bytes(Narrow::QB, Narrow::TN, Narrow::STAGES_, nchunks, cap);
   };
-  auto occupancy = [](int cfg, int smem, int* nb) {
-    return cfg == 0 ? blocks_per_sm(Wide{}, smem, nb) : blocks_per_sm(Narrow{}, smem, nb);
+  auto occupancy = [device](int cfg, int smem, int* nb) {
+    return cfg == 0 ? occupancy_of(Wide{}, device, smem, nb)
+                    : occupancy_of(Narrow{}, device, smem, nb);
   };
   return choose_plan(device, B, N, K, smem_of, occupancy, plan);
 }
@@ -370,30 +368,41 @@ int longbow_fused_codes_scan(int device, const void* qs, const void* qn, const v
   if (e != cudaSuccess) return e;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (cfg == 0)
-    return launch(Wide{}, qs, qn, codes, vn, gt, gt_kind, G, B, N, D, K, S, rows_per_split, cap,
+    return launch(Wide{}, device, qs, qn, codes, vn, gt, gt_kind, G, B, N, D, K, S, rows_per_split, cap,
                   smem, out_d, out_i, st);
-  return launch(Narrow{}, qs, qn, codes, vn, gt, gt_kind, G, B, N, D, K, S, rows_per_split, cap,
+  return launch(Narrow{}, device, qs, qn, codes, vn, gt, gt_kind, G, B, N, D, K, S, rows_per_split, cap,
                 smem, out_d, out_i, st);
 }
 
-// The wgmma variant (scan_wgmma.cuh): D in {64, 96, 128}, K <= 64, codes
-// 16-byte aligned, vn padded to a multiple of 128 rows with MASKED,
+// The wgmma variant (scan_wgmma.cuh): D in {64, 96, 128}, K <= 64, nq
+// (queries per block) in {16, 32, 64, 128}, codes 16-byte aligned, vn padded to a multiple of 128 rows with MASKED,
 // qs with its columns in wgmma_k_order, rows_per_split a multiple of 128,
-// S = ceil(N / rows_per_split) and split_best [B, S] f32 filled with
-// MASKED_GUARD. Returns cudaGetLastError() after the
+// S = ceil(N / rows_per_split) and split_best [B S + ceil(B / nq)] uint32
+// filled with ordered_bits(MASKED_GUARD). Returns cudaGetLastError() after the
 // launch, -1 for a shape it does not take, -2 when shared memory is too
 // small.
 int longbow_fused_codes_scan_wgmma(int device, const void* qs, const void* qn, const void* codes,
                                    const void* vn, const void* gt, int gt_kind, int G, int B,
-                                   int N, int D, int K, int S, int rows_per_split,
+                                   int N, int D, int K, int nq, int S, int rows_per_split,
                                    void* split_best, void* out_d, void* out_i, void* stream) {
   WScanArgs a{};
   a.q = qs, a.qn = static_cast<const float*>(qn), a.rows = codes;
   a.vn = static_cast<const float*>(vn), a.gt = gt, a.gt_kind = gt_kind, a.G = G;
   a.B = B, a.N = N, a.K = K, a.rows_per_split = rows_per_split, a.alpha = -2.0f;
-  a.split_best = static_cast<float*>(split_best);
+  a.split_best = static_cast<unsigned*>(split_best);
   a.out_d = static_cast<float*>(out_d), a.out_i = static_cast<int*>(out_i);
-  return wscan_dispatch<int8_t>(a, D, device, S, static_cast<cudaStream_t>(stream));
+  return wscan_dispatch<int8_t>(a, D, nq, device, S, static_cast<cudaStream_t>(stream));
 }
+
+#ifdef LONGBOW_PROBE_COUNT
+// timing probe: the wgmma variant's appends and sorts since the last call
+// (out[0], out[1]), then zero
+int longbow_probe_counts(unsigned long long* out) {
+  cudaError_t e = cudaMemcpyFromSymbol(out, g_probe_counts, sizeof(g_probe_counts));
+  if (e != cudaSuccess) return e;
+  const unsigned long long zero[2] = {0, 0};
+  return cudaMemcpyToSymbol(g_probe_counts, zero, sizeof(zero));
+}
+#endif
 
 }  // extern "C"

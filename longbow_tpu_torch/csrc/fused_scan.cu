@@ -22,16 +22,17 @@
 // the corpus, one per query block.
 //
 // Two variants; ops/scan.py::scan_variant picks one from the shape:
-//   - "wgmma" (scan_wgmma.cuh, longbow_fused_scan_wgmma): B > 16,
-//     K <= 64, D of 64, 96 or 128, a 16-byte aligned corpus: the served
-//     batches. The main loop is K2's: 128 queries per block, a ring of
-//     128-row tiles filled by cp.async.bulk and handed over through
-//     mbarriers, the rows as the register operand of wgmma.mma_async
-//     m64n128k16 (read from the stage 16 bytes per lane, so no tensor map
-//     and no swizzled corpus layout is needed), no block-wide barrier per
-//     tile;
-//   - "mma" (this file, longbow_fused_scan): every other shape: single
-//     queries and small batches, K up to 512, any D, unaligned rows.
+//   - "wgmma" (scan_wgmma.cuh, longbow_fused_scan_wgmma): K <= 64, D of
+//     64, 96 or 128, a 16-byte aligned corpus, any batch: the served
+//     shapes, single queries included. The main loop is K2's: 16, 32, 64
+//     or 128 queries per block, a ring of 128-row tiles filled by
+//     cp.async.bulk and handed over through mbarriers, the rows as the
+//     register operand of wgmma.mma_async m64nNQk16 (read from the stage
+//     16 bytes per lane, so no tensor map and no swizzled corpus layout is
+//     needed), no block-wide barrier per tile;
+//   - "mma" (this file, longbow_fused_scan): every other shape: K up to
+//     512, any D, unaligned rows. The LONGBOW_PROBE_* names compile stages
+//     of its loop out for tools/probe_scan_stages.py.
 //       - bytes: the grid is (ceil(B/QB), S), with S chosen from the
 //         occupancy so that the blocks fill every SM in one wave (at B=1
 //         two blocks per SM); each block streams its split through a ring
@@ -196,9 +197,12 @@ fused_scan_kernel(const __nv_bfloat16* __restrict__ q, const float* __restrict__
       // the next fetch refills (it was read in iteration it - 1)
       cp_async_wait<STAGES - 2>();
       __syncthreads();
+#ifndef LONGBOW_PROBE_NO_FETCH
       if (it + STAGES - 1 < total) fetch(it + STAGES - 1, (it + STAGES - 1) % STAGES);
+#endif
       asm volatile("cp.async.commit_group;\n" ::);
       if (nchunks > 1) load_a(afr, q_s, qstride, qa, c, tig);
+#ifndef LONGBOW_PROBE_NO_MMA
       // B fragments of two 8-row groups per ldmatrix: matrices (rows,
       // dims) = (8 nt, ks*16 + 0..7), (8 nt, +8..15), (8 (nt+1), ..)
       const __nv_bfloat16* cs = c_s + (it % STAGES) * TN * kCStride + ld_off;
@@ -212,7 +216,19 @@ fused_scan_kernel(const __nv_bfloat16* __restrict__ q, const float* __restrict__
           mma_bf16(acc[2 * np + 1], afr[ks], b[2], b[3]);
         }
       }
+#endif
     }
+
+#ifdef LONGBOW_PROBE_NO_EPILOGUE
+    // timing probe: the products stay live, nothing is scored or selected
+    float keep = 0.0f;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) keep += acc[nt][e];
+    if (keep == 1.2345e-30f) cnt_s[0] = 1;
+    __syncthreads();
+#else
 
     // epilogue: scores below the query's threshold join its buffer. The
     // tile's norms sit in the stage of its last chunk, which is refilled
@@ -237,7 +253,12 @@ fused_scan_kernel(const __nv_bfloat16* __restrict__ q, const float* __restrict__
           mn_a = fminf(mn_a, sc);
       }
     }
+#ifdef LONGBOW_PROBE_NO_SELECT   // timing probe: scored and tested, nothing kept
+    if (mn_a + mn_b == 1.2345e-30f) cnt_s[0] = 1;
+    if (false) {
+#else
     if ((qa_ok && mn_a < th_a) || (qb_ok && mn_b < th_b)) {
+#endif
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
 #pragma unroll
@@ -268,6 +289,7 @@ fused_scan_kernel(const __nv_bfloat16* __restrict__ q, const float* __restrict__
       }
       __syncwarp();
     }
+#endif  // LONGBOW_PROBE_NO_EPILOGUE
   }
 
   // each warp finishes the queries it maintained
@@ -286,15 +308,15 @@ fused_scan_kernel(const __nv_bfloat16* __restrict__ q, const float* __restrict__
   }
 }
 
-// Launch tiling C (passed as a tag) on `stream`.
+// Launch tiling C (passed as a tag) on `stream` of `device`.
 template <int WM, int WN, int NT, int ST, int ME>
-cudaError_t launch(Cfg<WM, WN, NT, ST, ME>, const void* q, const void* qn, const void* corpus,
+cudaError_t launch(Cfg<WM, WN, NT, ST, ME>, int device, const void* q, const void* qn, const void* corpus,
                    const void* vn, int B, int N, int D, int K, int l2, int S,
                    int rows_per_split, int cap, int smem, void* out_d, void* out_i,
                    cudaStream_t stream) {
   using C = Cfg<WM, WN, NT, ST, ME>;
   auto kern = fused_scan_kernel<WM, WN, NT, ST, ME>;
-  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t e = allow_smem(reinterpret_cast<const void*>(kern), device, smem);
   if (e != cudaSuccess) return e;
   const int vec16 = (D % 8 == 0) && (reinterpret_cast<uintptr_t>(corpus) % 16 == 0);
   dim3 grid((B + C::QB - 1) / C::QB, S);
@@ -307,12 +329,10 @@ cudaError_t launch(Cfg<WM, WN, NT, ST, ME>, const void* q, const void* qn, const
 
 // Blocks of tiling C that fit on one SM with `smem` bytes (0 if none).
 template <int WM, int WN, int NT, int ST, int ME>
-cudaError_t blocks_per_sm(Cfg<WM, WN, NT, ST, ME>, int smem, int* nb) {
+cudaError_t occupancy_of(Cfg<WM, WN, NT, ST, ME>, int device, int smem, int* nb) {
   auto kern = fused_scan_kernel<WM, WN, NT, ST, ME>;
-  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return e;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(nb, kern, Cfg<WM, WN, NT, ST, ME>::THREADS,
-                                                       smem);
+  return blocks_per_sm(reinterpret_cast<const void*>(kern), device,
+                       Cfg<WM, WN, NT, ST, ME>::THREADS, smem, nb);
 }
 
 }  // namespace
@@ -328,8 +348,9 @@ int longbow_fused_scan_plan(int device, int B, int N, int D, int K, int* plan) {
     return cfg == 0 ? smem_bytes(Wide::QB, Wide::TN, Wide::STAGES_, nchunks, cap)
                     : smem_bytes(Narrow::QB, Narrow::TN, Narrow::STAGES_, nchunks, cap);
   };
-  auto occupancy = [](int cfg, int smem, int* nb) {
-    return cfg == 0 ? blocks_per_sm(Wide{}, smem, nb) : blocks_per_sm(Narrow{}, smem, nb);
+  auto occupancy = [device](int cfg, int smem, int* nb) {
+    return cfg == 0 ? occupancy_of(Wide{}, device, smem, nb)
+                    : occupancy_of(Narrow{}, device, smem, nb);
   };
   return choose_plan(device, B, N, K, smem_of, occupancy, plan);
 }
@@ -346,30 +367,42 @@ int longbow_fused_scan(int device, const void* q, const void* qn, const void* co
   if (e != cudaSuccess) return e;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (cfg == 0)
-    return launch(Wide{}, q, qn, corpus, vn, B, N, D, K, l2, S, rows_per_split, cap, smem, out_d,
+    return launch(Wide{}, device, q, qn, corpus, vn, B, N, D, K, l2, S, rows_per_split, cap, smem, out_d,
                   out_i, st);
-  return launch(Narrow{}, q, qn, corpus, vn, B, N, D, K, l2, S, rows_per_split, cap, smem,
+  return launch(Narrow{}, device, q, qn, corpus, vn, B, N, D, K, l2, S, rows_per_split, cap, smem,
                 out_d, out_i, st);
 }
 
-// The wgmma variant (scan_wgmma.cuh): D in {64, 96, 128}, K <= 64, corpus
-// 16-byte aligned, vn padded to a multiple of 128 rows with MASKED, q
-// with its columns in wgmma_k_order, rows_per_split a multiple of 128,
-// S = ceil(N / rows_per_split) and split_best [B, S] f32 filled with
-// MASKED_GUARD. Returns cudaGetLastError() after the
+// The wgmma variant (scan_wgmma.cuh): D in {64, 96, 128}, K <= 64, nq
+// (queries per block) in {16, 32, 64, 128}, corpus 16-byte aligned, vn
+// padded to a multiple of 128 rows with MASKED, q with its columns in
+// wgmma_k_order, rows_per_split a multiple of 128,
+// S = ceil(N / rows_per_split) and split_best [B S + ceil(B / nq)] uint32
+// filled with ordered_bits(MASKED_GUARD). Returns cudaGetLastError() after the
 // launch, -1 for a shape it does not take, -2 when shared memory is too
 // small.
 int longbow_fused_scan_wgmma(int device, const void* q, const void* qn, const void* corpus,
-                             const void* vn, int B, int N, int D, int K, int l2, int S,
+                             const void* vn, int B, int N, int D, int K, int l2, int nq, int S,
                              int rows_per_split, void* split_best, void* out_d, void* out_i,
                              void* stream) {
   WScanArgs a{};
   a.q = q, a.qn = static_cast<const float*>(qn), a.rows = corpus;
   a.vn = static_cast<const float*>(vn), a.gt = nullptr, a.gt_kind = 0, a.G = 0;
   a.B = B, a.N = N, a.K = K, a.rows_per_split = rows_per_split, a.alpha = l2 ? -2.0f : -1.0f;
-  a.split_best = static_cast<float*>(split_best);
+  a.split_best = static_cast<unsigned*>(split_best);
   a.out_d = static_cast<float*>(out_d), a.out_i = static_cast<int*>(out_i);
-  return wscan_dispatch<__nv_bfloat16>(a, D, device, S, static_cast<cudaStream_t>(stream));
+  return wscan_dispatch<__nv_bfloat16>(a, D, nq, device, S, static_cast<cudaStream_t>(stream));
 }
+
+#ifdef LONGBOW_PROBE_COUNT
+// timing probe: the wgmma variant's appends and sorts since the last call
+// (out[0], out[1]), then zero
+int longbow_probe_counts(unsigned long long* out) {
+  cudaError_t e = cudaMemcpyFromSymbol(out, g_probe_counts, sizeof(g_probe_counts));
+  if (e != cudaSuccess) return e;
+  const unsigned long long zero[2] = {0, 0};
+  return cudaMemcpyToSymbol(g_probe_counts, zero, sizeof(zero));
+}
+#endif
 
 }  // extern "C"

@@ -16,6 +16,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <cstring>
+#include <map>
+#include <mutex>
+#include <tuple>
+
 namespace {
 
 constexpr float kMasked = 3.0e38f;     // longbow_tpu_torch.ops.distance.MASKED
@@ -174,6 +179,41 @@ __device__ void warp_sort(float* d, int* ix, int n, int lane) {
       __syncwarp();
     }
   }
+}
+
+// Host side. cudaFuncSetAttribute and the occupancy query are CUDA API
+// calls that cost more than a small scan's launch, so each is made once
+// per kernel, device and size and remembered.
+std::mutex g_launch_mu;
+std::map<std::tuple<const void*, int>, int> g_smem_allowed;
+std::map<std::tuple<const void*, int, int, int>, int> g_blocks_per_sm;
+
+// Let `kern` launch with `smem` bytes of dynamic shared memory on `device`
+// (the current device); a kernel allowed more already is left alone.
+inline cudaError_t allow_smem(const void* kern, int device, int smem) {
+  std::lock_guard<std::mutex> hold(g_launch_mu);
+  int& allowed = g_smem_allowed[std::make_tuple(kern, device)];
+  if (smem <= allowed) return cudaSuccess;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess) allowed = smem;
+  return e;
+}
+
+// Blocks of `kern` (`threads` a block, `smem` bytes) that fit on one SM.
+inline cudaError_t blocks_per_sm(const void* kern, int device, int threads, int smem, int* nb) {
+  cudaError_t e = allow_smem(kern, device, smem);
+  if (e != cudaSuccess) return e;
+  std::lock_guard<std::mutex> hold(g_launch_mu);
+  const auto key = std::make_tuple(kern, device, threads, smem);
+  const auto it = g_blocks_per_sm.find(key);
+  if (it != g_blocks_per_sm.end()) {
+    *nb = it->second;
+    return cudaSuccess;
+  }
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(nb, kern, threads, smem);
+  if (e == cudaSuccess) g_blocks_per_sm[key] = *nb;
+  return e;
 }
 
 template <int WM, int WN, int NT, int STAGES, int MAXE>

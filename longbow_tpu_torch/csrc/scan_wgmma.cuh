@@ -1,18 +1,22 @@
 // The wgmma main loop shared by the fused scans: K1 (fused_scan.cu, bf16
 // rows; replaces longbow_tpu/ops/pallas_scan.py::fused_flat_search) and K2
-// (fused_codes_scan.cu, int8 codes; replaces ::fused_codes_search), for
-// batches on an H100: B > 16, K <= 64, D of 64, 96 or 128, 16-byte aligned
+// (fused_codes_scan.cu, int8 codes; replaces ::fused_codes_search), on an
+// H100, for any batch with K <= 64, D of 64, 96 or 128 and 16-byte aligned
 // rows (ops/scan.py::scan_variant sends every other shape to the mma.sync
 // variants).
 //
-// What bounds the scans at these shapes is the tensor-core work and, before
-// it, one pass over the corpus per query block. The mma.sync variants lost
-// most of each tile's time to the copy latency (one tile in flight), a
-// barrier per tile, the int8 conversion repeated by four warps, and
-// selection. Here a block takes 128 queries (half the passes) and one
-// split of the corpus. It has three consumer warpgroups, a copy warp and a
-// group-term warp, and no block-wide barrier inside its loop over the
-// tiles:
+// What bounds the scans is, at a few queries, the bytes of the corpus
+// (1M x 128 bf16 rows: 0.08 ms at 3.35 TB/s) and, at hundreds, the
+// tensor-core work and one pass over the corpus per query block. The
+// mma.sync variants lost most of each tile's time to the copy latency (one
+// tile in flight), a barrier per tile, the int8 conversion repeated by four
+// warps, and selection. Here a block takes NQ queries (16, 32, 64 or 128:
+// ops/scan.py::wgmma_width, the narrowest that holds the batch, else
+// blocks of 128) and one split of the corpus. A narrow block keeps the same
+// loop with NQ / 2 accumulators a thread and smaller query and candidate
+// buffers, so it takes more ring stages (up to 8). It has three consumer
+// warpgroups, a copy warp and a group-term warp, and no block-wide barrier
+// inside its loop over the tiles:
 //   - the copy warp's first lane fills a ring of 128-row tiles (3 to 8
 //     stages, as shared memory allows) with one cp.async.bulk per tile and
 //     one for the tile's 128 row terms; each stage has a "full" mbarrier,
@@ -21,9 +25,9 @@
 //   - the product is turned round: A is 64 corpus rows, a slab (half a
 //     tile; the warpgroups take the slabs in turn), read from the stage
 //     into registers (int8 codes are converted to bf16 there, once per
-//     warpgroup), B is the block's 128 queries, staged once in shared
+//     warpgroup), B is the block's NQ queries, staged once in shared
 //     memory in the K-major 128-byte-swizzled layout, and
-//     wgmma.mma_async m64n128k16 accumulates [64 rows x 128 queries] in
+//     wgmma.mma_async m64nNQk16 accumulates [64 rows x NQ queries] in
 //     f32 registers. The warpgroups run free of each other, so one's
 //     epilogue overlaps another's wgmma;
 //   - a thread reads 16 bytes of a row at a time, which are not the k
@@ -41,27 +45,38 @@
 //     (waiting until every reserved slot is written), cuts it to K and
 //     lowers the threshold; the warp then tries again. A sort stalls only
 //     the warps that have a score for that very query. The splits of a
-//     query share a bound through device memory (try_sort), so that each
-//     does not warm up a whole top-K of its own.
+//     query share a bound through device memory (shared_bound), so that
+//     each does not warm up a whole top-K of its own;
+//   - the warm start, where every split's best row alone makes that bound
+//     (S >= K: batches of up to 256 over enough rows): the first slot of
+//     the ring scans tile 0 only to publish each query's best row of it,
+//     the group-term warp (free without a group term; else each consumer
+//     warp, once) lowers the thresholds once the bound exists, and tile 0
+//     comes again as the last slot. Measured at B = 48 over 1M x 128
+//     rows on an H100 (tools/probe_scan_stages.py --k1-ring): appends a
+//     launch 1,083,766 -> 276,728, sorts 27,097 -> 151.
 // With 14 warps a thread may use 144 registers, and the kernels need 125 at
-// most, so setmaxnreg is not needed. The LONGBOW_PROBE_* names compile
-// stages of the loop out for tools/probe_scan_stages.py; LONGBOW_WGROUPS
-// and LONGBOW_WCAP are its knobs.
+// most (NQ = 128; 70 to 112 narrower), so setmaxnreg is not needed. The
+// LONGBOW_PROBE_* names compile stages of the loop out, or count appends
+// and sorts, for tools/probe_scan_stages.py; LONGBOW_WGROUPS (2 or 3) and
+// LONGBOW_WCAP are its knobs.
 #pragma once
 
 #include "scan_common.cuh"
 
 namespace {
 
-constexpr int kWQ = 128;          // queries per block
 constexpr int kWT = 128;          // corpus rows per tile (one group of the group term)
 constexpr int kWMaxK = 64;        // largest K this variant takes
 #ifndef LONGBOW_WGROUPS
 #define LONGBOW_WGROUPS 3
 #endif
 constexpr int kWGroups = LONGBOW_WGROUPS;       // consumer warpgroups
-constexpr int kWCopyWarp = 4 * kWGroups;        // then the group-term warp
+constexpr int kWCopyWarp = 4 * kWGroups;        // then the group-term (or bound) warp
 constexpr int kWThreads = 32 * (4 * kWGroups + 2);
+// the warm start's longest wait for the other splits' first slots (they all
+// run in one wave, so it ends sooner; this bounds a launch that does not)
+constexpr long long kWBoundWaitCycles = 200000;
 constexpr int kWMaxStages = 8;
 #ifndef LONGBOW_WCAP
 #define LONGBOW_WCAP 128
@@ -69,7 +84,13 @@ constexpr int kWMaxStages = 8;
 constexpr int kWCapMost = LONGBOW_WCAP;   // most candidate slots per query (a multiple of 8, <= 128)
 constexpr int kWGtTiles = 8;      // tiles per slot of the group-term ring
 constexpr int kWLocked = 1 << 30; // a buffer's count while it is being sorted
+constexpr int kWMaxSplits = 256;  // splits a query's shared bound is taken over
 constexpr unsigned kFullWarp = 0xffffffffu;
+
+#ifdef LONGBOW_PROBE_COUNT
+// timing probe: appends and sorts of every launch, read by the probe tool
+__device__ unsigned long long g_probe_counts[2];
+#endif
 
 struct WScanArgs {
   const void* q;        // [B, D] bf16, columns in wgmma_k_order
@@ -79,7 +100,10 @@ struct WScanArgs {
   const void* gt;       // [B, G] f32 (gt_kind 1) or bf16 (2), unused when 0
   int gt_kind, G, B, N, K, rows_per_split, stages, cap;
   float alpha;          // score = qn + alpha q.v + vn (+ gt)
-  float* split_best;    // [B, S], MASKED_GUARD at launch: see try_sort
+  unsigned split_guard; // ordered_bits(MASKED_GUARD): split_best's fill
+  unsigned* split_best; // [B, S], ordered_bits(MASKED_GUARD) at launch: see shared_bound;
+                        // then one counter a query block, at the same value:
+                        // consumer warps past the warm start's first slot
   float* out_d;         // [B, S, K]
   int* out_i;
 };
@@ -126,11 +150,54 @@ __device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, int byt
       : "memory");
 }
 
-// 128 threads of one warpgroup: D[64 x 128] (+)= A[64 x 16] B[16 x 128],
-// A from this thread's registers (the A fragment of mma.sync m16n8k16 for
-// its warp's 16 rows), B from shared memory through a descriptor
-__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32_t (&a)[4],
-                                                    uint64_t desc_b, int scale_d) {
+// 128 threads of one warpgroup: D[64 x NQ] (+)= A[64 x 16] B[16 x NQ] for
+// NQ = 2 x (the accumulator's length) in {16, 32, 64, 128}, A from this
+// thread's registers (the A fragment of mma.sync m16n8k16 for its warp's
+// 16 rows), B from shared memory through a descriptor
+__device__ __forceinline__ void wgmma_rs(float (&d)[8], const uint32_t (&a)[4],
+                                         uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4],
+                                         uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                         uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
+                                         uint64_t desc_b, int scale_d) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
@@ -226,13 +293,13 @@ __device__ __forceinline__ unsigned long long pack_candidate(float sc, int row) 
 
 // Per-query selection state in shared memory.
 struct WSelect {
-  unsigned long long* buf;   // [128, cap]
+  unsigned long long* buf;   // [NQ, cap]
   float* thr;                // a score must lie below it to enter
   int* cnt;                  // slots reserved (kWLocked and above while sorting)
   int* wr;                   // slots written
   int* lock;
   int cap, K;
-  float* split_best;         // this block's queries' rows of WScanArgs::split_best
+  unsigned* split_best;      // this block's queries' rows of WScanArgs::split_best
   int S, split;
 };
 
@@ -244,6 +311,9 @@ __device__ __forceinline__ bool try_append(const WSelect& s, int q, float sc, in
   s.buf[q * s.cap + pos] = pack_candidate(sc, row);
   __threadfence_block();
   atomicAdd(&s.wr[q], 1);
+#ifdef LONGBOW_PROBE_COUNT
+  atomicAdd(&g_probe_counts[0], 1ull);
+#endif
   return true;
 }
 
@@ -278,23 +348,80 @@ __device__ __forceinline__ void warp_sort128(unsigned long long* b, int n, int l
   sort_candidates<4>(b, n, lane);
 }
 
+// A float's bits in an order that unsigned comparison keeps.
+__device__ __forceinline__ unsigned ordered_bits(float f) {
+  const unsigned u = __float_as_uint(f);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+__device__ __forceinline__ float from_ordered_bits(unsigned o) {
+  return __uint_as_float((o & 0x80000000u) ? (o & 0x7fffffffu) : ~o);
+}
+
+// The m-th smallest (1-based, m <= S <= 32 E) of a query's S published
+// values (ordered bits): one warp builds the bits from the top, keeping a
+// bit when fewer than m values lie below the prefix with it set (a count
+// and a warp sum a bit).
+template <int E>
+__device__ unsigned mth_smallest(const volatile unsigned* best, int S, int m, int lane) {
+  unsigned v[E];
+#pragma unroll
+  for (int r = 0; r < E; ++r) {
+    const int i = r * 32 + lane;
+    v[r] = i < S ? best[i] : 0xffffffffu;
+  }
+  unsigned x = 0;
+  for (int bit = 31; bit >= 0; --bit) {
+    const unsigned t = x | (1u << bit);
+    int below = 0;
+#pragma unroll
+    for (int r = 0; r < E; ++r) below += v[r] < t;
+    if (__reduce_add_sync(kFullWarp, below) < m) x = t;
+  }
+  return x;
+}
+
+// The bound on query q's K-th best of the whole corpus that its S splits
+// share. Each split publishes its r-th best so far, r = ceil(K / S), in
+// split_best[q][split] (as ordered bits, by atomicMin, so a value never
+// grows); at least r rows of a split score at or below its value, so with
+// m = ceil(K / r) the m-th smallest of the S values has at least m r >= K
+// rows at or below it, and nothing above it can be among the K best. Until
+// m splits have published it is MASKED_GUARD. Where r = 1 (S >= K, as at
+// B = 1 over 1M rows: S = 131, m = 64, about the median split's best row
+// so far, far below a split's own 64th best) the warp searches for it;
+// where r > 1 it takes the largest value (m r >= K holds for m = S too), a
+// warp maximum, as before the search was added: with the search there,
+// rare launches on an H100 ran far slower than their median (300 and 384
+// queries over 131,072 int8 codes).
+// A stale read is only a looser bound.
+__device__ float shared_bound(const WSelect& s, int q, int lane) {
+  const int r = (s.K + s.S - 1) / s.S, m = (s.K + r - 1) / r;
+  const volatile unsigned* best = s.split_best + (size_t)q * s.S;
+  unsigned x;
+  if (r > 1 || m == s.S) {
+    x = 0;
+    for (int i = lane; i < s.S; i += 32) x = max(x, best[i]);
+    x = __reduce_max_sync(kFullWarp, x);
+  } else if (s.S <= 128) {
+    x = mth_smallest<4>(best, s.S, m, lane);
+  } else {
+    x = mth_smallest<kWMaxSplits / 32>(best, s.S, m, lane);
+  }
+  return from_ordered_bits(x);
+}
+
 // The calling warp takes query q's lock if it is free, closes the buffer
-// to appends, waits until every reserved slot is written, sorts, keeps K
-// and lowers the threshold.
-//
-// The threshold is the smaller of two bounds on the K-th best of the whole
-// corpus. One is this split's own K-th best. The other comes from all S
-// splits of the query: each publishes its r-th best so far, r = ceil(K / S),
-// in split_best[q][split]; once every split has, at least S r >= K rows
-// score at or below the largest of those values, so nothing above it can
-// be among the K best. The splits see like rows at a like pace, so this
-// bound is near the K-th best of all rows seen so far by all of them, and
-// a split appends and sorts several times less than on its own bound. A
-// stale read is only a looser bound: a split's value never grows.
+// to appends, waits until every reserved slot is written, sorts, keeps K,
+// publishes its r-th best and lowers the threshold to the smaller of this
+// split's own K-th best and the splits' shared bound (shared_bound).
 __device__ void try_sort(const WSelect& s, int q, int lane) {
   int got = 0;
   if (lane == 0) got = atomicCAS(&s.lock[q], 0, 1) == 0;
   if (!__shfl_sync(kFullWarp, got, 0)) return;
+#ifdef LONGBOW_PROBE_COUNT
+  if (lane == 0) atomicAdd(&g_probe_counts[1], 1ull);
+#endif
   int old = 0;
   if (lane == 0) old = atomicExch(&s.cnt[q], kWLocked);  // appends fail from here on
   const int n = min(__shfl_sync(kFullWarp, old, 0), s.cap);
@@ -308,15 +435,10 @@ __device__ void try_sort(const WSelect& s, int q, int lane) {
   if (s.S > 1) {
     const int r = (s.K + s.S - 1) / s.S;
     const float mine = kept >= r ? __uint_as_float(static_cast<unsigned int>(b[r - 1] >> 32)) : kGuard;
-    volatile float* best = s.split_best + (size_t)q * s.S;
-    float most = mine;
-    for (int i = lane; i < s.S; i += 32)
-      if (i != s.split) most = fmaxf(most, best[i]);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      most = fmaxf(most, __shfl_xor_sync(kFullWarp, most, off));
-    if (lane == 0 && mine < kGuard) best[s.split] = mine;
-    bound = fminf(bound, most);
+    if (lane == 0 && mine < kGuard)
+      atomicMin(s.split_best + (size_t)q * s.S + s.split, ordered_bits(mine));
+    __syncwarp();
+    bound = fminf(bound, shared_bound(s, q, lane));
   }
   if (lane == 0) {
     if (bound < *reinterpret_cast<volatile float*>(&s.thr[q]))
@@ -329,14 +451,28 @@ __device__ void try_sort(const WSelect& s, int q, int lane) {
   __syncwarp();
 }
 
-// Elem is int8_t (K2) or __nv_bfloat16 (K1); KS = D / 16 k-steps.
-template <class Elem, int KS>
+// The warm start: wait (one warp, converged) until every consumer warp of
+// the query block's S splits has published its first slot, or
+// kWBoundWaitCycles have passed.
+__device__ void wait_for_splits(const volatile unsigned* counter, unsigned want, int lane) {
+  const long long t0 = clock64();
+  while (!__shfl_sync(kFullWarp, *counter == want || clock64() - t0 > kWBoundWaitCycles, 0))
+    __nanosleep(100);
+  __threadfence();   // the publishes the count stood for are seen before the bound is read
+}
+
+// Elem is int8_t (K2) or __nv_bfloat16 (K1); KS = D / 16 k-steps; NQ
+// queries per block (16, 32, 64 or 128).
+template <class Elem, int KS, int NQ>
 __global__ void __launch_bounds__(kWThreads, 1) scan_wgmma_kernel(const WScanArgs p) {
+  static_assert(NQ == 16 || NQ == 32 || NQ == 64 || NQ == 128,
+                "a width wgmma_rs is written for");
   constexpr int D = KS * 16;
   constexpr int kRowBytes = D * static_cast<int>(sizeof(Elem));
   constexpr int kTileBytes = kWT * kRowBytes;
   constexpr int kQBlocks = (KS + 3) / 4;          // 64-dim blocks of the query operand
-  constexpr int kQBlockBytes = kWQ * 128;
+  constexpr int kQBlockBytes = NQ * 128;          // a multiple of 1,024: each block stays aligned
+  constexpr int kAcc = NQ / 2;                    // accumulators a thread
 
   extern __shared__ unsigned char smem_raw[];
   // the swizzled operand wants its base 1,024-aligned
@@ -344,25 +480,43 @@ __global__ void __launch_bounds__(kWThreads, 1) scan_wgmma_kernel(const WScanArg
   unsigned char* q_s = smem;
   unsigned char* ring = q_s + kQBlocks * kQBlockBytes;
   float* vn_ring = reinterpret_cast<float*>(ring + p.stages * kTileBytes);
-  float* qg_ring = vn_ring + p.stages * kWT;      // [2][kWGtTiles][128], qn + gt
+  float* qg_ring = vn_ring + p.stages * kWT;      // [2][kWGtTiles][NQ], qn + gt
   unsigned long long* buf =
-      reinterpret_cast<unsigned long long*>(qg_ring + (p.gt_kind ? 2 * kWGtTiles * kWQ : 0));
-  float* qn_s = reinterpret_cast<float*>(buf + kWQ * p.cap);
-  float* thr_s = qn_s + kWQ;
-  int* cnt_s = reinterpret_cast<int*>(thr_s + kWQ);
-  int* wr_s = cnt_s + kWQ;
-  int* lock_s = wr_s + kWQ;
-  uint64_t* bars = reinterpret_cast<uint64_t*>(lock_s + kWQ);
+      reinterpret_cast<unsigned long long*>(qg_ring + (p.gt_kind ? 2 * kWGtTiles * NQ : 0));
+  float* qn_s = reinterpret_cast<float*>(buf + NQ * p.cap);
+  float* thr_s = qn_s + NQ;
+  int* cnt_s = reinterpret_cast<int*>(thr_s + NQ);
+  int* wr_s = cnt_s + NQ;
+  int* lock_s = wr_s + NQ;
+  float* qg0_s = reinterpret_cast<float*>(lock_s + NQ);  // qn + tile 0's group term
+  int* flags = reinterpret_cast<int*>(qg0_s + NQ);  // [0] the warm start's bound is in place, [1] consumer warps done
+  uint64_t* bars = reinterpret_cast<uint64_t*>(flags + 2);
   const uint32_t full0 = smem_u32(bars), empty0 = full0 + 8 * kWMaxStages;
   const uint32_t gt_full0 = empty0 + 8 * kWMaxStages, gt_empty0 = gt_full0 + 16;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int q0 = blockIdx.x * kWQ;
+  const int q0 = blockIdx.x * NQ;
   const int S = gridDim.y, split = blockIdx.y;
   const int row_begin = split * p.rows_per_split;
   const int row_end = min(p.N, row_begin + p.rows_per_split);
   const int ntiles = row_end > row_begin ? (row_end - row_begin + kWT - 1) / kWT : 0;
   const int grp0 = row_begin / kWT;               // the first tile's group
+  // The warm start, where shared_bound's r is 1 (S >= K): the ring's first
+  // slot is tile 0 scanned only to publish each query's best row of it, so
+  // that the splits share a bound before any of them appends; tile 0 comes
+  // again as the last slot, an ordinary tile then (a score is published one
+  // ulp above its row's, so that row passes the strict threshold test).
+#ifdef LONGBOW_PROBE_NO_WARM
+  const bool warm = false;
+#else
+  const bool warm = S >= p.K && ntiles > 0;
+#endif
+  const int nslots = ntiles + (warm ? 1 : 0);    // slot i holds tile (i < ntiles ? i : 0)
+  // the query block's count of consumer warps past the first slot (it
+  // starts at ordered_bits(MASKED_GUARD), the fill of split_best; the 8
+  // warps of the first slot's two slabs count in each split)
+  unsigned* const split_counter = p.split_best + (size_t)p.B * S + blockIdx.x;
+  const unsigned counted_splits = p.split_guard + 8u * S;
 
   if (tid == 0) {
     for (int s = 0; s < p.stages; ++s) {
@@ -377,7 +531,7 @@ __global__ void __launch_bounds__(kWThreads, 1) scan_wgmma_kernel(const WScanArg
   }
   // the block's queries, 16 bytes at a time, into the swizzled layout:
   // chunk c of row n lies at chunk (c ^ (n & 7)) of its 128-byte row
-  for (int idx = tid; idx < kWQ * (D / 8); idx += kWThreads) {
+  for (int idx = tid; idx < NQ * (D / 8); idx += kWThreads) {
     const int n = idx / (D / 8), c = idx % (D / 8);
     uint4 v = make_uint4(0u, 0u, 0u, 0u);
     if (q0 + n < p.B)
@@ -386,7 +540,7 @@ __global__ void __launch_bounds__(kWThreads, 1) scan_wgmma_kernel(const WScanArg
     *reinterpret_cast<uint4*>(q_s + (c / 8) * kQBlockBytes + n * 128 +
                               (((c & 7) ^ (n & 7)) << 4)) = v;
   }
-  for (int r = tid; r < kWQ; r += kWThreads) {
+  for (int r = tid; r < NQ; r += kWThreads) {
     const bool real = q0 + r < p.B;
     qn_s[r] = real ? p.qn[q0 + r] : 0.0f;
     thr_s[r] = real ? kGuard : -kMasked;   // a padding query takes no score
@@ -394,6 +548,7 @@ __global__ void __launch_bounds__(kWThreads, 1) scan_wgmma_kernel(const WScanArg
     wr_s[r] = 0;
     lock_s[r] = 0;
   }
+  if (tid < 2) flags[tid] = 0;
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // wgmma reads q_s
   __syncthreads();
 
@@ -401,10 +556,10 @@ __global__ void __launch_bounds__(kWThreads, 1) scan_wgmma_kernel(const WScanArg
     // ---- the copy warp: one lane keeps the ring full
     if (lane == 0) {
       const Elem* rows = static_cast<const Elem*>(p.rows);
-      for (int tile = 0; tile < ntiles; ++tile) {
-        const int s = tile % p.stages;
-        if (tile >= p.stages) mbar_wait(empty0 + 8 * s, ((tile / p.stages) - 1) & 1);
-        const int row0 = row_begin + tile * kWT;
+      for (int slot = 0; slot < nslots; ++slot) {
+        const int s = slot % p.stages;
+        if (slot >= p.stages) mbar_wait(empty0 + 8 * s, ((slot / p.stages) - 1) & 1);
+        const int row0 = row_begin + (slot < ntiles ? slot : 0) * kWT;
         const int bytes = min(kWT, p.N - row0) * kRowBytes;  // the ragged last tile copies less
         mbar_expect_tx(full0 + 8 * s, bytes + kWT * 4);
         bulk_copy(smem_u32(ring + s * kTileBytes), rows + (size_t)row0 * D, bytes, full0 + 8 * s);
@@ -413,11 +568,36 @@ __global__ void __launch_bounds__(kWThreads, 1) scan_wgmma_kernel(const WScanArg
     }
   } else if (warp == kWCopyWarp + 1) {
     // ---- the group-term warp: qn + gt of the split's tiles
-    // 8 i .. 8 i + 7 into slot i & 1; a lane takes four queries and reads
+    // 8 i .. 8 i + 7 into slot i & 1; a lane takes every 32nd query and reads
     // each one's eight values with one or two 16-byte loads where the
     // addresses allow (wgmma_plan makes a split start at a multiple of 8
-    // groups), else one by one
-    if (p.gt_kind) {
+    // groups), else one by one.
+    // Without a group term it is the bound warp (the warm start): once
+    // every split of the query block has published its first slot
+    // (wait_for_splits) it lowers each query's threshold to the splits'
+    // shared bound and tells the consumers, who wait for that before their
+    // second slot; then it lowers them again every few microseconds until
+    // the consumers are done.
+    if (!p.gt_kind) {
+      if (warm) {
+        const WSelect sel{buf, thr_s, cnt_s, wr_s, lock_s, p.cap, p.K,
+                          p.split_best + (size_t)q0 * S, S, split};
+        volatile int* vflags = flags;
+        wait_for_splits(split_counter, counted_splits, lane);
+        // every decision below is lane 0's, so the warp stays converged
+        for (bool first = true; first || __shfl_sync(kFullWarp, vflags[1], 0) < 4 * kWGroups;
+             first = false) {
+          for (int ql = 0; ql < NQ && q0 + ql < p.B; ++ql) {
+            const float x = shared_bound(sel, ql, lane);
+            if (lane == 0 && x < *reinterpret_cast<volatile float*>(&thr_s[ql]))
+              *reinterpret_cast<volatile float*>(&thr_s[ql]) = x;
+          }
+          __syncwarp();
+          if (first && lane == 0) vflags[0] = 1;
+          __nanosleep(2000);
+        }
+      }
+    } else {
       const int esize = p.gt_kind == 1 ? 4 : 2;
       const bool vec = ((size_t)p.G * esize) % 16 == 0 && grp0 % kWGtTiles == 0 &&
                        reinterpret_cast<uintptr_t>(p.gt) % 16 == 0;
@@ -426,10 +606,9 @@ __global__ void __launch_bounds__(kWThreads, 1) scan_wgmma_kernel(const WScanArg
         const int slot = i & 1;
         if (i >= 2) mbar_wait(gt_empty0 + 8 * slot, ((i >> 1) - 1) & 1);
         const int gbase = grp0 + i * kWGtTiles;
-        float* dst = qg_ring + slot * kWGtTiles * kWQ;
+        float* dst = qg_ring + slot * kWGtTiles * NQ;
 #pragma unroll
-        for (int qi = 0; qi < kWQ / 32; ++qi) {
-          const int q = lane + 32 * qi;
+        for (int q = lane; q < NQ; q += 32) {
           float v[kWGtTiles];
 #pragma unroll
           for (int j = 0; j < kWGtTiles; ++j) v[j] = 0.0f;
@@ -464,7 +643,8 @@ __global__ void __launch_bounds__(kWThreads, 1) scan_wgmma_kernel(const WScanArg
           }
           const float qn = qn_s[q];
 #pragma unroll
-          for (int j = 0; j < kWGtTiles; ++j) dst[j * kWQ + q] = qn + v[j];
+          for (int j = 0; j < kWGtTiles; ++j) dst[j * NQ + q] = qn + v[j];
+          if (i == 0) qg0_s[q] = qn + v[0];  // for the warm start's last slot
         }
         __syncwarp();
         if (lane == 0) mbar_arrive(gt_full0 + 8 * slot);
@@ -474,23 +654,42 @@ __global__ void __launch_bounds__(kWThreads, 1) scan_wgmma_kernel(const WScanArg
     // ---- the consumers. A tile is two 64-row slabs; slab number
     // 2 tile + half goes to warpgroup (slab % kWGroups). This lane holds
     // rows r0 and r1 of its slab against queries 8 j + 2 t, 8 j + 2 t + 1
-    // (j < 16): acc[4 j + 2 (row) + (query)]
+    // (j < NQ / 8): acc[4 j + 2 (row) + (query)]
     const int wg = warp >> 2, g = lane >> 2, t = lane & 3;
     const WSelect sel{buf, thr_s, cnt_s, wr_s, lock_s, p.cap, p.K,
                       p.split_best + (size_t)q0 * S, S, split};
     const uint64_t desc0 = swizzled_desc(smem_u32(q_s));
     int gt_chunk = -1;   // the last slot-sized chunk of tiles whose group term was waited for
-    float acc[64];
+    float acc[kAcc];
 #pragma unroll
-    for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+    for (int i = 0; i < kAcc; ++i) acc[i] = 0.0f;
 
-    for (int tile = 0; tile < ntiles; ++tile) {
-      const int s = tile % p.stages;
-      // every warp waits for every tile and arrives at its "empty" barrier,
+    for (int slot = 0; slot < nslots; ++slot) {
+      const int tile = slot < ntiles ? slot : 0;
+      const bool publish = warm && slot == 0, revisit = slot == ntiles;
+      if (warm && slot == 1) {
+        if (!p.gt_kind) {
+          // the bound warp has lowered the thresholds (or given up waiting)
+          while (!*reinterpret_cast<volatile int*>(&flags[0])) __nanosleep(100);
+        } else {
+          // beside a group term no warp is free to: each consumer warp waits
+          // for the splits itself and lowers its own queries' thresholds
+          wait_for_splits(split_counter, counted_splits, lane);
+          for (int ql = warp; ql < NQ; ql += 4 * kWGroups) {
+            if (q0 + ql >= p.B) continue;
+            const float x = shared_bound(sel, ql, lane);
+            if (lane == 0 && x < *reinterpret_cast<volatile float*>(&thr_s[ql]))
+              *reinterpret_cast<volatile float*>(&thr_s[ql]) = x;
+          }
+          __syncwarp();
+        }
+      }
+      const int s = slot % p.stages;
+      // every warp waits for every slot and arrives at its "empty" barrier,
       // whether or not its warpgroup has a slab there: a stage is not
       // filled again before every thread has seen this phase of it
-      mbar_wait(full0 + 8 * s, (tile / p.stages) & 1);
-      const int half = (wg + kWGroups - (2 * tile) % kWGroups) % kWGroups;
+      mbar_wait(full0 + 8 * s, (slot / p.stages) & 1);
+      const int half = (wg + kWGroups - (2 * slot) % kWGroups) % kWGroups;
       if (half > 1) {
         __syncwarp();
         if (lane == 0) mbar_arrive(empty0 + 8 * s);
@@ -512,29 +711,29 @@ __global__ void __launch_bounds__(kWThreads, 1) scan_wgmma_kernel(const WScanArg
       wgmma_fence();
 #pragma unroll
       for (int ks = 0; ks < KS; ++ks)
-        wgmma_m64n128k16_rs(acc, a[ks],
-                            desc0 + (((ks / 4) * kQBlockBytes + (ks % 4) * 32) >> 4), ks > 0);
+        wgmma_rs(acc, a[ks], desc0 + (((ks / 4) * kQBlockBytes + (ks % 4) * 32) >> 4), ks > 0);
       wgmma_commit();
 #endif
 
-      // qn (+ the tile's group term) per query
-      const float* qg = qn_s;
+      // qn (+ the tile's group term) per query; the revisited tile 0 has
+      // its own copy, its ring slot long refilled
+      const float* qg = p.gt_kind && revisit ? qg0_s : qn_s;
       const int chunk = tile / kWGtTiles;
-      if (p.gt_kind) {
+      if (p.gt_kind && !revisit) {
         if (chunk != gt_chunk) mbar_wait(gt_full0 + 8 * (chunk & 1), (chunk >> 1) & 1);
         gt_chunk = chunk;
-        qg = qg_ring + ((chunk & 1) * kWGtTiles + tile % kWGtTiles) * kWQ;
+        qg = qg_ring + ((chunk & 1) * kWGtTiles + tile % kWGtTiles) * NQ;
       }
 #ifndef LONGBOW_PROBE_NO_MMA
       wgmma_wait_all();
 #endif
 #pragma unroll
-      for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(acc[i])::"memory");
+      for (int i = 0; i < kAcc; ++i) asm volatile("" : "+f"(acc[i])::"memory");
       const int rbase = row_begin + tile * kWT;
       if (rbase + kWT > p.N) {
         // the ragged last tile: rows past N hold what the stage held before
 #pragma unroll
-        for (int i = 0; i < 64; ++i)
+        for (int i = 0; i < kAcc; ++i)
           if (rbase + ((i & 2) ? r1 : r0) >= p.N) acc[i] = 0.0f;
       }
 
@@ -542,50 +741,82 @@ __global__ void __launch_bounds__(kWThreads, 1) scan_wgmma_kernel(const WScanArg
       // rows). The few that pass go to this thread's pending list, which
       // lives in local memory and is touched on that path only, so that the
       // accumulators stay in registers and the common path stays short
-      // (appending from each of the 64 places, inline or through a call,
-      // measured four times slower).
+      // (appending from each of the 64 places at NQ = 128, inline or
+      // through a call, measured four times slower).
       int npend = 0;
-      float pend_sc[64];
-      int pend_at[64];   // (row in the tile << 8) | query
+      float pend_sc[kAcc];
+      int pend_at[kAcc];   // (row in the tile << 8) | query
 #ifdef LONGBOW_PROBE_NO_EPILOGUE
       {   // timing probe: the products stay live, nothing is selected
         float keep = vn0 + vn1 + qg[lane];
 #pragma unroll
-        for (int i = 0; i < 64; ++i) keep += acc[i];
+        for (int i = 0; i < kAcc; ++i) keep += acc[i];
         if (keep == 1.2345e-30f) thr_s[0] = keep;
       }
 #else
+      if (publish) {
+        // the warm start's first slot: each query's best row of the warp's
+        // 16, published by the g = 0 lanes
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        const float2 qq = *reinterpret_cast<const float2*>(qg + 8 * j + 2 * t);
-        const float2 th = *reinterpret_cast<const float2*>(thr_s + 8 * j + 2 * t);
-        float sc[4];
+        for (int j = 0; j < NQ / 8; ++j) {
+          const float2 qq = *reinterpret_cast<const float2*>(qg + 8 * j + 2 * t);
+          float best2[2];
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-          sc[e] = fmaf(p.alpha, acc[4 * j + e], (e & 1) ? qq.y : qq.x) + ((e & 2) ? vn1 : vn0);
-        bool hit = fminf(sc[0], sc[2]) < th.x || fminf(sc[1], sc[3]) < th.y;
+          for (int e = 0; e < 2; ++e) {
+            const float qe = e ? qq.y : qq.x;
+            best2[e] = fminf(fmaf(p.alpha, acc[4 * j + e], qe) + vn0,
+                             fmaf(p.alpha, acc[4 * j + 2 + e], qe) + vn1);
+#pragma unroll
+            for (int off = 4; off < 32; off <<= 1)
+              best2[e] = fminf(best2[e], __shfl_xor_sync(kFullWarp, best2[e], off));
+            const int q = 8 * j + 2 * t + e;
+            // one ulp above the row's score, so that the strict threshold
+            // test of the last slot still takes the row
+            if (g == 0 && q0 + q < p.B && best2[e] < kGuard)
+              atomicMin(sel.split_best + (size_t)q * S + split,
+                        ordered_bits(nextafterf(best2[e], kMasked)));
+          }
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < NQ / 8; ++j) {
+          const float2 qq = *reinterpret_cast<const float2*>(qg + 8 * j + 2 * t);
+          const float2 th = *reinterpret_cast<const float2*>(thr_s + 8 * j + 2 * t);
+          float sc[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            sc[e] = fmaf(p.alpha, acc[4 * j + e], (e & 1) ? qq.y : qq.x) + ((e & 2) ? vn1 : vn0);
+          bool hit = fminf(sc[0], sc[2]) < th.x || fminf(sc[1], sc[3]) < th.y;
 #ifdef LONGBOW_PROBE_NO_SELECT
-        if (sc[0] + sc[1] + sc[2] + sc[3] == 1.2345e-30f) thr_s[0] = sc[0];
-        hit = false;
+          if (sc[0] + sc[1] + sc[2] + sc[3] == 1.2345e-30f) thr_s[0] = sc[0];
+          hit = false;
 #endif
-        if (__builtin_expect(hit, 0)) {
+          if (__builtin_expect(hit, 0)) {
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            if (sc[e] < ((e & 1) ? th.y : th.x)) {
+            for (int e = 0; e < 4; ++e) {
+              if (sc[e] < ((e & 1) ? th.y : th.x)) {
 #ifdef LONGBOW_PROBE_NO_APPEND   // timing probe: the test is made, nothing is kept
-              thr_s[kWQ - 1] = sc[e];
+                thr_s[NQ - 1] = sc[e];
 #else
-              pend_sc[npend] = sc[e];
-              pend_at[npend++] = (((e & 2) ? r1 : r0) << 8) | (8 * j + 2 * t + (e & 1));
+                pend_sc[npend] = sc[e];
+                pend_at[npend++] = (((e & 2) ? r1 : r0) << 8) | (8 * j + 2 * t + (e & 1));
 #endif
+              }
             }
           }
         }
       }
 #endif
-      if (p.gt_kind) {
+      if (p.gt_kind && !revisit) {
         __syncwarp();
         if (lane == 0) mbar_arrive(gt_empty0 + 8 * (chunk & 1));
+      }
+      if (publish) {   // this warp's first slot is published
+        __syncwarp();
+        if (lane == 0) {
+          __threadfence();
+          atomicAdd(split_counter, 1u);
+        }
       }
 
       // Each pending score reserves a slot of its query's buffer. One that
@@ -594,9 +825,10 @@ __global__ void __launch_bounds__(kWThreads, 1) scan_wgmma_kernel(const WScanArg
       // tries again.
       for (bool again = false; __any_sync(kFullWarp, npend != 0); again = true) {
         if (again) {
-          for (int qb = 0; qb < kWQ; qb += 32) {
+          for (int qb = 0; qb < NQ; qb += 32) {
             unsigned fullq = __ballot_sync(
-                kFullWarp, *reinterpret_cast<volatile int*>(&cnt_s[qb + lane]) >= p.cap);
+                kFullWarp,
+                qb + lane < NQ && *reinterpret_cast<volatile int*>(&cnt_s[qb + lane]) >= p.cap);
             while (fullq) {
               const int q = qb + __ffs(fullq) - 1;
               fullq &= fullq - 1;
@@ -618,9 +850,10 @@ __global__ void __launch_bounds__(kWThreads, 1) scan_wgmma_kernel(const WScanArg
       }
     }
 
+    if (lane == 0) atomicAdd(&flags[1], 1);   // the bound warp may stop
     // every consumer is done with every buffer: each warp finishes its queries
     asm volatile("bar.sync 1, %0;\n" ::"n"(kWGroups * 128) : "memory");
-    for (int ql = warp; ql < kWQ; ql += 4 * kWGroups) {
+    for (int ql = warp; ql < NQ; ql += 4 * kWGroups) {
       if (q0 + ql >= p.B) continue;
       const int n = min(cnt_s[ql], p.cap);
       const int kept = min(n, p.K);
@@ -636,29 +869,35 @@ __global__ void __launch_bounds__(kWThreads, 1) scan_wgmma_kernel(const WScanArg
   }
 }
 
-// Shared memory of a block with `stages` stages and `cap` slots per query.
-inline int wscan_smem(int row_bytes, int ks, int stages, int cap, int has_gt) {
-  return 1024 + (ks + 3) / 4 * kWQ * 128 + stages * (kWT * row_bytes + kWT * 4) +
-         (has_gt ? 2 * kWGtTiles * kWQ * 4 : 0) + kWQ * cap * 8 + kWQ * 20 +
+// Shared memory of a block of `nq` queries with `stages` stages and `cap`
+// slots per query.
+inline int wscan_smem(int row_bytes, int ks, int nq, int stages, int cap, int has_gt) {
+  return 1024 + (ks + 3) / 4 * nq * 128 + stages * (kWT * row_bytes + kWT * 4) +
+         (has_gt ? 2 * kWGtTiles * nq * 4 : 0) + nq * cap * 8 + nq * 24 + 8 +
          (2 * kWMaxStages + 4) * 8;
 }
 
 // Choose stages and cap and launch. Returns a cudaError_t, -1 when the
 // shape is not one of this variant's, -2 when shared memory is too small.
-template <class Elem, int KS>
+template <class Elem, int KS, int NQ>
 int wscan_launch(WScanArgs a, int device, int S, cudaStream_t stream) {
+  float guard = kGuard;   // ordered_bits(kGuard) on the host: a positive float
+  std::memcpy(&a.split_guard, &guard, sizeof(guard));
+  a.split_guard |= 0x80000000u;
   int max_smem = 0;
   cudaError_t e = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   if (e != cudaSuccess) return e;
   const int row_bytes = KS * 16 * static_cast<int>(sizeof(Elem));
   // the roomiest buffers that leave a ring of four stages, else of three
   // (measured at 10,240,000 x 96, B = 1,000: 128 slots and 4 stages beat
-  // 112 and 5, which beat 96 and 6; a sort retires cap - K appends)
+  // 112 and 5, which beat 96 and 6; a sort retires cap - K appends); a
+  // narrow block's buffers are small, so it keeps 128 slots and takes up
+  // to kWMaxStages stages
   bool found = false;
   for (int want = 4; want >= 3 && !found; --want) {
     a.stages = 0;
     for (int cap = kWCapMost; cap >= a.K + 16 && a.stages < want; cap -= 8) {
-      const int fixed = wscan_smem(row_bytes, KS, 0, cap, a.gt_kind != 0);
+      const int fixed = wscan_smem(row_bytes, KS, NQ, 0, cap, a.gt_kind != 0);
       const int stages = (max_smem - fixed) / (kWT * row_bytes + kWT * 4);
       a.cap = cap;
       a.stages = stages < kWMaxStages ? stages : kWMaxStages;
@@ -666,25 +905,38 @@ int wscan_launch(WScanArgs a, int device, int S, cudaStream_t stream) {
     found = a.stages >= want;
   }
   if (!found) return -2;
-  const int smem = wscan_smem(row_bytes, KS, a.stages, a.cap, a.gt_kind != 0);
-  auto kern = scan_wgmma_kernel<Elem, KS>;
-  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const int smem = wscan_smem(row_bytes, KS, NQ, a.stages, a.cap, a.gt_kind != 0);
+  auto kern = scan_wgmma_kernel<Elem, KS, NQ>;
+  e = allow_smem(reinterpret_cast<const void*>(kern), device, smem);
   if (e != cudaSuccess) return e;
-  dim3 grid((a.B + kWQ - 1) / kWQ, S);
+  dim3 grid((a.B + NQ - 1) / NQ, S);
   kern<<<grid, kWThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-// D must be 64, 96 or 128 (the widths that are instantiated).
+template <class Elem, int KS>
+int wscan_width(const WScanArgs& a, int nq, int device, int S, cudaStream_t stream) {
+  switch (nq) {
+    case 16: return wscan_launch<Elem, KS, 16>(a, device, S, stream);
+    case 32: return wscan_launch<Elem, KS, 32>(a, device, S, stream);
+    case 64: return wscan_launch<Elem, KS, 64>(a, device, S, stream);
+    case 128: return wscan_launch<Elem, KS, 128>(a, device, S, stream);
+    default: return -1;
+  }
+}
+
+// D must be 64, 96 or 128 and nq 16, 32, 64 or 128 (the instantiated
+// widths).
 template <class Elem>
-int wscan_dispatch(const WScanArgs& a, int D, int device, int S, cudaStream_t stream) {
-  if (a.K < 1 || a.K > kWMaxK || a.rows_per_split % kWT != 0) return -1;
+int wscan_dispatch(const WScanArgs& a, int D, int nq, int device, int S, cudaStream_t stream) {
+  if (a.K < 1 || a.K > kWMaxK || a.rows_per_split % kWT != 0 || S < 1 || S > kWMaxSplits)
+    return -1;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return e;
   switch (D) {
-    case 64: return wscan_launch<Elem, 4>(a, device, S, stream);
-    case 96: return wscan_launch<Elem, 6>(a, device, S, stream);
-    case 128: return wscan_launch<Elem, 8>(a, device, S, stream);
+    case 64: return wscan_width<Elem, 4>(a, nq, device, S, stream);
+    case 96: return wscan_width<Elem, 6>(a, nq, device, S, stream);
+    case 128: return wscan_width<Elem, 8>(a, nq, device, S, stream);
     default: return -1;
   }
 }

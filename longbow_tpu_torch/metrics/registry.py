@@ -218,9 +218,12 @@ _CATALOG: dict[str, tuple[str, tuple[str, ...]]] = {
 # This package's own metrics, declared beside the catalog (which stays the
 # reference's exactly): longbow_kernel_launches_total{kernel} goes up by one
 # each time a wrapper launches a hand-written kernel (ops/_kernels.py
-# Kernel.count_launch), so another process can read a node's launches.
+# Kernel.count_launch), so another process can read a node's launches, and
+# longbow_kernel_variant_launches_total{kernel,variant} splits them by the
+# variant launched ("mma" or "wgmma").
 PORT_METRICS: dict[str, tuple[str, tuple[str, ...]]] = {
     "longbow_kernel_launches_total": (_C, ("kernel",)),
+    "longbow_kernel_variant_launches_total": (_C, ("kernel", "variant")),
 }
 
 

@@ -29,6 +29,9 @@ NVCC_FLAGS = (
     "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
     # ptxas reports each kernel's registers, shared memory and spills
     "-Xptxas=-v",
+    # each source holds a dozen kernel instantiations: compile them on 4
+    # threads (build_all runs one nvcc a source at once)
+    "--split-compile=4",
 )
 _INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
 
@@ -67,7 +70,8 @@ def find_nvcc() -> str:
 class Kernel:
     """One CUDA source file: its build, its ctypes handle and its launch
     count. `launches` goes up by one each time a wrapper launches the
-    kernel, and nowhere else."""
+    kernel, and nowhere else; `by_variant` splits that count by the
+    variant launched ("mma" or "wgmma")."""
 
     def __init__(self, name: str, source: str, bind, defines: tuple[str, ...] = ()):
         self.name = name
@@ -79,6 +83,7 @@ class Kernel:
         self._lib = None
         self._mu = threading.Lock()
         self.launches = 0
+        self.by_variant: dict[str, int] = {}
         self.build_seconds = None
         self.build_log = ""  # nvcc's output of the last build ("" when cached)
 
@@ -130,15 +135,21 @@ class Kernel:
                 self._lib = lib
             return self._lib
 
-    def count_launch(self) -> None:
+    def count_launch(self, variant: str | None = None) -> None:
         with self._mu:
             self.launches += 1
-        # the same count in the metrics registry, for a reader in another
+            if variant is not None:
+                self.by_variant[variant] = self.by_variant.get(variant, 0) + 1
+        # the same counts in the metrics registry, for a reader in another
         # process (a node's /metrics); a metric never fails a launch
         try:
             from longbow_tpu_torch.metrics import get_registry
 
-            get_registry().inc("longbow_kernel_launches_total", kernel=self.name)
+            reg = get_registry()
+            reg.inc("longbow_kernel_launches_total", kernel=self.name)
+            if variant is not None:
+                reg.inc("longbow_kernel_variant_launches_total", kernel=self.name,
+                        variant=variant)
         except Exception:
             pass
 
@@ -152,7 +163,7 @@ def _bind_fused_scan(lib) -> None:
     ]
     lib.longbow_fused_scan.restype = i
     lib.longbow_fused_scan_wgmma.argtypes = [
-        i, p, p, p, p, i, i, i, i, i, i, i, p, p, p, p,
+        i, p, p, p, p, i, i, i, i, i, i, i, i, p, p, p, p,
     ]
     lib.longbow_fused_scan_wgmma.restype = i
 
@@ -166,7 +177,7 @@ def _bind_fused_codes_scan(lib) -> None:
     ]
     lib.longbow_fused_codes_scan.restype = i
     lib.longbow_fused_codes_scan_wgmma.argtypes = [
-        i, p, p, p, p, p, i, i, i, i, i, i, i, i, p, p, p, p,
+        i, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p, p, p, p,
     ]
     lib.longbow_fused_codes_scan_wgmma.restype = i
 
@@ -190,3 +201,15 @@ def reset_launch_counts() -> None:
     for k in KERNELS:
         with k._mu:
             k.launches = 0
+            k.by_variant = {}
+
+
+def launch_counts() -> dict:
+    """{"launches": {kernel: launches}, "launches_by_variant": {kernel:
+    {variant: launches}}} since the last reset."""
+    out: dict = {"launches": {}, "launches_by_variant": {}}
+    for k in KERNELS:
+        with k._mu:
+            out["launches"][k.name] = k.launches
+            out["launches_by_variant"][k.name] = dict(k.by_variant)
+    return out

@@ -18,6 +18,8 @@ index level, never a mode here.
 from __future__ import annotations
 
 import ctypes
+import functools
+import struct
 
 import torch
 
@@ -33,31 +35,69 @@ from longbow_tpu_torch.ops.distance import (
 
 MAX_K = 512
 GROUP = 128  # rows per entry of K2's group term
-WGMMA_QUERIES = 128  # queries per block of the wgmma variants
+WGMMA_WIDTHS = (16, 32, 64, 128)  # queries per block the wgmma variants are built for
+WGMMA_QUERIES = WGMMA_WIDTHS[-1]  # the widest block, which larger batches are cut into
 WGMMA_TILE = 128     # corpus rows per tile (and per padded row-term block)
 WGMMA_MAX_K = 64
+WGMMA_MAX_SPLITS = 256  # splits of a query whose shared bound the kernel keeps
 WGMMA_DIMS = (64, 96, 128)  # the widths the wgmma variants are built for
+KERNEL_NAMES = ("fused_scan", "fused_codes_scan")  # K1, K2
+# Where the wgmma variant takes over, by kernel: (rows, queries) pairs, the
+# variant serving a shape with at least that many rows and queries for some
+# pair. Read off the kernel times (20 launches back to back, their mean) of
+# tools/probe_scan_variants.py --grid on an NVIDIA H100 80GB HBM3 at 700 W:
+# the ring won every batch from 262,144 rows (K1) and 524,288 (K2; from 8
+# queries at 262,144), and at 131,072 rows from 129 queries on (1,000: 0.91
+# against 1.29 ms); below, its start (the warm start's wait, a block a SM)
+# costs more than its loop saves (K1 at 131,072 x 1: 0.087 against 0.040
+# ms; 32,768 x 1,000: 0.60 against 0.56). Between the measured rows it is
+# mma.sync.
+WGMMA_FROM = {
+    "fused_scan": ((262_144, 1), (131_072, 129)),
+    "fused_codes_scan": ((524_288, 1), (262_144, 8), (131_072, 129)),
+}
+# ... but at k <= 16 the mma.sync kernel's smaller candidate buffers tie
+# with the ring's 128-query blocks at 65 to 128 queries (1M x 128, k = 10,
+# B = 128: 0.654 against 0.665 ms, kernels alone, the same card): mma.sync.
+WGMMA_SMALL_K, WGMMA_SMALL_K_BATCHES = 16, (65, 128)
 
 
-WGMMA_MIN_WORK = 1 << 27     # B * N above which the wgmma variants win on an H100
+def ordered_bits(x: float) -> int:
+    """csrc/scan_wgmma.cuh's ordered_bits as a signed 32-bit integer: the
+    float32's bits in an order that unsigned comparison keeps."""
+    u = struct.unpack("<I", struct.pack("<f", x))[0]
+    o = (~u & 0xFFFFFFFF) if u & 0x80000000 else u | 0x80000000
+    return o - (1 << 32) if o >= 1 << 31 else o
 
 
 def wgmma_takes(b: int, d: int, k: int, aligned: bool) -> bool:
-    """Whether the wgmma variants can run a shape at all: more than 16
-    queries, K <= 64, D of 64, 96 or 128 and 16-byte aligned rows."""
-    return b > 16 and k <= WGMMA_MAX_K and d in WGMMA_DIMS and aligned
+    """Whether the wgmma variants can run a shape at all: any batch,
+    K <= 64, D of 64, 96 or 128 and 16-byte aligned rows."""
+    return b >= 1 and k <= WGMMA_MAX_K and d in WGMMA_DIMS and aligned
 
 
-def scan_variant(b: int, n: int, d: int, k: int, aligned: bool) -> str:
+def wgmma_width(b: int) -> int:
+    """Queries per block of a wgmma launch: the narrowest width that holds
+    the batch, else blocks of WGMMA_QUERIES."""
+    return next((w for w in WGMMA_WIDTHS if w >= b), WGMMA_QUERIES)
+
+
+def scan_variant(b: int, n: int, d: int, k: int, aligned: bool,
+                 kernel: str = "fused_scan") -> str:
     """Which variant of a fused scan serves a call: "wgmma" (the
-    producer/consumer ring of csrc/scan_wgmma.cuh, 128 queries per
-    block) for the batches it takes (wgmma_takes) when B * N is above
-    WGMMA_MIN_WORK, else "mma" (the mma.sync kernel, which takes every
-    shape: single queries, k up to 512, any D, unaligned rows, and wins
-    small scans, where the wgmma blocks' set-up and their one split per
-    SM cost more than the faster loop saves). A pure function of the
-    shape and the alignment."""
-    if wgmma_takes(b, d, k, aligned) and b * n > WGMMA_MIN_WORK:
+    producer/consumer ring of csrc/scan_wgmma.cuh, wgmma_width(B) queries
+    a block) for the shapes it takes (wgmma_takes) at the sizes where it
+    measured faster (WGMMA_FROM, WGMMA_SMALL_K), else "mma" (the mma.sync kernel, which
+    takes every shape: k up to 512, any D, unaligned rows). A pure
+    function of the shape, the alignment and the kernel ("fused_scan",
+    K1, or "fused_codes_scan", K2)."""
+    if kernel not in KERNEL_NAMES:
+        raise ValueError(f"kernel must be one of {KERNEL_NAMES}, got {kernel!r}")
+    lo, hi = WGMMA_SMALL_K_BATCHES
+    if k <= WGMMA_SMALL_K and lo <= b <= hi:
+        return "mma"
+    if wgmma_takes(b, d, k, aligned) and any(n >= rows and b >= queries
+                                              for rows, queries in WGMMA_FROM[kernel]):
         return "wgmma"
     return "mma"
 
@@ -93,14 +133,20 @@ def _ceil_div(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def wgmma_plan(b: int, n: int, sms: int, tile_multiple: int = 1) -> tuple[int, int]:
-    """(S, rows_per_split) of a wgmma launch: query blocks x S splits
-    fill the card's `sms` SMs in one wave, one block per SM; a split is a
-    whole number of tiles, and a multiple of `tile_multiple` of them (8
-    with a group term, which the kernel then reads 16 bytes at a time)."""
-    qblocks = _ceil_div(b, WGMMA_QUERIES)
+def wgmma_plan(b: int, n: int, sms: int, tile_multiple: int = 1,
+               nq: int | None = None) -> tuple[int, int]:
+    """(S, rows_per_split) of a wgmma launch with `nq` queries a block
+    (by default wgmma_width(b)): query blocks x S splits fill the card's
+    `sms` SMs in one wave, one block per SM, and S is at most
+    WGMMA_MAX_SPLITS; a split is a whole number of tiles, and a multiple
+    of `tile_multiple` of them (8 with a group term, which the kernel then
+    reads 16 bytes at a time)."""
+    nq = wgmma_width(b) if nq is None else nq
+    if nq not in WGMMA_WIDTHS:
+        raise ValueError(f"nq must be one of {WGMMA_WIDTHS}, got {nq}")
+    qblocks = _ceil_div(b, nq)
     ntiles = max(1, _ceil_div(n, WGMMA_TILE))
-    s = max(1, min(sms // qblocks, ntiles))
+    s = max(1, min(sms // qblocks, ntiles, WGMMA_MAX_SPLITS))
     tiles_per_split = _ceil_div(_ceil_div(ntiles, s), tile_multiple) * tile_multiple
     return _ceil_div(ntiles, tiles_per_split), tiles_per_split * WGMMA_TILE
 
@@ -108,12 +154,17 @@ def wgmma_plan(b: int, n: int, sms: int, tile_multiple: int = 1) -> tuple[int, i
 def pad_row_term(vn: torch.Tensor) -> torch.Tensor:
     """The row term padded with MASKED to a whole number of tiles, so
     that the kernel copies 128 of them per tile and the rows of a ragged
-    last tile never enter."""
-    n = vn.shape[0]
-    out = torch.full((_ceil_div(n, WGMMA_TILE) * WGMMA_TILE,), MASKED, dtype=torch.float32,
-                     device=vn.device)
-    out[:n] = vn
-    return out
+    last tile never enter (the row term itself when N is a whole number
+    of tiles already)."""
+    pad = -vn.shape[0] % WGMMA_TILE
+    return torch.nn.functional.pad(vn, (0, pad), value=MASKED) if pad else vn
+
+
+def wgmma_operands(q: torch.Tensor, vn: torch.Tensor, elem_bytes: int) -> tuple:
+    """The host-side inputs of a wgmma launch, the same for every query
+    block width: the queries [B, D] with their columns in wgmma_k_order
+    and the row term padded with MASKED to whole tiles."""
+    return q.index_select(1, _k_order_on(q.shape[1], elem_bytes, q.device)), pad_row_term(vn)
 
 
 def _merge_splits(out_d, out_i, k, clamp_zero):
@@ -137,6 +188,11 @@ def _k_order_on(d: int, elem_bytes: int, device: torch.device) -> torch.Tensor:
 
 def _device_index(t: torch.Tensor) -> int:
     return t.device.index if t.device.index is not None else torch.cuda.current_device()
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _prepare(queries, corpus, corpus_norms_sq, valid, k, metric, extra_mask,
@@ -170,7 +226,7 @@ def _prepare(queries, corpus, corpus_norms_sq, valid, k, metric, extra_mask,
         if l2
         else torch.zeros(corpus.shape[0], device=dev)
     )
-    vn = torch.where(valid, base, torch.full_like(base, MASKED))
+    vn = torch.where(valid, base, MASKED)
     qc = q.to(corpus.dtype)
     qf = qc.float()
     qn = (qf * qf).sum(dim=1) if l2 else torch.zeros(q.shape[0], device=dev)
@@ -180,8 +236,8 @@ def _prepare(queries, corpus, corpus_norms_sq, valid, k, metric, extra_mask,
 def _finish(d, i, l2):
     """Canonical masked slots (exactly (MASKED, -1)) and l2 clamped at 0."""
     ghost = d >= MASKED_GUARD
-    d = torch.where(ghost, torch.full_like(d, MASKED), d)
-    i = torch.where(ghost, torch.full_like(i, -1), i)
+    d = torch.where(ghost, MASKED, d)
+    i = torch.where(ghost, -1, i)
     if l2:
         d = torch.clamp_min(d, 0.0)
     return d, i
@@ -234,61 +290,99 @@ def _plain_scan(corpus, qc, qn, vn, k, l2, chunk_rows=131072, group_term=None,
     return _finish(best_d, best_i.int(), l2 if clamp_zero is None else clamp_zero)
 
 
-def launch_flat_mma(kernel, corpus, qc, qn, vn, k, l2):
-    """Launch the mma.sync variant of K1 from `kernel`'s library on
-    contiguous CUDA tensors. -> (out_d [B, S, k] f32, out_i [B, S, k]
-    int32). Counts nothing."""
+@functools.lru_cache(maxsize=4096)
+def mma_plan(kernel, entry: str, dev: int, b: int, n: int, d: int, k: int) -> tuple:
+    """The mma.sync launch plan (tiling, S, rows per split, CAP, shared
+    memory bytes) of one shape from `kernel`'s library function `entry`
+    (choose_plan in csrc/scan_common.cuh), asked once a shape."""
+    plan = (ctypes.c_int * 5)()
+    err = getattr(kernel.lib(), entry)(dev, b, n, d, k, plan)
+    if err != 0:
+        raise KernelError(
+            f"{kernel.name}: no tiling fits shared memory for D={d}, k={k} (code {err})"
+        )
+    return tuple(plan)
+
+
+def _split_best(b: int, s: int, nq: int, device) -> torch.Tensor:
+    """Room for where the S splits of a wgmma launch tell each other how
+    good their rows are ([B, S] bounds), then a count a query block of the
+    splits that have published their first slot; go() fills it with
+    ordered_bits(MASKED_GUARD) before each launch."""
+    return torch.empty((b * s + _ceil_div(b, nq),), dtype=torch.int32, device=device)
+
+
+def _go(entry, args: tuple, keep: tuple, what: str, split_best=None):
+    """A launch of `entry` on `args` (pointers into `keep`'s tensors, held
+    here), re-arming `split_best` first."""
+    guard = ordered_bits(MASKED_GUARD)
+
+    def go():
+        if split_best is not None:
+            split_best.fill_(guard)
+        err = entry(*args)
+        if err != 0:
+            raise KernelError(f"{what} launch failed: code {err}")
+        return keep
+    return go
+
+
+def flat_launcher(kernel, variant, corpus, qc, qn, vn, k, l2):
+    """K1's launch of `variant` ("mma" or "wgmma") from `kernel`'s library
+    on contiguous CUDA tensors, in two: the host-side set-up, done here
+    once (for wgmma: the queries' columns into wgmma_k_order, the row term
+    padded to whole tiles, wgmma_plan's split in blocks of wgmma_width(B)
+    queries; for mma: mma_plan), and go(), which launches the kernel on
+    it, so that a timing can launch the kernel alone.
+    -> (go, out_d [B, S, k] f32, out_i [B, S, k] int32). Counts nothing."""
     n, d = corpus.shape
     b = qc.shape[0]
     lib = kernel.lib()
     dev = _device_index(corpus)
-    plan = (ctypes.c_int * 5)()
-    err = lib.longbow_fused_scan_plan(dev, b, n, d, k, plan)
-    if err != 0:
-        raise KernelError(
-            f"fused_scan: no tiling fits shared memory for D={d}, k={k} (code {err})"
-        )
-    cfg, s, rows_per_split, cap, smem = list(plan)
+    stream = torch.cuda.current_stream(corpus.device).cuda_stream
+    if variant == "mma":
+        cfg, s, rows_per_split, cap, smem = mma_plan(kernel, "longbow_fused_scan_plan", dev, b,
+                                                     n, d, k)
+        out_d = torch.empty((b, s, k), dtype=torch.float32, device=corpus.device)
+        out_i = torch.empty((b, s, k), dtype=torch.int32, device=corpus.device)
+        args = (dev, qc.data_ptr(), qn.data_ptr(), corpus.data_ptr(), vn.data_ptr(),
+                b, n, d, k, int(l2), cfg, s, rows_per_split, cap, smem,
+                out_d.data_ptr(), out_i.data_ptr(), stream)
+        keep = (corpus, qc, qn, vn, out_d, out_i)
+        return _go(lib.longbow_fused_scan, args, keep, "fused_scan"), out_d, out_i
+    qp, vnp = wgmma_operands(qc, vn, 2)
+    nq = wgmma_width(b)
+    s, rows_per_split = wgmma_plan(b, n, _sm_count(corpus.device), nq=nq)
     out_d = torch.empty((b, s, k), dtype=torch.float32, device=corpus.device)
     out_i = torch.empty((b, s, k), dtype=torch.int32, device=corpus.device)
-    stream = torch.cuda.current_stream(corpus.device).cuda_stream
-    err = lib.longbow_fused_scan(
-        dev, qc.data_ptr(), qn.data_ptr(), corpus.data_ptr(), vn.data_ptr(),
-        b, n, d, k, int(l2), cfg, s, rows_per_split, cap, smem,
-        out_d.data_ptr(), out_i.data_ptr(), stream,
-    )
-    if err != 0:
-        raise KernelError(f"fused_scan launch failed: cudaError {err}")
+    split_best = _split_best(b, s, nq, corpus.device)
+    args = (dev, qp.data_ptr(), qn.data_ptr(), corpus.data_ptr(), vnp.data_ptr(), b, n, d, k,
+            int(l2), nq, s, rows_per_split, split_best.data_ptr(), out_d.data_ptr(),
+            out_i.data_ptr(), stream)
+    keep = (corpus, qp, qn, vnp, split_best, out_d, out_i)
+    go = _go(lib.longbow_fused_scan_wgmma, args, keep,
+             f"fused_scan (wgmma) for D={d}, k={k}, nq={nq}", split_best)
+    return go, out_d, out_i
+
+
+def launch_flat_mma(kernel, corpus, qc, qn, vn, k, l2):
+    """Launch the mma.sync variant of K1 (flat_launcher).
+    -> (out_d [B, S, k] f32, out_i [B, S, k] int32). Counts nothing."""
+    go, out_d, out_i = flat_launcher(kernel, "mma", corpus, qc, qn, vn, k, l2)
+    go()
     return out_d, out_i
 
 
 def launch_flat_wgmma(kernel, corpus, qc, qn, vn, k, l2):
-    """Launch the wgmma variant of K1: the queries' columns go into
-    wgmma_k_order, the row term is padded to whole tiles, the split plan
-    is wgmma_plan. Same returns as launch_flat_mma."""
-    n, d = corpus.shape
-    b = qc.shape[0]
-    qp = qc.index_select(1, _k_order_on(d, 2, qc.device))
-    vn = pad_row_term(vn)
-    sms = torch.cuda.get_device_properties(corpus.device).multi_processor_count
-    s, rows_per_split = wgmma_plan(b, n, sms)
-    out_d = torch.empty((b, s, k), dtype=torch.float32, device=corpus.device)
-    out_i = torch.empty((b, s, k), dtype=torch.int32, device=corpus.device)
-    # where the splits of a query tell each other how good their rows are
-    split_best = torch.full((b, s), MASKED_GUARD, dtype=torch.float32, device=corpus.device)
-    stream = torch.cuda.current_stream(corpus.device).cuda_stream
-    err = kernel.lib().longbow_fused_scan_wgmma(
-        _device_index(corpus), qp.data_ptr(), qn.data_ptr(), corpus.data_ptr(),
-        vn.data_ptr(), b, n, d, k, int(l2), s, rows_per_split,
-        split_best.data_ptr(), out_d.data_ptr(), out_i.data_ptr(), stream,
-    )
-    if err != 0:
-        raise KernelError(f"fused_scan (wgmma) launch failed: code {err} for D={d}, k={k}")
+    """Launch the wgmma variant of K1 (flat_launcher). Same returns as
+    launch_flat_mma."""
+    go, out_d, out_i = flat_launcher(kernel, "wgmma", corpus, qc, qn, vn, k, l2)
+    go()
     return out_d, out_i
 
 
-def _pick_variant(variant, b, n, d, k, aligned):
-    chosen = scan_variant(b, n, d, k, aligned)
+def _pick_variant(variant, b, n, d, k, aligned, kernel="fused_scan"):
+    chosen = scan_variant(b, n, d, k, aligned, kernel)
     if variant is None:
         return chosen
     if variant not in ("mma", "wgmma"):
@@ -318,7 +412,7 @@ def _fused_flat_search_cuda(corpus, qc, qn, vn, k, l2, variant=None):
     variant = _pick_variant(variant, b, n, d, k, corpus.data_ptr() % 16 == 0)
     launch = launch_flat_wgmma if variant == "wgmma" else launch_flat_mma
     out_d, out_i = launch(FUSED_SCAN, corpus, qc, qn, vn, k, l2)
-    FUSED_SCAN.count_launch()
+    FUSED_SCAN.count_launch(variant)
     return _merge_splits(out_d, out_i, k, l2)
 
 
@@ -372,7 +466,7 @@ def _prepare_codes(qs, qn_eff, codes, vn_row, valid, k, group_term, extra_mask,
     if extra_mask is not None:
         valid = valid & torch.as_tensor(extra_mask, device=dev).bool()
     base = torch.as_tensor(vn_row, device=dev).float()
-    vn = torch.where(valid, base, torch.full_like(base, MASKED))
+    vn = torch.where(valid, base, MASKED)
     gt = None
     if group_term is not None:
         gt = torch.as_tensor(group_term, device=dev)
@@ -400,62 +494,58 @@ def fused_codes_search_plain(
     return _plain_scan(codes, qs, qn, vn, k, True, chunk_rows, gt, clamp_zero)
 
 
-def launch_codes_mma(kernel, codes, qs, qn, vn, gt, k):
-    """Launch the mma.sync variant of K2 from `kernel`'s library on
-    contiguous CUDA tensors. -> (out_d [B, S, k] f32, out_i [B, S, k]
-    int32). Counts nothing."""
+def codes_launcher(kernel, variant, codes, qs, qn, vn, gt, k):
+    """K2's launch of `variant` from `kernel`'s library on contiguous CUDA
+    tensors, in two as flat_launcher's (the group term gt [B, N / 128] f32
+    or bf16, or None). -> (go, out_d [B, S, k] f32, out_i [B, S, k] int32).
+    Counts nothing."""
     n, d = codes.shape
     b = qs.shape[0]
+    lib = kernel.lib()
+    dev = _device_index(codes)
+    stream = torch.cuda.current_stream(codes.device).cuda_stream
     gt_kind, gt_ptr = 0, None
     if gt is not None:
         gt_kind, gt_ptr = (1 if gt.dtype == torch.float32 else 2), gt.data_ptr()
-    lib = kernel.lib()
-    dev = codes.device.index if codes.device.index is not None else torch.cuda.current_device()
-    plan = (ctypes.c_int * 5)()
-    err = lib.longbow_fused_codes_scan_plan(dev, b, n, d, k, plan)
-    if err != 0:
-        raise KernelError(
-            f"fused_codes_scan: no tiling fits shared memory for D={d}, k={k} (code {err})"
-        )
-    cfg, s, rows_per_split, cap, smem = list(plan)
+    if variant == "mma":
+        cfg, s, rows_per_split, cap, smem = mma_plan(kernel, "longbow_fused_codes_scan_plan",
+                                                     dev, b, n, d, k)
+        out_d = torch.empty((b, s, k), dtype=torch.float32, device=codes.device)
+        out_i = torch.empty((b, s, k), dtype=torch.int32, device=codes.device)
+        args = (dev, qs.data_ptr(), qn.data_ptr(), codes.data_ptr(), vn.data_ptr(),
+                gt_ptr, gt_kind, n // GROUP, b, n, d, k, cfg, s, rows_per_split, cap,
+                smem, out_d.data_ptr(), out_i.data_ptr(), stream)
+        keep = (codes, qs, qn, vn, gt, out_d, out_i)
+        return _go(lib.longbow_fused_codes_scan, args, keep, "fused_codes_scan"), out_d, out_i
+    qp, vnp = wgmma_operands(qs, vn, 1)
+    nq = wgmma_width(b)
+    s, rows_per_split = wgmma_plan(b, n, _sm_count(codes.device), 8 if gt is not None else 1,
+                                   nq=nq)
     out_d = torch.empty((b, s, k), dtype=torch.float32, device=codes.device)
     out_i = torch.empty((b, s, k), dtype=torch.int32, device=codes.device)
-    stream = torch.cuda.current_stream(codes.device).cuda_stream
-    err = lib.longbow_fused_codes_scan(
-        dev, qs.data_ptr(), qn.data_ptr(), codes.data_ptr(), vn.data_ptr(),
-        gt_ptr, gt_kind, n // GROUP, b, n, d, k, cfg, s, rows_per_split, cap,
-        smem, out_d.data_ptr(), out_i.data_ptr(), stream,
-    )
-    if err != 0:
-        raise KernelError(f"fused_codes_scan launch failed: cudaError {err}")
+    split_best = _split_best(b, s, nq, codes.device)
+    args = (dev, qp.data_ptr(), qn.data_ptr(), codes.data_ptr(), vnp.data_ptr(), gt_ptr,
+            gt_kind, n // GROUP, b, n, d, k, nq, s, rows_per_split, split_best.data_ptr(),
+            out_d.data_ptr(), out_i.data_ptr(), stream)
+    keep = (codes, qp, qn, vnp, gt, split_best, out_d, out_i)
+    go = _go(lib.longbow_fused_codes_scan_wgmma, args, keep,
+             f"fused_codes_scan (wgmma) for D={d}, k={k}, nq={nq}", split_best)
+    return go, out_d, out_i
+
+
+def launch_codes_mma(kernel, codes, qs, qn, vn, gt, k):
+    """Launch the mma.sync variant of K2 (codes_launcher).
+    -> (out_d [B, S, k] f32, out_i [B, S, k] int32). Counts nothing."""
+    go, out_d, out_i = codes_launcher(kernel, "mma", codes, qs, qn, vn, gt, k)
+    go()
     return out_d, out_i
 
 
 def launch_codes_wgmma(kernel, codes, qs, qn, vn, gt, k):
-    """Launch the wgmma variant of K2: the query side's columns go into
-    wgmma_k_order, the row term is padded to whole tiles, the split plan
-    is wgmma_plan. Same returns as launch_codes_mma."""
-    n, d = codes.shape
-    b = qs.shape[0]
-    qp = qs.index_select(1, _k_order_on(d, 1, qs.device))
-    vn = pad_row_term(vn)
-    gt_kind, gt_ptr = 0, None
-    if gt is not None:
-        gt_kind, gt_ptr = (1 if gt.dtype == torch.float32 else 2), gt.data_ptr()
-    sms = torch.cuda.get_device_properties(codes.device).multi_processor_count
-    s, rows_per_split = wgmma_plan(b, n, sms, 8 if gt is not None else 1)
-    out_d = torch.empty((b, s, k), dtype=torch.float32, device=codes.device)
-    out_i = torch.empty((b, s, k), dtype=torch.int32, device=codes.device)
-    # where the splits of a query tell each other how good their rows are
-    split_best = torch.full((b, s), MASKED_GUARD, dtype=torch.float32, device=codes.device)
-    stream = torch.cuda.current_stream(codes.device).cuda_stream
-    err = kernel.lib().longbow_fused_codes_scan_wgmma(
-        _device_index(codes), qp.data_ptr(), qn.data_ptr(), codes.data_ptr(),
-        vn.data_ptr(), gt_ptr, gt_kind, n // GROUP, b, n, d, k, s, rows_per_split,
-        split_best.data_ptr(), out_d.data_ptr(), out_i.data_ptr(), stream,
-    )
-    if err != 0:
-        raise KernelError(f"fused_codes_scan (wgmma) launch failed: code {err} for D={d}, k={k}")
+    """Launch the wgmma variant of K2 (codes_launcher). Same returns as
+    launch_codes_mma."""
+    go, out_d, out_i = codes_launcher(kernel, "wgmma", codes, qs, qn, vn, gt, k)
+    go()
     return out_d, out_i
 
 
@@ -471,10 +561,10 @@ def _fused_codes_search_cuda(codes, qs, qn, vn, gt, k, clamp_zero, variant=None)
         vn = vn.clone()
     if gt is not None:
         gt = gt.contiguous()
-    variant = _pick_variant(variant, b, n, d, k, codes.data_ptr() % 16 == 0)
+    variant = _pick_variant(variant, b, n, d, k, codes.data_ptr() % 16 == 0, "fused_codes_scan")
     launch = launch_codes_wgmma if variant == "wgmma" else launch_codes_mma
     out_d, out_i = launch(FUSED_CODES_SCAN, codes, qs, qn, vn, gt, k)
-    FUSED_CODES_SCAN.count_launch()
+    FUSED_CODES_SCAN.count_launch(variant)
     return _merge_splits(out_d, out_i, k, clamp_zero)
 
 

@@ -28,7 +28,11 @@ from longbow_tpu_torch.storage.arrow_ipc import Table, decode_stream, encode_str
 from longbow_tpu_torch.store.vector_store import VectorStore
 
 REPO = Path(__file__).resolve().parent.parent
-DEADLINE = 30.0  # seconds: every wait in this file
+DEADLINE = 30.0  # seconds: every wait in this file but a server process's start and stop
+# A `python -m longbow_tpu_torch.serve` process imports torch and pyarrow and
+# builds its runtime before it answers, and snapshots before it exits: on a
+# host whose cores other test workers share, either can take over a minute.
+PROCESS_START_S = PROCESS_STOP_S = 180.0
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -167,37 +171,54 @@ def test_serve_module_with_the_reference_env_names(tmp_path):
         vs.close()
 
 
+def _serving(c, proc) -> bool:
+    """Whether the server answers; False while it starts, and for good once
+    the process has exited."""
+    t0 = time.monotonic()
+    while proc.poll() is None:
+        try:
+            return bool(c.check_readiness())
+        except Exception:
+            if time.monotonic() - t0 > PROCESS_START_S:
+                raise AssertionError("timed out waiting for the server to answer")
+            time.sleep(0.1)
+    return False
+
+
 def test_sigterm_stops_the_server_with_a_final_snapshot(tmp_path):
-    dp, mp = _free_port(), _free_port()
-    env = {k: v for k, v in os.environ.items() if not k.startswith("LONGBOW_")}
-    env.update(LONGBOW_DATA_PORT=str(dp), LONGBOW_META_PORT=str(mp), LONGBOW_HOST="127.0.0.1",
-               LONGBOW_METRICS_PORT="0", LONGBOW_DATA_DIR=str(tmp_path / "d"),
-               LONGBOW_FORCE_CPU="1", LONGBOW_ASYNC_INGEST="0",
-               PYTHONPATH=str(REPO) + os.pathsep + env.get("PYTHONPATH", ""))
     from longbow_tpu_torch.serving.client import LongbowClient
 
-    proc = subprocess.Popen([sys.executable, "-m", "longbow_tpu_torch.serve"], env=env,
-                            cwd=REPO, stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
-    c = LongbowClient("127.0.0.1", dp, mp, call_timeout_s=10.0)
-    try:
-        def up():
-            try:
-                return bool(c.check_readiness())
-            except Exception:
-                assert proc.poll() is None, "the server exited"
-                return False
-
-        _wait(up, "the server to answer")
-        c.write("final", np.arange(10), _vecs(10))
-        proc.send_signal(signal.SIGTERM)
-        assert proc.wait(timeout=DEADLINE) == 0
-    finally:
-        c.close()
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait(timeout=DEADLINE)
-    assert (tmp_path / "d" / "snapshot").exists()
-    vs = VectorStore(device="cpu", persist_dir=tmp_path / "d")
+    for attempt in range(3):
+        dp = _free_port()
+        mp = _free_port()
+        env = {k: v for k, v in os.environ.items() if not k.startswith("LONGBOW_")}
+        data = tmp_path / f"d{attempt}"
+        env.update(LONGBOW_DATA_PORT=str(dp), LONGBOW_META_PORT=str(mp),
+                   LONGBOW_HOST="127.0.0.1", LONGBOW_METRICS_PORT="0",
+                   LONGBOW_DATA_DIR=str(data), LONGBOW_FORCE_CPU="1",
+                   LONGBOW_ASYNC_INGEST="0",
+                   PYTHONPATH=str(REPO) + os.pathsep + env.get("PYTHONPATH", ""))
+        log = tmp_path / f"serve{attempt}.log"
+        with open(log, "wb") as out:
+            proc = subprocess.Popen([sys.executable, "-m", "longbow_tpu_torch.serve"],
+                                    env=env, cwd=REPO, stdout=out, stderr=subprocess.STDOUT)
+        c = LongbowClient("127.0.0.1", dp, mp, call_timeout_s=PROCESS_START_S)
+        try:
+            if dp == mp or not _serving(c, proc):
+                continue  # a port was taken between its choice and the bind: fresh ports
+            c.write("final", np.arange(10), _vecs(10))
+            proc.send_signal(signal.SIGTERM)
+            assert proc.wait(timeout=PROCESS_STOP_S) == 0
+            break
+        finally:
+            c.close()
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=DEADLINE)
+    else:
+        raise AssertionError("no attempt started the server: " + log.read_text()[-2000:])
+    assert (data / "snapshot").exists()
+    vs = VectorStore(device="cpu", persist_dir=data)
     try:
         assert vs.get("final").live_count == 10
     finally:

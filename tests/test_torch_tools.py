@@ -243,12 +243,12 @@ def test_chaos_soak_heals_on_the_cpu():
     env = {k: v for k, v in os.environ.items() if not k.startswith("LONGBOW_")}
     env["PYTHONPATH"] = str(REPO) + os.pathsep + env.get("PYTHONPATH", "")
     env["OMP_NUM_THREADS"] = "1"  # one torch thread a node: the test workers share the cores
-    # at a lower priority (the nodes inherit it): other test files' server
-    # processes have 30 s deadlines, this soak's waits are minutes long
-    res = subprocess.run(["nice", "-n", "10", sys.executable, "-m",
-                          "longbow_tpu_torch.tools.chaos_soak",
-                          "--device", "cpu", "--duration", "10"], cwd=REPO, env=env,
-                         capture_output=True, text=True, timeout=300)
+    # 1,000 seed rows make the dataset (the first, cold write: its WAL, index
+    # and replication) before the 10 s of load start, which on a loaded host
+    # it could otherwise fill alone, leaving one write and no read
+    res = subprocess.run([sys.executable, "-m", "longbow_tpu_torch.tools.chaos_soak",
+                          "--device", "cpu", "--duration", "10", "--seed-rows", "1000"],
+                         cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr[-3000:]
     lines = res.stdout.splitlines()
     assert "HEALED" in lines and "cluster up" in lines
