@@ -249,8 +249,9 @@ Phases, each of which passes or ends the run with a non-zero exit:
                import, or the phase fails); each node logs to a file whose last
                40 lines are printed on a failure, and every node is SIGKILLed at
                the end. 14.1 partitioned placement on 8 nodes (BASELINE.json
-               configs[4]): phase 4's 1,000,000 x 128 rows (category = id mod
-               1000) through node 0 in 65,536-row DoPut batches, forwarded to
+               configs[4]): the first 250,000 x 128 rows of phase 4's recipe
+               (category = id mod 1000; cut from 1M for the script's time)
+               through node 0 in 65,536-row DoPut batches, forwarded to
                their ring owners; rows/s until every count is stable; each
                node's ids (a scan) exactly those of a plain recomputation of the
                ring; the 1,000 queries through node 0 as one DoExchange batch and
@@ -269,7 +270,7 @@ Phases, each of which passes or ends the run with a non-zero exit:
                and best-effort answers hold no id of its share and recall@10
                >= 0.95 against the live rows; 14.3 a replicated 3-node cluster
                (scripts/start_local_cluster.sh: async replication, anti-entropy
-               every 2 s, a WAL each): the 1M rows through node 0, rows/s
+               every 2 s, a WAL each): the 250,000 rows through node 0, rows/s
                acknowledged, the seconds until node 2 holds them all, equal
                Merkle roots on the three, nodes 1's and 2's answers equal node
                0's; node 2 SIGKILLed, 10,000 new rows, 10,000 upserts and 1,000
@@ -301,19 +302,41 @@ Phases, each of which passes or ends the run with a non-zero exit:
                while it is empty, then a put and a search whose top-1 is the
                query's own row on K2 (this node checks for compaction every 5 s
                at fragmentation 0.1); 16.2 bench_tool
-               against that node, 8 s a mode: ingest of f32 rows into a flat
+               against that node, 4 s a mode: ingest of f32 rows into a flat
                dataset and of int8 rows (an identity sq8 dataset), search, hybrid
                (on the int8 dataset) and scan, each with 0 errors, K1 and K2
                launched on the node; then micro on the card; 16.3 soak_mixed
-               against that node for 30 s:
+               against that node for 20 s:
                0 search errors, every kept acknowledged write found first, no
                deleted id in the final scan, at least one compaction counted;
                16.4 chaos_soak: three replicated nodes, 128-d rows, 1,000 a write,
-               262,144 seed rows of phase 4's recipe, 60 s with node 1 killed at
+               131,072 seed rows of phase 4's recipe, 25 s with node 1 killed at
                25% and restarted at 55%: HEALED, every acknowledged row live on all
                three nodes with equal Merkle roots, K1 launched on every node;
                node 1's seconds from readiness to node 0's root, the rows synced
                and the delta pulls.
+ 17. wide  - wide vectors on the chunked loop of the wgmma ring (launch counts
+               set to 0 before 17.1, read after 17.2): 17.1 GIST-1M's shape,
+               1,000,000 x 960 rows of bench.py's recipe with a three-value
+               category, put into a default (adaptive) store held flat until the
+               flat tier is measured (1,000-query batch, single-query p50, recall@10
+               >= 0.95 against the f32 oracle over the live rows, a filter, 10,000
+               deletes; K1's ring launched), then migrated (threshold back at its
+               default, one upsert, wait_migration: kind hnsw, no error), the graph
+               at ef 100 and 150 (recall@10 >= 0.95 at ef 150), the filter and the
+               deletes again; 17.2 1,000,000 x 768 rows into an sq8 dataset (K2),
+               recall@10 >= 0.99 against its dequantized rows; 17.3 K1 at D = 768
+               and 960 and K2 at D = 768 over 1,048,576 rows, B 1, 48 and 1,000, k
+               10 and 64, l2 and ip (K2 the l2 and dot folds, a bf16 group term), a
+               filter, fewer valid rows than k and a ragged last tile, each held to
+               its plain version, beside mma.sync, the bound, the plain version and
+               matmul + topk; the ring must serve B = 48 and 1,000 and no case it
+               serves may be slower than mma.sync. Phase 7.4 prints the dot graph's
+               self-kNN launch (rows padded from D = 129 to 144) beside the
+               24.182 ms its D = 129 launch took on mma.sync, its bound counted
+               over the 129 columns; a line before the kernels line prints the
+               D <= 128 served batches beside the 2.218 and 10.067 ms of the
+               whole-tile loop before the chunked one was added.
 The run fails unless the launches of phase 4's single queries, phase 11's
 coalesced groups, phase 12's mesh shards and phase 13's ticket groups include
 the variant scan_variant names for them; the kernels line gives every phase's
@@ -325,6 +348,7 @@ Imports torch, numpy and longbow_tpu_torch only.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import statistics
 import subprocess
@@ -359,6 +383,9 @@ DEVICE = "cuda"
 # kernel vs plain: f32 sums are taken in another order, so distances agree
 # to this tolerance and no better
 RTOL, ATOL = 1e-3, 1e-2
+# phases 5 and 17's random codes: the affine lo = -4, hi = 4 in every dim
+CODES_SCALE = 8.0 / 255.0
+CODES_LO_EFF = -4.0 + 128.0 * CODES_SCALE
 
 # (bytes/s, dense bf16 FLOP/s) from NVIDIA's data sheets; the first name
 # fragment found in the card's name is used
@@ -480,11 +507,7 @@ def compare(name, dk, ik, dp, ip_) -> float:
 
 
 def phase_kernels(bw: float, flops: float, reps: int) -> dict:
-    from longbow_tpu_torch.ops._kernels import FUSED_SCAN
     from longbow_tpu_torch.ops.distance import Metric
-    from longbow_tpu_torch.ops.scan import (
-        fused_flat_search, fused_flat_search_plain, scan_variant, wgmma_takes, wgmma_width,
-    )
 
     dev = torch.device(DEVICE)
     g = torch.Generator(device=dev).manual_seed(0)
@@ -554,52 +577,65 @@ def phase_kernels(bw: float, flops: float, reps: int) -> dict:
                       norms=n128[:131_072], valid=tomb[:131_072], extra=None,
                       tag="served_mesh_shard"))
 
-    results = []
-    for cs in cases:
-        n, d = cs["corpus"].shape
-        q = torch.randn((cs["b"], d), generator=g, device=dev) * cs.get("qscale", 1.0)
-        args = (q, cs["corpus"], cs["norms"], cs["valid"], cs["k"], cs["metric"])
-        kw = dict(extra_mask=cs["extra"], device=dev)
-        name = f"{cs['tag']} {cs['metric']} B={cs['b']} k={cs['k']} N={n} D={d}"
-        # the wrapper's own choice, unless the case asks for a variant
-        aligned = cs["corpus"].data_ptr() % 16 == 0
-        variant = cs.get("force") or scan_variant(cs["b"], n, d, cs["k"], aligned)
-        kernel_kw = dict(kw, variant=cs.get("force"))
-        dk, ik = launched_as(FUSED_SCAN, variant, name,
-                             lambda: fused_flat_search(*args, **kernel_kw))
-        dp, ip_ = fused_flat_search_plain(*args, **kw)
-        torch.cuda.synchronize()
-        err = compare(name, dk, ik, dp, ip_)
-        if variant == "mma" and wgmma_takes(cs["b"], d, cs["k"], aligned):
-            # forced: the other variant, held to the same plain answer
-            compare(name + " forced wgmma",
-                    *fused_flat_search(*args, **dict(kw, variant="wgmma")), dp, ip_)
-        ms = time_ms(lambda: fused_flat_search(*args, **kernel_kw), reps)
-        prev_ms = None  # the mma.sync variant on a shape that wgmma serves
-        if variant == "wgmma":
-            prev_ms = time_ms(lambda: fused_flat_search(*args, **dict(kw, variant="mma")), reps)
-        kms = kernel_ms(("wgmma", "mma") if variant == "wgmma" else ("mma",), True, args, kw,
-                        reps)
-        plain_ms = time_ms(lambda: fused_flat_search_plain(*args, **kw), PLAIN_LAUNCHES)
-        qb = q.to(torch.bfloat16)
-        corpus = cs["corpus"]
-        mm_ms = time_ms(
-            lambda: torch.topk(torch.matmul(qb, corpus.T), cs["k"], dim=1), reps
-        )
-        b, k = cs["b"], cs["k"]
-        moved = n * d * 2 + n * 4 + n + b * d * 4 + b * k * 8
-        bound_by = "bytes" if moved / bw >= 2 * b * n * d / flops else "operations"
-        bound_ms = 1e3 * max(moved / bw, 2 * b * n * d / flops)
-        row = dict(case=name, variant=variant, chosen="force" not in cs,
-                   nq=wgmma_width(b) if variant == "wgmma" else None, max_abs_err=err, ms=ms,
-                   prev_ms=prev_ms, kernel_ms=kms[variant], prev_kernel_ms=kms.get("mma")
-                   if variant == "wgmma" else None, plain_ms=plain_ms, matmul_topk_ms=mm_ms,
-                   bound_ms=bound_ms, bound_by=bound_by, b=b, k=k, n=n, d=d,
-                   metric=cs["metric"], tag=cs["tag"])
-        results.append(row)
-        emit({"kernel_case": row})
+    results = [flat_case(cs, g, bw, flops, reps) for cs in cases]
     check_variants("fused_scan", results)
     return {"cases": results}
+
+
+def flat_case(cs: dict, g, bw: float, flops: float, reps: int) -> dict:
+    """One K1 case (phases 3 and 17): the wrapper's variant (or the one the
+    case forces) launched once and held to the plain version, mma.sync
+    forced beside it where the ring could take the shape too, then both
+    variants' kernels alone, the wrapper, the plain version and matmul +
+    topk timed beside the bound."""
+    from longbow_tpu_torch.ops._kernels import FUSED_SCAN
+    from longbow_tpu_torch.ops.scan import (
+        fused_flat_search, fused_flat_search_plain, scan_variant, wgmma_takes, wgmma_width,
+    )
+
+    dev = torch.device(DEVICE)
+    n, d = cs["corpus"].shape
+    q = torch.randn((cs["b"], d), generator=g, device=dev) * cs.get("qscale", 1.0)
+    args = (q, cs["corpus"], cs["norms"], cs["valid"], cs["k"], cs["metric"])
+    kw = dict(extra_mask=cs["extra"], device=dev)
+    name = f"{cs['tag']} {cs['metric']} B={cs['b']} k={cs['k']} N={n} D={d}"
+    # the wrapper's own choice, unless the case asks for a variant
+    aligned = cs["corpus"].data_ptr() % 16 == 0
+    variant = cs.get("force") or scan_variant(cs["b"], n, d, cs["k"], aligned)
+    kernel_kw = dict(kw, variant=cs.get("force"))
+    dk, ik = launched_as(FUSED_SCAN, variant, name,
+                         lambda: fused_flat_search(*args, **kernel_kw))
+    dp, ip_ = fused_flat_search_plain(*args, **kw)
+    torch.cuda.synchronize()
+    err = compare(name, dk, ik, dp, ip_)
+    if variant == "mma" and wgmma_takes(cs["b"], d, cs["k"], aligned):
+        # forced: the other variant, held to the same plain answer
+        compare(name + " forced wgmma",
+                *fused_flat_search(*args, **dict(kw, variant="wgmma")), dp, ip_)
+    ms = time_ms(lambda: fused_flat_search(*args, **kernel_kw), reps)
+    prev_ms = None  # the mma.sync variant on a shape that wgmma serves
+    if variant == "wgmma":
+        prev_ms = time_ms(lambda: fused_flat_search(*args, **dict(kw, variant="mma")), reps)
+    kms = kernel_ms(("wgmma", "mma") if variant == "wgmma" else ("mma",), True, args, kw,
+                    reps)
+    plain_ms = time_ms(lambda: fused_flat_search_plain(*args, **kw), PLAIN_LAUNCHES)
+    qb = q.to(torch.bfloat16)
+    corpus = cs["corpus"]
+    mm_ms = time_ms(
+        lambda: torch.topk(torch.matmul(qb, corpus.T), cs["k"], dim=1), reps
+    )
+    b, k = cs["b"], cs["k"]
+    moved = n * d * 2 + n * 4 + n + b * d * 4 + b * k * 8
+    bound_by = "bytes" if moved / bw >= 2 * b * n * d / flops else "operations"
+    bound_ms = 1e3 * max(moved / bw, 2 * b * n * d / flops)
+    row = dict(case=name, variant=variant, chosen="force" not in cs,
+               nq=wgmma_width(b, d) if variant == "wgmma" else None, max_abs_err=err, ms=ms,
+               prev_ms=prev_ms, kernel_ms=kms[variant], prev_kernel_ms=kms.get("mma")
+               if variant == "wgmma" else None, plain_ms=plain_ms, matmul_topk_ms=mm_ms,
+               bound_ms=bound_ms, bound_by=bound_by, b=b, k=k, n=n, d=d,
+               metric=cs["metric"], tag=cs["tag"])
+    emit({"kernel_case": row})
+    return row
 
 
 def small_batch_cases(base: dict, Metric, rows, allv, adversarial: tuple, ragged: int) -> list:
@@ -669,15 +705,15 @@ DATA_EDGE_TAGS = ("fewer_valid_than_k", "all_masked", "small_fewer_valid_than_k"
                   "adversarial_order", "small_adversarial_order")
 
 
-def check_variants(kernel: str, results: list) -> None:
-    """The served shapes ran the wgmma variant, both variants ran, and no
-    case that scan_variant sends to wgmma (but DATA_EDGE_TAGS') was slower
-    there than on mma.sync in this run."""
+def check_variants(kernel: str, results: list, need_both: bool = True) -> None:
+    """The served shapes ran the wgmma variant, both variants ran (unless
+    not need_both), and no case that scan_variant sends to wgmma (but
+    DATA_EDGE_TAGS') was slower there than on mma.sync in this run."""
     for r in results:
         if r["tag"] in SERVED_TAGS and r["variant"] != "wgmma":
             fail(f"{kernel}: the served shape {r['case']} ran the {r['variant']} variant")
     ran = {r["variant"] for r in results}
-    if ran != {"wgmma", "mma"}:
+    if need_both and ran != {"wgmma", "mma"}:
         fail(f"{kernel}: only the {sorted(ran)} variant ran")
     slower = [f"{r['case']}: kernel {r['kernel_ms']:.3f} ms, mma.sync {r['prev_kernel_ms']:.3f}"
               for r in results if r["chosen"] and r["variant"] == "wgmma"
@@ -822,27 +858,11 @@ def phase_store() -> dict:
 # -- 5. codes (kernel K2) ---------------------------------------------------
 
 def phase_codes_kernels(bw: float, flops: float, reps: int) -> dict:
-    from longbow_tpu_torch.ops._kernels import FUSED_CODES_SCAN
-    from longbow_tpu_torch.ops.distance import MASKED
-    from longbow_tpu_torch.ops.scan import (
-        fused_codes_search, fused_codes_search_plain, scan_variant, wgmma_takes, wgmma_width,
-    )
-
     dev = torch.device(DEVICE)
     g = torch.Generator(device=dev).manual_seed(1)
-    # codes under the affine lo = -4, hi = 4 in every dim
-    scale = 8.0 / 255.0
-    lo_eff = -4.0 + 128.0 * scale
 
     def codes_of(n, d):
-        """Random int8 codes and the |v|^2 of their dequantized rows."""
-        codes = torch.randint(-128, 128, (n, d), generator=g, device=dev, dtype=torch.int8)
-        norms = torch.empty(n, device=dev)
-        step = 1 << 20
-        for s in range(0, n, step):
-            deq = codes[s:s + step].float() * scale + lo_eff
-            norms[s:s + step] = (deq * deq).sum(dim=1)
-        return codes, norms
+        return random_codes(g, n, d)
 
     c96, n96 = codes_of(N_CODES, D_CODES)
     rows = torch.arange(N_CODES, device=dev)
@@ -905,66 +925,94 @@ def phase_codes_kernels(bw: float, flops: float, reps: int) -> dict:
                       valid=d128["valid"][:131_072], tag="served_mesh_shard"))
 
     c16 = {}  # bf16 copies of the codes for the yardstick, made outside the timing
-    results = []
-    for cs in cases:
-        codes, b, k = cs["codes"], cs["b"], cs["k"]
-        n, d = codes.shape
-        q = torch.randn((b, d), generator=g, device=dev) * cs.get("qscale", 1.0)
-        if cs["fold"] == "dot":  # sq8's dot fold: scores are -q.v_deq
-            qs, qn, vn, clamp = q * scale * 0.5, -lo_eff * q.sum(dim=1), torch.zeros_like(
-                cs["norms"]), False
-        else:
-            qs, qn, vn, clamp = (q * scale, (q * q).sum(dim=1) - 2.0 * lo_eff * q.sum(dim=1),
-                                 cs["norms"], True)
-        gt = None
-        if cs["gt"]:
-            gt = -2.0 * (q @ centers[:, :d].T)[:, cs["gcid"]]
-            gt = gt.to(torch.bfloat16) if cs["gt"] == "bf16" else gt
-        args = (qs, qn, codes, vn, cs["valid"], k)
-        kw = dict(group_term=gt, extra_mask=cs["extra"], clamp_zero=clamp, device=dev)
-        name = (f"{cs['tag']} {cs['fold']} gt={cs['gt']} B={b} k={k} N={n} D={d}")
-        # the wrapper's own choice, unless the case asks for a variant
-        aligned = codes.data_ptr() % 16 == 0
-        variant = cs.get("force") or scan_variant(b, n, d, k, aligned, "fused_codes_scan")
-        kernel_kw = dict(kw, variant=cs.get("force"))
-        dk, ik = launched_as(FUSED_CODES_SCAN, variant, name,
-                             lambda: fused_codes_search(*args, **kernel_kw))
-        dp, ip_ = fused_codes_search_plain(*args, **kw)
-        torch.cuda.synchronize()
-        err = compare(name, dk, ik, dp, ip_)
-        if variant == "mma" and wgmma_takes(b, d, k, aligned):
-            # forced: the other variant, held to the same plain answer
-            compare(name + " forced wgmma",
-                    *fused_codes_search(*args, **dict(kw, variant="wgmma")), dp, ip_)
-        ms = time_ms(lambda: fused_codes_search(*args, **kernel_kw), reps)
-        prev_ms = None  # the mma.sync variant on a shape that wgmma serves
-        if variant == "wgmma":
-            prev_ms = time_ms(lambda: fused_codes_search(*args, **dict(kw, variant="mma")), reps)
-        kms = kernel_ms(("wgmma", "mma") if variant == "wgmma" else ("mma",), False, args, kw,
-                        reps)
-        plain_ms = time_ms(lambda: fused_codes_search_plain(*args, **kw), PLAIN_LAUNCHES)
-        if id(codes) not in c16:
-            c16[id(codes)] = codes.to(torch.bfloat16)
-        valid = cs["valid"] if cs["extra"] is None else cs["valid"] & cs["extra"]
-        bias16 = torch.where(valid, vn, torch.full_like(vn, MASKED)).to(torch.bfloat16)[None, :]
-        qs16, codes16 = qs.to(torch.bfloat16), c16[id(codes)]
-        yard_ms = time_ms(lambda: torch.topk(
-            torch.addmm(bias16, qs16, codes16.T, alpha=-2.0), k, dim=1, largest=False), reps)
-        del bias16
-        gt_bytes = 0 if gt is None else gt.numel() * gt.element_size()
-        moved = n * d + n * 4 + n + gt_bytes + b * d * 4 + b * 4 + b * k * 8
-        bound_by = "bytes" if moved / bw >= 2 * b * n * d / flops else "operations"
-        bound_ms = 1e3 * max(moved / bw, 2 * b * n * d / flops)
-        row = dict(case=name, variant=variant, chosen="force" not in cs,
-                   nq=wgmma_width(b) if variant == "wgmma" else None, max_abs_err=err, ms=ms,
-                   prev_ms=prev_ms, kernel_ms=kms[variant], prev_kernel_ms=kms.get("mma")
-                   if variant == "wgmma" else None, plain_ms=plain_ms, addmm_topk_ms=yard_ms,
-                   bound_ms=bound_ms, bound_by=bound_by, b=b, k=k, n=n, d=d, fold=cs["fold"],
-                   gt=cs["gt"], tag=cs["tag"])
-        results.append(row)
-        emit({"codes_kernel_case": row})
+    results = [codes_case(cs, g, centers, c16, bw, flops, reps) for cs in cases]
     check_variants("fused_codes_scan", results)
     return {"cases": results}
+
+
+def random_codes(g, n: int, d: int) -> tuple:
+    """Random int8 codes [n, d] and the |v|^2 of their rows dequantized
+    under CODES_SCALE, CODES_LO_EFF."""
+    dev = torch.device(DEVICE)
+    codes = torch.randint(-128, 128, (n, d), generator=g, device=dev, dtype=torch.int8)
+    norms = torch.empty(n, device=dev)
+    step = 1 << 20
+    for s in range(0, n, step):
+        deq = codes[s:s + step].float() * CODES_SCALE + CODES_LO_EFF
+        norms[s:s + step] = (deq * deq).sum(dim=1)
+    return codes, norms
+
+
+def codes_case(cs: dict, g, centers, c16: dict, bw: float, flops: float, reps: int) -> dict:
+    """One K2 case (phases 5 and 17), as flat_case for K1, over int8 codes
+    under the affine lo = -4, hi = 4 (CODES_SCALE) with the l2 or dot
+    fold; a group term is -2 q.centers of each 128-row group's center
+    (`centers` as wide as the codes); addmm + topk is the yardstick. c16
+    keeps the bf16 copies of the codes for it across cases."""
+    from longbow_tpu_torch.ops._kernels import FUSED_CODES_SCAN
+    from longbow_tpu_torch.ops.distance import MASKED
+    from longbow_tpu_torch.ops.scan import (
+        fused_codes_search, fused_codes_search_plain, scan_variant, wgmma_takes, wgmma_width,
+    )
+
+    dev = torch.device(DEVICE)
+    scale, lo_eff = CODES_SCALE, CODES_LO_EFF
+    codes, b, k = cs["codes"], cs["b"], cs["k"]
+    n, d = codes.shape
+    q = torch.randn((b, d), generator=g, device=dev) * cs.get("qscale", 1.0)
+    if cs["fold"] == "dot":  # sq8's dot fold: scores are -q.v_deq
+        qs, qn, vn, clamp = q * scale * 0.5, -lo_eff * q.sum(dim=1), torch.zeros_like(
+            cs["norms"]), False
+    else:
+        qs, qn, vn, clamp = (q * scale, (q * q).sum(dim=1) - 2.0 * lo_eff * q.sum(dim=1),
+                             cs["norms"], True)
+    gt = None
+    if cs["gt"]:
+        gt = -2.0 * (q @ centers[:, :d].T)[:, cs["gcid"]]
+        gt = gt.to(torch.bfloat16) if cs["gt"] == "bf16" else gt
+    args = (qs, qn, codes, vn, cs["valid"], k)
+    kw = dict(group_term=gt, extra_mask=cs["extra"], clamp_zero=clamp, device=dev)
+    name = (f"{cs['tag']} {cs['fold']} gt={cs['gt']} B={b} k={k} N={n} D={d}")
+    # the wrapper's own choice, unless the case asks for a variant
+    aligned = codes.data_ptr() % 16 == 0
+    variant = cs.get("force") or scan_variant(b, n, d, k, aligned, "fused_codes_scan")
+    kernel_kw = dict(kw, variant=cs.get("force"))
+    dk, ik = launched_as(FUSED_CODES_SCAN, variant, name,
+                         lambda: fused_codes_search(*args, **kernel_kw))
+    dp, ip_ = fused_codes_search_plain(*args, **kw)
+    torch.cuda.synchronize()
+    err = compare(name, dk, ik, dp, ip_)
+    if variant == "mma" and wgmma_takes(b, d, k, aligned):
+        # forced: the other variant, held to the same plain answer
+        compare(name + " forced wgmma",
+                *fused_codes_search(*args, **dict(kw, variant="wgmma")), dp, ip_)
+    ms = time_ms(lambda: fused_codes_search(*args, **kernel_kw), reps)
+    prev_ms = None  # the mma.sync variant on a shape that wgmma serves
+    if variant == "wgmma":
+        prev_ms = time_ms(lambda: fused_codes_search(*args, **dict(kw, variant="mma")), reps)
+    kms = kernel_ms(("wgmma", "mma") if variant == "wgmma" else ("mma",), False, args, kw,
+                    reps)
+    plain_ms = time_ms(lambda: fused_codes_search_plain(*args, **kw), PLAIN_LAUNCHES)
+    if id(codes) not in c16:
+        c16[id(codes)] = codes.to(torch.bfloat16)
+    valid = cs["valid"] if cs["extra"] is None else cs["valid"] & cs["extra"]
+    bias16 = torch.where(valid, vn, torch.full_like(vn, MASKED)).to(torch.bfloat16)[None, :]
+    qs16, codes16 = qs.to(torch.bfloat16), c16[id(codes)]
+    yard_ms = time_ms(lambda: torch.topk(
+        torch.addmm(bias16, qs16, codes16.T, alpha=-2.0), k, dim=1, largest=False), reps)
+    del bias16
+    gt_bytes = 0 if gt is None else gt.numel() * gt.element_size()
+    moved = n * d + n * 4 + n + gt_bytes + b * d * 4 + b * 4 + b * k * 8
+    bound_by = "bytes" if moved / bw >= 2 * b * n * d / flops else "operations"
+    bound_ms = 1e3 * max(moved / bw, 2 * b * n * d / flops)
+    row = dict(case=name, variant=variant, chosen="force" not in cs,
+               nq=wgmma_width(b, d, 1) if variant == "wgmma" else None, max_abs_err=err, ms=ms,
+               prev_ms=prev_ms, kernel_ms=kms[variant], prev_kernel_ms=kms.get("mma")
+               if variant == "wgmma" else None, plain_ms=plain_ms, addmm_topk_ms=yard_ms,
+               bound_ms=bound_ms, bound_by=bound_by, b=b, k=k, n=n, d=d, fold=cs["fold"],
+               gt=cs["gt"], tag=cs["tag"])
+    emit({"codes_kernel_case": row})
+    return row
 
 
 # -- 6. quantized store (the slice's path) -----------------------------------
@@ -1220,12 +1268,14 @@ def scan_row(name, variant, err, ms, plain_ms, moved, ops, bw, flops, **extra) -
 
 
 def check_build_scan(label: str, call: tuple, bw: float, flops: float, reps: int,
-                     finds_itself: bool = True) -> dict:
+                     finds_itself: bool = True, work_dim: int | None = None) -> dict:
     """K1 against its plain version on the very arguments a path gave the
     wrapper: for a graph build a block of corpus rows as queries, k + 1
     neighbours, the whole capacity with its valid mask (finds_itself:
     each of those rows must find itself); for an IVF spill segment the
-    search's queries, its pool and the segment's rows."""
+    search's queries, its pool and the segment's rows. The bound counts
+    `work_dim` columns (default: all of them): the dot build pads its 129
+    columns with zeros to 144 for the ring, and the work is the 129."""
     from longbow_tpu_torch.ops._kernels import FUSED_SCAN
     from longbow_tpu_torch.ops.scan import (
         fused_flat_search, fused_flat_search_plain, scan_variant,
@@ -1257,8 +1307,9 @@ def check_build_scan(label: str, call: tuple, bw: float, flops: float, reps: int
     qb = torch.as_tensor(q, device=corpus.device).to(corpus.dtype)
     mm_ms = time_ms(lambda: torch.topk(torch.matmul(qb, corpus.T), k, dim=1), reps)
     masks = 1 if kw.get("extra_mask") is None else 2
-    moved = n * d * 2 + n * 4 + masks * n + b * d * q.element_size() + b * k * 8
-    row = scan_row(name, variant, err, ms, plain_ms, moved, 2 * b * n * d, bw, flops,
+    dw = d if work_dim is None else work_dim
+    moved = n * dw * 2 + n * 4 + masks * n + b * dw * q.element_size() + b * k * 8
+    row = scan_row(name, variant, err, ms, plain_ms, moved, 2 * b * n * dw, bw, flops,
                    prev_ms=prev_ms, kernel_ms=kms[variant], prev_kernel_ms=kms.get("mma"),
                    matmul_topk_ms=mm_ms, b=b, k=k, n=n, d=d, tag=label)
     restore_counts(FUSED_SCAN, held)
@@ -1486,7 +1537,15 @@ def phase_graph(bw: float, flops: float, reps: int) -> dict:
         call = recorded_self_knn(lambda: store.put(f"g_{name}", sub_ids, sub))
         if sds.index.kind != "hnsw":
             fail(f"{name}: the dataset of kind hnsw did not build its graph")
-        scans.append(check_build_scan(f"self_knn_{name}", call, bw, flops, reps))
+        # the dot graph's rows: D_STORE + 1 columns (a MIPS column), padded
+        # with zeros to 144 for the ring (graph_build.pad_columns)
+        scans.append(check_build_scan(f"self_knn_{name}", call, bw, flops, reps,
+                                      work_dim=D_STORE + 1 if name == "dot" else None))
+        if name == "dot":
+            emit({"dot_build_launch": {"case": scans[-1]["case"], "variant": scans[-1]["variant"],
+                                       "kernel_ms": scans[-1]["kernel_ms"],
+                                       "plain_ms": scans[-1]["plain_ms"],
+                                       "d129_mma_ms": DOT_BUILD_D129_MMA_MS}})
         del call
         got, _, _ = store.search(f"g_{name}", queries, 10, ef_search=100)
         want, _, _ = store.search(f"g_{name}", queries, 10, exact=True)
@@ -3937,6 +3996,7 @@ CLUSTER_NODES = 8          # BASELINE.json configs[4]: 8 consistent-hash shards
 REPLICAS = 3               # scripts/start_local_cluster.sh: a replicated 3-node cluster
 CLUSTER_THREADS, CLUSTER_TICKETS = 16, 256
 CLUSTER_DELETES = 10_000
+N_CLUSTER = 250_000        # rows of 14.1 and 14.3 (cut from phase 4's 1M to make room for phase 17)
 CLUSTER_OVERLAP_GATE = 0.99  # the merged top-10 against one flat dataset of the same rows
 CLUSTER_FILTER = [3, 7, 11]  # a category filter of three values
 N_HYBRID, HYBRID_QUERIES = 100_000, 100
@@ -4192,14 +4252,14 @@ def phase_cluster(card: str) -> dict:
     from longbow_tpu_torch.store.vector_store import VectorStore
 
     t_phase = time.perf_counter()
-    allv, assign = make_corpus(N_STORE + N_QUERIES, D_STORE, seed=0, clusters=True)
-    corpus, queries = allv[:N_STORE], allv[N_STORE:]
-    ids = np.arange(N_STORE, dtype=np.int64)
+    allv, assign = make_corpus(N_CLUSTER + N_QUERIES, D_STORE, seed=0, clusters=True)
+    corpus, queries = allv[:N_CLUSTER], allv[N_CLUSTER:]
+    ids = np.arange(N_CLUSTER, dtype=np.int64)
     _, truth = exact_search(queries, corpus, 10, Metric.L2, device=DEVICE)
     truth = truth.cpu().numpy()
     # one flat dataset of the same rows, searched in this process
     flat = VectorStore(device=DEVICE, dtype=torch.bfloat16, default_index_kind="flat")
-    for s in range(0, N_STORE, PUT_BATCH):
+    for s in range(0, N_CLUSTER, PUT_BATCH):
         flat.put("docs", ids[s:s + PUT_BATCH], corpus[s:s + PUT_BATCH])
     flat_ans = flat.search("docs", queries, 10, use_cache=False)
     out = {"card": card, "note": "node processes share one card: the tier's costs, "
@@ -4230,7 +4290,7 @@ def cluster_partitioned(sets, root, corpus, queries, truth, flat_ans, assign, fl
     from longbow_tpu_torch.hybrid.fusion import fuse_rrf
     from longbow_tpu_torch.ops.distance import Metric, exact_search
 
-    name, n = "docs", N_STORE
+    name, n = "docs", N_CLUSTER
     ids = np.arange(n, dtype=np.int64)
     category = ids % 1000
     ns = NodeSet(CLUSTER_NODES, root / "partitioned",
@@ -4423,7 +4483,7 @@ def cluster_hybrid(ns, corpus, queries, assign, fuse_rrf, flight) -> dict:
     """14.2: a text dataset on the 8 nodes; a hybrid query through node 0
     must equal fuse_rrf (k 60) over every node's own local_only answer, in
     node 0's fan-out order (itself, then its peers as listed)."""
-    name, n = "hybrid", min(N_HYBRID, N_STORE)
+    name, n = "hybrid", min(N_HYBRID, N_CLUSTER)
     rng = np.random.default_rng(9)
     words = zipf_words(rng, (n, TEXT_WORDS))
     texts = np.array([" ".join(f"w{w}" for w in row) + f" c{c}"
@@ -4441,7 +4501,7 @@ def cluster_hybrid(ns, corpus, queries, assign, fuse_rrf, flight) -> dict:
     ns.wait_ready(range(ns.n), "14.2 ingest")
     put_s = time.perf_counter() - t0
     qwords = zipf_words(rng, (HYBRID_QUERIES, 2))
-    qclusters = assign[N_STORE:N_STORE + HYBRID_QUERIES]
+    qclusters = assign[N_CLUSTER:N_CLUSTER + HYBRID_QUERIES]
     qtexts = [f"c{c} w{a} w{b}" for c, (a, b) in zip(qclusters.tolist(), qwords.tolist())]
     lat = []
     for j in range(HYBRID_QUERIES):
@@ -4495,7 +4555,7 @@ def local_answer(ns, i: int, name: str, q: np.ndarray) -> tuple:
 
 def cluster_replicated(sets, root, corpus, queries, flight) -> dict:
     """14.3: 3 nodes, async replication, anti-entropy every 2 s, a WAL each."""
-    name, n = "docs", N_STORE
+    name, n = "docs", N_CLUSTER
     ids = np.arange(n, dtype=np.int64)
     rs = NodeSet(REPLICAS, root / "replicated",
                  {"LONGBOW_PLACEMENT": "replicated", "LONGBOW_REPLICATION": "async",
@@ -4798,17 +4858,18 @@ def phase_leftovers(bw: float, flops: float, reps: int, store_out: dict) -> dict
 
 OPS_ROWS, OPS_DIM = 100_000, 128  # the rows the ops CLI puts
 OPS_SEARCH_SEEDS = (11, 12, 13)   # the CLI's query seeds (not the put's: no query is a row)
-# 16.2's modes, 16.3's soak and 16.4's run, cut from 10, 60 and 90 s for the phase's 300 s: on a
-# slow host the script took 1,109.1 s and this phase 296.1 s (H100 80GB HBM3, 700 W)
-BENCH_S = 8.0                     # each bench_tool mode against the node
-SOAK_S = 30                       # soak_mixed against the node
+# 16.2's modes, 16.3's soak and 16.4's run, cut from 10, 60 and 90 s for the phase's 300 s (on a
+# slow host the script took 1,109.1 s and this phase 296.1 s, H100 80GB HBM3, 700 W), and again
+# from 8, 30 and 45 s (and 16.4's seed rows from 262,144) to make room for phase 17
+BENCH_S = 4.0                     # each bench_tool mode against the node
+SOAK_S = 20                       # soak_mixed against the node
 # the node checks for compaction every 5 s at fragmentation 0.05 (the defaults, 30 s and 0.3, are
 # for the reference's 1,200 s soak): the soak's upserts, about 1,100 dead rows a second over
 # 100,000 seeded, cross 0.05 about every 5 s, so a host at half the rate still compacts
 SOAK_COMPACTION = {"LONGBOW_COMPACTION_INTERVAL_S": "5", "LONGBOW_COMPACTION_FRAG_THRESHOLD": "0.05"}
-CHAOS_S = 45                      # chaos_soak's run, node 1 killed at 25% and restarted at 55%
+CHAOS_S = 25                      # chaos_soak's run, node 1 killed at 25% and restarted at 55%
 CHAOS_DIM, CHAOS_BATCH = 128, 1_000
-CHAOS_SEED_ROWS = 262_144         # cut from phase 4's 1M for the script's time (14.3 heals 1M)
+CHAOS_SEED_ROWS = 131_072         # cut from phase 4's 1M for the script's time
 TOOL_TIMEOUT_S = 600.0
 
 
@@ -5053,6 +5114,275 @@ def operators_chaos() -> dict:
             "launches": {k: int(sum(v)) for k, v in launched.items()}}
 
 
+# -- 17. wide vectors ---------------------------------------------------------
+
+N_WIDE = 1_000_000           # GIST-1M's rows (bench.py's recipe: the real rows are not in the repo)
+D_GIST, D_EMBED = 960, 768   # GIST-1M's width; the common text-embedding width
+WIDE_DELETES = 10_000
+WIDE_CATEGORIES = 3          # a three-value `category` column
+WIDE_TIMED_LAUNCHES = 10     # 17.3's medians (phase 3's take 20), for the script's time
+# the D <= 128 served batches' kernels before the chunked loop was added
+# (NVIDIA H100 80GB HBM3, 700 W), printed beside this run's on a line of
+# their own (d128_served_batches), not on the kernels line
+WHOLE_TILE_KERNEL_MS = {"fused_scan": 2.218, "fused_codes_scan": 10.067}
+DOT_BUILD_D129_MMA_MS = 24.182   # the dot build's self-kNN launch at D = 129 on mma.sync
+
+
+def phase_wide(bw: float, flops: float, reps: int) -> dict:
+    """17. wide vectors: 17.1 GIST-1M's shape through a default store (flat
+    on K1's chunked ring, then the migration to the graph), 17.2 768-d
+    embeddings through SQ8Index (K2), 17.3 both kernels at D = 768 and
+    960 against their plain versions, beside mma.sync and the bound. The
+    launch counts are 17.1 and 17.2's."""
+    from longbow_tpu_torch.ops import _kernels
+
+    _kernels.reset_launch_counts()
+    out = {"gist_1m_x_960": wide_gist(), "sq8_1m_x_768": wide_sq8()}
+    torch.cuda.synchronize()
+    out.update(_kernels.launch_counts())
+    by_variant = out["launches_by_variant"]
+    if not by_variant["fused_scan"].get("wgmma") or not by_variant["fused_codes_scan"].get("wgmma"):
+        fail(f"17: the wide paths did not launch both kernels' wgmma ring: {by_variant}")
+    torch.cuda.empty_cache()
+    emit({"wide": out})
+    out.update(wide_kernel_cases(bw, flops, reps))   # k1_d768, k1_d960, k2_d768
+    return out
+
+
+def wide_gist() -> dict:
+    """17.1: 1,000,000 x 960 rows with a three-value category into a
+    default (adaptive) store held flat until the flat tier is measured
+    (a 1,000-query batch, a single-query p50, a filter, 10,000 deletes),
+    then let migrate (the threshold back at its default, one upsert) to
+    the graph: ef 100 and 150, the same filter and deletes."""
+    from longbow_tpu_torch.index.adaptive import DEFAULT_MIGRATION_THRESHOLD
+    from longbow_tpu_torch.ops import _kernels
+    from longbow_tpu_torch.ops.distance import Metric, exact_search
+    from longbow_tpu_torch.query.parser import Filter
+    from longbow_tpu_torch.store.vector_store import VectorStore
+
+    allv = make_corpus(N_WIDE + N_QUERIES, D_GIST, seed=0)
+    corpus, queries = allv[:N_WIDE], allv[N_WIDE:]
+    ids = np.arange(N_WIDE, dtype=np.int64)
+    category = ids % WIDE_CATEGORIES
+    dead = np.random.default_rng(3).choice(N_WIDE, WIDE_DELETES, replace=False)
+    live = np.ones(N_WIDE, bool)
+    live[dead] = False
+    _, truth = exact_search(queries, corpus, 10, Metric.L2, valid=torch.from_numpy(live),
+                            device=DEVICE)
+    truth = truth.cpu().numpy()
+    store = VectorStore(device=DEVICE, migration_threshold=N_WIDE + 1)  # no kind named
+    ingest_s = put_all(store, "gist", ids, corpus, category)
+    idx = store.get("gist").index
+    if idx.kind != "flat":
+        fail(f"17.1: the default dataset is of kind {idx.kind!r} before its migration")
+    if store.delete("gist", dead) != WIDE_DELETES:
+        fail(f"17.1: delete did not remove {WIDE_DELETES} ids")
+
+    def checks(label: str, **kw) -> dict:
+        fids, _, fok = store.search("gist", queries[:100], 10,
+                                    filters=[Filter("category", "eq", "1")], **kw)
+        hits = fids[fok].tolist()
+        violations = sum(1 for x in hits if x % WIDE_CATEGORIES != 1)
+        did, _, dok = store.search("gist", corpus[dead[:1000]], 10, **kw)
+        back = len(set(did[dok].tolist()) & set(dead.tolist()))
+        if not hits or violations or back:
+            fail(f"17.1 {label}: {violations} filter violations in {len(hits)} hits, "
+                 f"{back} deleted ids back")
+        return {"filtered_hits": len(hits), "filter_violations": 0, "deleted_returned": 0}
+
+    k1 = _kernels.FUSED_SCAN.by_variant.get("wgmma", 0)
+    flat = kind_stats(store, "gist", queries, truth, N_WIDE, ingest_s)
+    if _kernels.FUSED_SCAN.by_variant.get("wgmma", 0) == k1:
+        fail("17.1: the flat tier's searches did not launch K1's wgmma ring")
+    gate("17.1 flat 1M x 960", flat["recall_at_10"], RECALL_GATE)
+    flat.update(checks("flat"))
+    emit({"wide_gist_flat": flat})
+
+    idx.migration_threshold = DEFAULT_MIGRATION_THRESHOLD
+    t0 = time.perf_counter()
+    store.put("gist", ids[:1], corpus[:1], {"category": category[:1]})  # the upsert that migrates
+    migrated = idx.wait_migration()
+    torch.cuda.synchronize()
+    graph = {"migration_s": time.perf_counter() - t0, "migration_stats": idx.migration_stats,
+             "relative_contrast": idx.last_contrast}
+    if idx.migration_error is not None:
+        fail(f"17.1: the migration failed: {idx.migration_error!r}")
+    if not migrated or idx.kind != "hnsw":
+        fail(f"17.1: after wait_migration the dataset is of kind {idx.kind!r}, not 'hnsw'")
+    for ef in (100, 150):
+        served, _, _ = store.search("gist", queries, 10, ef_search=ef, use_cache=False)
+        graph[f"recall_at_10_ef{ef}"] = recall_at(served, truth)
+        sec = timed(lambda: store.search("gist", queries, 10, ef_search=ef, use_cache=False), 3)
+        graph[f"batch_1000_ef{ef}_ms"] = 1e3 * sec
+    gate("17.1 graph 1M x 960 at ef 150", graph["recall_at_10_ef150"], GRAPH_RECALL_GATE)
+    graph["p50_single_query_ms"] = 1e3 * statistics.median(
+        timed(lambda: store.search("gist", queries[j:j + 1], 10, use_cache=False), 1)
+        for j in range(16))
+    graph.update(checks("graph", ef_search=150), kind=idx.kind)
+    emit({"wide_gist_graph": graph})
+    store.drop("gist")
+    del store, idx
+    torch.cuda.empty_cache()
+    return {"flat": flat, "graph": graph}
+
+
+def wide_sq8() -> dict:
+    """17.2: 1,000,000 x 768 rows through an sq8 dataset (SQ8Index, K2),
+    held to an exact search over its own dequantized rows."""
+    from longbow_tpu_torch.ops.distance import Metric
+    from longbow_tpu_torch.store.vector_store import VectorStore
+
+    allv = make_corpus(N_WIDE + N_QUERIES, D_EMBED, seed=1)
+    corpus, queries = allv[:N_WIDE], allv[N_WIDE:]
+    ids = np.arange(N_WIDE, dtype=np.int64)
+    store = VectorStore(device=DEVICE)
+    sds = store.get_or_create("emb", D_EMBED, index_kind="sq8")
+    ingest_s = put_all(store, "emb", ids, corpus)
+    truth = dequantized_truth(sds.index, queries, N_WIDE, 10, Metric.L2)
+    row = kind_stats(store, "emb", queries, truth, N_WIDE, ingest_s)
+    row["recall_at_10_vs_dequantized"] = row.pop("recall_at_10")
+    gate("17.2 sq8 1M x 768 against its dequantized rows", row["recall_at_10_vs_dequantized"],
+         QUANT_RECALL_GATE)
+    emit({"wide_sq8": row})
+    store.drop("emb")
+    del store, sds
+    torch.cuda.empty_cache()
+    return row
+
+
+def wide_kernel_cases(bw: float, flops: float, reps: int) -> dict:
+    """17.3: K1 at D = 768 and 960 and K2 at D = 768 over 1,048,576 rows:
+    B = 1, 48 and 1,000, k 10 and 64, l2 and ip (K2: the l2 and dot
+    folds), a filter, fewer valid rows than k, a ragged last tile and K2's
+    bf16 group term, each held to its plain version beside mma.sync (and
+    forced onto the ring where scan_variant names mma.sync). No case that
+    scan_variant sends to the ring may be slower there than on mma.sync;
+    the ring must serve B = 48 and 1,000."""
+    from longbow_tpu_torch.ops.distance import Metric
+
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev).manual_seed(17)
+    rows = torch.arange(N_KERNEL, device=dev)
+    ragged = N_KERNEL - 77
+    out = {}
+    for d in (D_EMBED, D_GIST):
+        c = torch.randn((N_KERNEL, d), generator=g, device=dev).to(torch.bfloat16)
+        cf = c.float()
+        norms = (cf * cf).sum(dim=1)
+        del cf
+        valid = torch.rand((N_KERNEL,), generator=g, device=dev) > 0.01
+        base = dict(corpus=c, norms=norms, valid=valid, extra=None)
+        cases = [dict(base, metric=m, b=b, k=k, tag=f"wide_b{b}")
+                 for b in (1, 48, 1000) for k in (10, 64) for m in (Metric.L2, Metric.DOT)]
+        cases += [dict(base, metric=Metric.L2, b=48, k=64, extra=rows % 10 == 3,
+                       tag="wide_filter"),
+                  dict(base, metric=Metric.L2, b=48, k=64, valid=rows < 20,
+                       tag="fewer_valid_than_k"),
+                  dict(base, metric=Metric.L2, b=1000, k=64, corpus=c[:ragged],
+                       norms=norms[:ragged], valid=valid[:ragged], tag="wide_ragged_last_tile")]
+        out[f"k1_d{d}"] = [flat_case(cs, g, bw, flops, reps) for cs in cases]
+        del c, norms, base, cases
+        torch.cuda.empty_cache()
+    codes, cnorms = random_codes(g, N_KERNEL, D_EMBED)
+    valid = torch.rand((N_KERNEL,), generator=g, device=dev) > 0.01
+    centers = torch.randn((1024, D_EMBED), generator=g, device=dev) * 4.0
+    gcid = torch.randint(0, 1024, (N_KERNEL // 128,), generator=g, device=dev)
+    base = dict(codes=codes, norms=cnorms, valid=valid, gcid=gcid, extra=None, gt=None, fold="l2")
+    cases = [dict(base, b=b, k=k, fold=f, tag=f"wide_b{b}")
+             for b in (1, 48, 1000) for k in (10, 64) for f in ("l2", "dot")]
+    cases += [dict(base, b=1000, k=64, gt="bf16", tag="wide_gt_bf16"),
+              dict(base, b=48, k=64, extra=rows % 10 == 3, tag="wide_filter"),
+              dict(base, b=48, k=64, valid=rows < 20, tag="fewer_valid_than_k"),
+              dict(base, b=1000, k=64, codes=codes[:ragged], norms=cnorms[:ragged],
+                   valid=valid[:ragged], tag="wide_ragged_last_tile")]
+    c16: dict = {}
+    out[f"k2_d{D_EMBED}"] = [codes_case(cs, g, centers, c16, bw, flops, reps) for cs in cases]
+    del c16
+    out[f"k2_d{D_EMBED}_repeat"] = wide_repeat_check(codes, cnorms, valid, g)
+    emit({"wide_repeat": out[f"k2_d{D_EMBED}_repeat"]})
+    del codes, base, cases
+    torch.cuda.empty_cache()
+    for key, results in out.items():
+        if key.endswith("_repeat"):
+            continue
+        kernel = "fused_scan" if key.startswith("k1") else "fused_codes_scan"
+        check_variants(kernel, results, need_both=False)
+        for r in results:
+            if r["b"] in (48, 1000) and r["tag"] not in DATA_EDGE_TAGS and r["variant"] != "wgmma":
+                fail(f"17.3: {r['case']} ran {r['variant']}, not the ring")
+    return out
+
+
+WIDE_REPEAT_SEEDS, WIDE_REPEAT_LAUNCHES = 3, 3
+
+
+def wide_repeat_check(codes, norms, valid, g) -> dict:
+    """17.3's K2 at D = 768 at the batches between one query block and
+    a few (B = 65, 100, 200: two to four blocks of 64) on the ring, over
+    WIDE_REPEAT_SEEDS query draws and WIDE_REPEAT_LAUNCHES launches of
+    each: on 17.3's codes with no group term, an f32 and a bf16 one, and
+    on a short ragged corpus with 5% of its rows deleted. Every launch is
+    held to the plain version (compare) and every returned row's score to
+    its exact f32 score (|error| <= 0.05 + 1e-5 |score|), so that a wrong
+    product or row term cannot hide in the top-k tolerance. These
+    launches compare; they do not count."""
+    from longbow_tpu_torch.ops._kernels import FUSED_CODES_SCAN
+    from longbow_tpu_torch.ops.distance import MASKED_GUARD
+    from longbow_tpu_torch.ops.scan import fused_codes_search, fused_codes_search_plain
+
+    held = hold_counts(FUSED_CODES_SCAN)
+    dev = torch.device(DEVICE)
+    n, d = codes.shape
+    gcid = torch.randint(0, 1024, (n // 128,), generator=g, device=dev)
+    ragged = 40_000 - 77   # its last tile ragged
+    corpora = ((codes, norms, valid, (None, "f32", "bf16")),
+               (codes[:ragged], norms[:ragged],
+                torch.rand((ragged,), generator=g, device=dev) > 0.05, (None,)))
+    launches, worst = 0, 0.0
+    for (rows_c, rows_n, rows_v, gt_kinds), seed, b in itertools.product(
+            corpora, range(WIDE_REPEAT_SEEDS), (65, 100, 200)):
+        q = torch.randn((b, d), generator=g, device=dev)
+        qs = (q * CODES_SCALE).to(torch.bfloat16).float()
+        qn = (q * q).sum(dim=1) - 2.0 * CODES_LO_EFF * q.sum(dim=1)
+        for gt_kind in gt_kinds:
+            gt = None
+            if gt_kind:
+                gt = torch.randn((b, 1024), generator=g, device=dev)[:, gcid] * 4.0
+                gt = gt.to(torch.bfloat16) if gt_kind == "bf16" else gt
+            args = (qs, qn, rows_c, rows_n, rows_v, 64)
+            kw = dict(group_term=gt, device=dev)
+            name = f"wide_repeat seed={seed} gt={gt_kind} B={b} k=64 N={rows_c.shape[0]} D={d}"
+            dp, ip_ = fused_codes_search_plain(*args, **kw)
+            for _ in range(WIDE_REPEAT_LAUNCHES):
+                dk, ik = fused_codes_search(*args, **kw, variant="wgmma")
+                compare(name, dk, ik, dp, ip_)
+                real = dk < MASKED_GUARD
+                at = ik.long().clamp_min(0)
+                exact = (qn[:, None] - 2.0 * (rows_c[at].float() @ qs[:, :, None])[..., 0]
+                         + rows_n[at])
+                if gt is not None:
+                    exact = exact + gt.float().gather(1, at // 128)
+                exact = exact.clamp_min(0)[real]
+                err = (dk[real] - exact).abs()
+                if not torch.all(err <= 0.05 + 1e-5 * exact.abs()):
+                    fail(f"17.3 {name}: a returned row's score is off its exact score "
+                         f"by {err.max().item()}")
+                worst = max(worst, float(err.max()))
+                launches += 1
+    restore_counts(FUSED_CODES_SCAN, held)
+    return {"launches": launches, "max_abs_err_vs_exact": worst, "batches": [65, 100, 200],
+            "corpora": [f"{n} rows, group term none/f32/bf16", f"{ragged} rows, 5% deleted"],
+            "seeds": WIDE_REPEAT_SEEDS, "launches_each": WIDE_REPEAT_LAUNCHES}
+
+
+def wide_rows(cases: list) -> list:
+    """17.3's cases for the kernels line."""
+    keys = ("case", "variant", "nq", "kernel_ms", "prev_kernel_ms", "bound_ms", "bound_by",
+            "plain_ms", "matmul_topk_ms", "addmm_topk_ms", "max_abs_err")
+    return [{k: c[k] for k in keys if k in c} for c in cases]
+
+
 def cluster_launches(cluster: dict, kernel: str) -> int:
     """A kernel's launches in phase 14's node processes, summed over nodes."""
     return int(sum(sum(cluster[part][f"{kernel}_launches_by_node"])
@@ -5125,6 +5455,8 @@ def main() -> int:
     cluster = run("14 cluster", phase_cluster, card)
     leftovers = run("15 leftovers", phase_leftovers, bw, flops, TIMED_LAUNCHES, store)
     operators = run("16 operators", phase_operators, card)
+    torch.cuda.empty_cache()
+    wide = run("17 wide", phase_wide, bw, flops, WIDE_TIMED_LAUNCHES)
     emit({"phase_seconds": took})
     served_ran("4 store, single queries", store, "fused_scan", store["single_query_variant"])
     served_ran("11 coalescer groups", serving, "fused_scan", serving["k1_serving"]["variant"])
@@ -5135,13 +5467,21 @@ def main() -> int:
                 "serving": serving, "mesh": mesh, "flight": flight,
                 "cluster_partitioned": cluster["partitioned"],
                 "cluster_replicated": cluster["replicated"], "coarse": leftovers,
-                "operators_16_1_to_3": operators}
+                "operators_16_1_to_3": operators, "wide": wide}
 
     def by_variant(kernel: str) -> dict:
         return {label: ph["launches_by_variant"][kernel] for label, ph in by_phase.items()}
 
     served = next(c for c in kern["cases"] if c["tag"] == "served_batch")
     served2 = next(c for c in codes["cases"] if c["tag"] == "served_batch")
+    dot_build = next(c for c in graph["self_knn_cases"] if c["tag"] == "self_knn_dot")
+    # the D <= 128 served batches' kernels in this run beside the whole-tile
+    # loop's earlier times (not this run's: kept off the kernels line)
+    emit({"d128_served_batches": {
+        "fused_scan": {"shape": served["case"], "kernel_ms": served["kernel_ms"],
+                       "earlier_kernel_ms": WHOLE_TILE_KERNEL_MS["fused_scan"]},
+        "fused_codes_scan": {"shape": served2["case"], "kernel_ms": served2["kernel_ms"],
+                             "earlier_kernel_ms": WHOLE_TILE_KERNEL_MS["fused_codes_scan"]}}})
     emit({"kernels": [{
         "name": "fused_scan",
         "route": "cuda",
@@ -5160,8 +5500,10 @@ def main() -> int:
         "launches_coarse": leftovers["launches"]["fused_scan"],
         # the node processes' own launch counters over phase 16's tools
         "launches_operators": operators["launches"]["fused_scan"],
+        "launches_wide": wide["launches"]["fused_scan"],
         "max_abs_err": max(c["max_abs_err"] for c in
                            kern["cases"] + graph["self_knn_cases"] + [kinds["k1_spill"]]
+                           + wide["k1_d768"] + wide["k1_d960"]
                            + [services["k1_services"], persist["k1_persistence"],
                               serving["k1_serving"], mesh["mesh8"]["k1_shard"],
                               flight["k1_flight"]]),
@@ -5171,6 +5513,8 @@ def main() -> int:
         "graph_tier_plain_ms": knn["plain_ms"],
         "graph_tier_bound_ms": knn["bound_ms"],
         "graph_tier_bound_by": knn["bound_by"],
+        # the dot graph's self-kNN, its rows padded from D = 129 to 144
+        **recorded_fields("dot_build", dot_build),
         **recorded_fields("index_kinds", kinds["k1_spill"]),
         **recorded_fields("services", services["k1_services"]),
         **recorded_fields("persistence", persist["k1_persistence"]),
@@ -5186,8 +5530,10 @@ def main() -> int:
         "library_ms": None,
         "matmul_topk_ms": served["matmul_topk_ms"],
         "shape": served["case"],
+        "kernel_ms": served["kernel_ms"],
         "launches_by_variant": by_variant("fused_scan"),
         "small_batches": small_rows(kern["cases"]),
+        "wide": wide_rows(wide["k1_d768"] + wide["k1_d960"]),
     }, {
         "name": "fused_codes_scan",
         "route": "cuda",
@@ -5204,8 +5550,10 @@ def main() -> int:
         "launches_cluster": cluster_launches(cluster, "k2"),
         "launches_coarse": leftovers["launches"]["fused_codes_scan"],
         "launches_operators": operators["launches"]["fused_codes_scan"],
+        "launches_wide": wide["launches"]["fused_codes_scan"],
         "max_abs_err": max(c["max_abs_err"] for c in
-                           codes["cases"] + [kinds["k2_disk"], services["k2_services"],
+                           codes["cases"] + wide["k2_d768"]
+                           + [kinds["k2_disk"], services["k2_services"],
                                              persist["k2_persistence"], flight["k2_flight"],
                                              leftovers["k2_coarse"]]),
         **recorded_fields("index_kinds", kinds["k2_disk"]),
@@ -5222,8 +5570,10 @@ def main() -> int:
         "library_ms": None,
         "addmm_topk_ms": served2["addmm_topk_ms"],
         "shape": served2["case"],
+        "kernel_ms": served2["kernel_ms"],
         "launches_by_variant": by_variant("fused_codes_scan"),
         "small_batches": small_rows(codes["cases"]),
+        "wide": wide_rows(wide["k2_d768"]),
     }]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

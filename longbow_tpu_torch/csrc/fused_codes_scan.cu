@@ -20,17 +20,19 @@
 // its id bits packed into the score are not needed.
 //
 // What bounds it on an H100. Small B: reading the codes, N*D bytes
-// (983 MB at 10,240,000 x 96) over 3.35 TB/s. Large B: the 2*B*N*D
-// multiply-adds over the bf16 tensor cores, and before that the passes
-// over the codes, one per query block.
+// (983 MB at 10,240,000 x 96, 768 MB at 1M x 768) over 3.35 TB/s. Large
+// B: the 2*B*N*D multiply-adds over the bf16 tensor cores, and before
+// that the passes over the codes, one per query block.
 //
 // Two variants; ops/scan.py::scan_variant picks one from the shape:
 //   - "wgmma" (scan_wgmma.cuh, longbow_fused_codes_scan_wgmma): K <= 64,
-//     D of 64, 96 or 128, 16-byte aligned codes, any batch: the served
-//     shapes. 16, 32, 64 or 128 queries per block (the narrowest that
-//     holds the batch), a ring of 128-row tiles filled by cp.async.bulk
-//     from one producer lane and handed over through mbarriers, the codes
-//     converted to bf16 once per warpgroup as the register operand of
+//     D a multiple of 16 from 64 to 1,024, 16-byte aligned codes, any
+//     batch: the served shapes. 16, 32, 64 or 128 queries per block (the
+//     narrowest that holds the batch), a ring filled from one producer
+//     lane (whole 128-row tiles by cp.async.bulk at D = 64, 96 and 128;
+//     128 rows x 128 dims by a 2-D TMA load at other widths) and handed
+//     over through mbarriers, the codes converted to bf16 in registers,
+//     64 dims at a time, once per warpgroup, as the register operand of
 //     wgmma.mma_async m64nNQk16, the group term read 8 tiles at a time
 //     by a warp of its own, and no block-wide barrier per tile;
 //   - "mma" (this file, longbow_fused_codes_scan): every other shape: K
@@ -374,13 +376,15 @@ int longbow_fused_codes_scan(int device, const void* qs, const void* qn, const v
                 smem, out_d, out_i, st);
 }
 
-// The wgmma variant (scan_wgmma.cuh): D in {64, 96, 128}, K <= 64, nq
-// (queries per block) in {16, 32, 64, 128}, codes 16-byte aligned, vn padded to a multiple of 128 rows with MASKED,
-// qs with its columns in wgmma_k_order, rows_per_split a multiple of 128,
+// The wgmma variant (scan_wgmma.cuh): D a multiple of 16 from 64 to
+// 1,024, K <= 64, nq (queries per block) in {16, 32, 64, 128} (at most 64
+// past D = 256), codes 16-byte aligned, vn padded to a multiple of 128 rows
+// with MASKED, qs [B, Dp] in wgmma_layout (Dp = D at 64, 96 and 128, else
+// D padded to a multiple of 128), rows_per_split a multiple of 128,
 // S = ceil(N / rows_per_split) and split_best [B S + ceil(B / nq)] uint32
 // filled with ordered_bits(MASKED_GUARD). Returns cudaGetLastError() after the
 // launch, -1 for a shape it does not take, -2 when shared memory is too
-// small.
+// small, -3 when the codes' tensor map cannot be made.
 int longbow_fused_codes_scan_wgmma(int device, const void* qs, const void* qn, const void* codes,
                                    const void* vn, const void* gt, int gt_kind, int G, int B,
                                    int N, int D, int K, int nq, int S, int rows_per_split,

@@ -17,19 +17,24 @@
 // candidates with one torch.topk.
 //
 // What bounds it on an H100. Small B: reading the corpus, N*D*2 bytes
-// (256 MiB at 1M x 128) over 3.35 TB/s. Large B: the 2*B*N*D bf16
-// multiply-adds over the tensor cores, and before that the passes over
-// the corpus, one per query block.
+// (256 MiB at 1M x 128, 1.92 GB at GIST-1M's 1M x 960) over 3.35 TB/s.
+// Large B: the 2*B*N*D bf16 multiply-adds over the tensor cores, and
+// before that the passes over the corpus, one per query block (through
+// L2: at D = 960 a block holds at most 64 queries, so 1,000 queries read
+// the rows 16 times).
 //
 // Two variants; ops/scan.py::scan_variant picks one from the shape:
-//   - "wgmma" (scan_wgmma.cuh, longbow_fused_scan_wgmma): K <= 64, D of
-//     64, 96 or 128, a 16-byte aligned corpus, any batch: the served
-//     shapes, single queries included. The main loop is K2's: 16, 32, 64
-//     or 128 queries per block, a ring of 128-row tiles filled by
-//     cp.async.bulk and handed over through mbarriers, the rows as the
-//     register operand of wgmma.mma_async m64nNQk16 (read from the stage
-//     16 bytes per lane, so no tensor map and no swizzled corpus layout is
-//     needed), no block-wide barrier per tile;
+//   - "wgmma" (scan_wgmma.cuh, longbow_fused_scan_wgmma): K <= 64, D a
+//     multiple of 16 from 64 to 1,024, a 16-byte aligned corpus, any
+//     batch: the served shapes, single queries included. The main loop is
+//     K2's: 16, 32, 64 or 128 queries per block, a ring filled by a copy
+//     warp and handed over through mbarriers, the rows as the register
+//     operand of wgmma.mma_async m64nNQk16 (read from the stage 16 bytes
+//     per lane, so no swizzled corpus layout is needed), no block-wide
+//     barrier per tile. At D = 64, 96 and 128 a stage is a whole 128-row
+//     tile (one cp.async.bulk); at every other width it is 128 rows x 64
+//     dims, one 2-D TMA load, and the accumulators carry across a tile's
+//     chunks;
 //   - "mma" (this file, longbow_fused_scan): every other shape: K up to
 //     512, any D, unaligned rows. The LONGBOW_PROBE_* names compile stages
 //     of its loop out for tools/probe_scan_stages.py.
@@ -373,14 +378,15 @@ int longbow_fused_scan(int device, const void* q, const void* qn, const void* co
                 out_d, out_i, st);
 }
 
-// The wgmma variant (scan_wgmma.cuh): D in {64, 96, 128}, K <= 64, nq
-// (queries per block) in {16, 32, 64, 128}, corpus 16-byte aligned, vn
-// padded to a multiple of 128 rows with MASKED, q with its columns in
-// wgmma_k_order, rows_per_split a multiple of 128,
+// The wgmma variant (scan_wgmma.cuh): D a multiple of 16 from 64 to
+// 1,024, K <= 64, nq (queries per block) in {16, 32, 64, 128} (at most 64
+// past D = 320), corpus 16-byte aligned, vn padded to a multiple of 128
+// rows with MASKED, q [B, Dp] in wgmma_layout (Dp = D at 64, 96 and 128,
+// else D padded to a multiple of 64), rows_per_split a multiple of 128,
 // S = ceil(N / rows_per_split) and split_best [B S + ceil(B / nq)] uint32
 // filled with ordered_bits(MASKED_GUARD). Returns cudaGetLastError() after the
 // launch, -1 for a shape it does not take, -2 when shared memory is too
-// small.
+// small, -3 when the rows' tensor map cannot be made.
 int longbow_fused_scan_wgmma(int device, const void* q, const void* qn, const void* corpus,
                              const void* vn, int B, int N, int D, int K, int l2, int nq, int S,
                              int rows_per_split, void* split_best, void* out_d, void* out_i,

@@ -1,9 +1,10 @@
 // The wgmma main loop shared by the fused scans: K1 (fused_scan.cu, bf16
 // rows; replaces longbow_tpu/ops/pallas_scan.py::fused_flat_search) and K2
 // (fused_codes_scan.cu, int8 codes; replaces ::fused_codes_search), on an
-// H100, for any batch with K <= 64, D of 64, 96 or 128 and 16-byte aligned
-// rows (ops/scan.py::scan_variant sends every other shape to the mma.sync
-// variants).
+// H100, for any batch with K <= 64, D a multiple of 16 from 64 to 1,024
+// and 16-byte aligned rows (ops/scan.py::scan_variant sends every other
+// shape to the mma.sync variants). D of 64, 96 or 128 stages whole tiles
+// (below); every other width runs the chunked loop at the end of this note.
 //
 // What bounds the scans is, at a few queries, the bytes of the corpus
 // (1M x 128 bf16 rows: 0.08 ms at 3.35 TB/s) and, at hundreds, the
@@ -55,12 +56,41 @@
 //     comes again as the last slot. Measured at B = 48 over 1M x 128
 //     rows on an H100 (tools/probe_scan_stages.py --k1-ring): appends a
 //     launch 1,083,766 -> 276,728, sorts 27,097 -> 151.
+// Wide rows (KS = 0: D = 80, 112 and 144 to 1,024; GIST-1M is 960, text
+// embeddings 768). At D = 960 a whole 128-row tile is 245,760 bytes of bf16
+// and 128 staged queries as much again, over the 232,448 a block may use,
+// and the A fragments of all D / 16 k-steps would take 240 registers. So a
+// ring stage is one (tile, chunk) piece: 128 rows x 128 bytes (64 bf16 or
+// 128 int8 dims, 16 KB), copied by one 2-D TMA load (cp.async.bulk.tensor,
+// a tensor map over [N, D]: rows past N and dims past D arrive as zeros,
+// so a ragged tile or a last chunk narrower than 128 bytes needs no other
+// care). A consumer loads its slab's fragments 64 dims (4 k-steps) at a
+// time and waits for their wgmmas before the next load (the other two
+// warpgroups' loads and epilogues fill the wait); the accumulators carry
+// across the chunks: scoring and selection run once a tile. The queries
+// stay resident in shared memory, zero-padded to whole chunks, so a block
+// takes at most 128 of them up to D = 320 and 64 up to 1,024 (ops/scan.py
+// wgmma_width): a 1,000-query batch at D = 960 is 16 query blocks, each
+// streaming the rows through L2 (30.7 GB at 1M x 960), which is the bound
+// of this design above a few hundred queries; at small batches it is the
+// 1.92 GB of rows over device memory, as for narrow rows. One instantiation
+// a block width serves every wide D (the chunk count is a runtime bound).
+// The whole-tile loop stays for D = 64, 96 and 128: forced through the
+// chunked loop (LONGBOW_PROBE_CHUNKED; tools/probe_scan_variants.py
+// --chunked-narrow, H100 SXM at 700 W), K1 over 1M x 128 rows took 0.96 to
+// 1.01 times its whole-tile time at B = 1, 48 and 1,000, but K2 over
+// 10,240,000 x 96 codes 1.35 times at B = 1 and 1.21 at 1,000: 96 int8 dims
+// fill only 96 of a chunk's 128 bytes, and the wgmmas run all 128.
 // With 14 warps a thread may use 144 registers, and the kernels need 125 at
 // most (NQ = 128; 70 to 112 narrower), so setmaxnreg is not needed. The
 // LONGBOW_PROBE_* names compile stages of the loop out, or count appends
-// and sorts, for tools/probe_scan_stages.py; LONGBOW_WGROUPS (2 or 3) and
-// LONGBOW_WCAP are its knobs.
+// and sorts, for tools/probe_scan_stages.py (LONGBOW_PROBE_CHUNKED sends
+// every width to the chunked loop, for probe_scan_variants.py);
+// LONGBOW_WGROUPS (2 or 3) and LONGBOW_WCAP are its knobs.
 #pragma once
+
+#include <cuda.h>            // CUtensorMap
+#include <cudaTypedefs.h>    // PFN_cuTensorMapEncodeTiled_v12000
 
 #include "scan_common.cuh"
 
@@ -78,6 +108,10 @@ constexpr int kWThreads = 32 * (4 * kWGroups + 2);
 // run in one wave, so it ends sooner; this bounds a launch that does not)
 constexpr long long kWBoundWaitCycles = 200000;
 constexpr int kWMaxStages = 8;
+constexpr int kWPieceRow = 128;             // bytes of a row in a wide stage (one chunk)
+constexpr int kWPiece = kWT * kWPieceRow;   // a wide stage: 16 KB
+constexpr int kWMaxDim = 1024;              // widest D the chunked loop is sized for
+constexpr int kWWide = 0;                   // the KS of the chunked loop
 #ifndef LONGBOW_WCAP
 #define LONGBOW_WCAP 128
 #endif
@@ -93,12 +127,14 @@ __device__ unsigned long long g_probe_counts[2];
 #endif
 
 struct WScanArgs {
-  const void* q;        // [B, D] bf16, columns in wgmma_k_order
+  CUtensorMap rows_map; // the chunked loop's tensor map over rows [N, D] (box 128 x 128 bytes)
+  const void* q;        // [B, D] bf16, columns in wgmma_k_order (chunked: [B, Dp], wgmma_layout)
   const float* qn;      // [B]
   const void* rows;     // [N, D] int8 or bf16
   const float* vn;      // [ceil(N / 128) * 128] row terms, MASKED past N
   const void* gt;       // [B, G] f32 (gt_kind 1) or bf16 (2), unused when 0
   int gt_kind, G, B, N, K, rows_per_split, stages, cap;
+  int Dp;               // the chunked loop's query width: D padded to whole chunks
   float alpha;          // score = qn + alpha q.v + vn (+ gt)
   unsigned split_guard; // ordered_bits(MASKED_GUARD): split_best's fill
   unsigned* split_best; // [B, S], ordered_bits(MASKED_GUARD) at launch: see shared_bound;
@@ -147,6 +183,18 @@ __device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, int byt
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
           "r"(dst),
       "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// A box of the 2-D tensor map at (column c0, row c1) into shared memory;
+// completes on `bar` with the box's full bytes (out-of-bounds parts are
+// zero-filled)
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
       : "memory");
 }
 
@@ -461,16 +509,24 @@ __device__ void wait_for_splits(const volatile unsigned* counter, unsigned want,
   __threadfence();   // the publishes the count stood for are seen before the bound is read
 }
 
-// Elem is int8_t (K2) or __nv_bfloat16 (K1); KS = D / 16 k-steps; NQ
-// queries per block (16, 32, 64 or 128).
+// Elem is int8_t (K2) or __nv_bfloat16 (K1); KS = D / 16 k-steps, or
+// kWWide for the chunked loop (D runtime); NQ queries per block (16, 32,
+// 64 or 128).
 template <class Elem, int KS, int NQ>
-__global__ void __launch_bounds__(kWThreads, 1) scan_wgmma_kernel(const WScanArgs p) {
+__global__ void __launch_bounds__(kWThreads, 1)
+    scan_wgmma_kernel(const __grid_constant__ WScanArgs p) {
   static_assert(NQ == 16 || NQ == 32 || NQ == 64 || NQ == 128,
                 "a width wgmma_rs is written for");
-  constexpr int D = KS * 16;
-  constexpr int kRowBytes = D * static_cast<int>(sizeof(Elem));
-  constexpr int kTileBytes = kWT * kRowBytes;
-  constexpr int kQBlocks = (KS + 3) / 4;          // 64-dim blocks of the query operand
+  constexpr bool kWide = KS == kWWide;
+  constexpr int kElem = static_cast<int>(sizeof(Elem));
+  constexpr int kCE = kWPieceRow / kElem;         // dims a chunk (wide): 64 bf16, 128 int8
+  constexpr int KSR = kWide ? 4 : KS;             // k-steps of one register load (wide: 64 dims)
+  constexpr int kSub = kWide ? kCE / 64 : 1;      // register loads a stage: 1 bf16, 2 int8
+  const int D = kWide ? p.Dp : KS * 16;           // the query operand's width
+  const int nch = kWide ? p.Dp / kCE : 1;         // pieces (chunks) a tile
+  const int nsub = nch * kSub;                    // register loads a tile
+  const int kTileBytes = kWide ? kWPiece : kWT * KS * 16 * kElem;   // a ring stage
+  const int kQBlocks = (D / 16 + 3) / 4;          // 64-dim blocks of the query operand
   constexpr int kQBlockBytes = NQ * 128;          // a multiple of 1,024: each block stays aligned
   constexpr int kAcc = NQ / 2;                    // accumulators a thread
 
@@ -556,14 +612,20 @@ __global__ void __launch_bounds__(kWThreads, 1) scan_wgmma_kernel(const WScanArg
     // ---- the copy warp: one lane keeps the ring full
     if (lane == 0) {
       const Elem* rows = static_cast<const Elem*>(p.rows);
-      for (int slot = 0; slot < nslots; ++slot) {
-        const int s = slot % p.stages;
-        if (slot >= p.stages) mbar_wait(empty0 + 8 * s, ((slot / p.stages) - 1) & 1);
+      // piece = slot * nch + chunk; a tile's row terms come with its first chunk
+      for (int piece = 0; piece < nslots * nch; ++piece) {
+        const int s = piece % p.stages, slot = piece / nch, c = piece % nch;
+        if (piece >= p.stages) mbar_wait(empty0 + 8 * s, ((piece / p.stages) - 1) & 1);
         const int row0 = row_begin + (slot < ntiles ? slot : 0) * kWT;
-        const int bytes = min(kWT, p.N - row0) * kRowBytes;  // the ragged last tile copies less
-        mbar_expect_tx(full0 + 8 * s, bytes + kWT * 4);
-        bulk_copy(smem_u32(ring + s * kTileBytes), rows + (size_t)row0 * D, bytes, full0 + 8 * s);
-        bulk_copy(smem_u32(vn_ring + s * kWT), p.vn + row0, kWT * 4, full0 + 8 * s);
+        if constexpr (kWide) {
+          mbar_expect_tx(full0 + 8 * s, kWPiece + (c == 0 ? kWT * 4 : 0));
+          tma_load_2d(smem_u32(ring + s * kTileBytes), &p.rows_map, c * kCE, row0, full0 + 8 * s);
+        } else {
+          const int bytes = min(kWT, p.N - row0) * KS * 16 * kElem;  // the ragged last tile copies less
+          mbar_expect_tx(full0 + 8 * s, bytes + kWT * 4);
+          bulk_copy(smem_u32(ring + s * kTileBytes), rows + (size_t)row0 * D, bytes, full0 + 8 * s);
+        }
+        if (c == 0) bulk_copy(smem_u32(vn_ring + s * kWT), p.vn + row0, kWT * 4, full0 + 8 * s);
       }
     }
   } else if (warp == kWCopyWarp + 1) {
@@ -684,36 +746,61 @@ __global__ void __launch_bounds__(kWThreads, 1) scan_wgmma_kernel(const WScanArg
           __syncwarp();
         }
       }
-      const int s = slot % p.stages;
-      // every warp waits for every slot and arrives at its "empty" barrier,
-      // whether or not its warpgroup has a slab there: a stage is not
-      // filled again before every thread has seen this phase of it
-      mbar_wait(full0 + 8 * s, (slot / p.stages) & 1);
+      // every warp waits for every piece of a slot and arrives at its
+      // "empty" barrier, whether or not its warpgroup has a slab there: a
+      // stage is not filled again before every thread has seen this phase
+      // of it
       const int half = (wg + kWGroups - (2 * slot) % kWGroups) % kWGroups;
       if (half > 1) {
-        __syncwarp();
-        if (lane == 0) mbar_arrive(empty0 + 8 * s);
+        for (int piece = slot * nch; piece < (slot + 1) * nch; ++piece) {
+          const int s = piece % p.stages;
+          mbar_wait(full0 + 8 * s, (piece / p.stages) & 1);
+          __syncwarp();
+          if (lane == 0) mbar_arrive(empty0 + 8 * s);
+        }
         continue;
       }
       const int r0 = half * 64 + (warp & 3) * 16 + g, r1 = r0 + 8;
-      const Elem* st = reinterpret_cast<const Elem*>(ring + s * kTileBytes);
-      uint32_t a[KS][4];
-      load_a<KS>(a, st + r0 * D, st + r1 * D, t);
-      const float vn0 = vn_ring[s * kWT + r0], vn1 = vn_ring[s * kWT + r1];
-      __syncwarp();
-      if (lane == 0) mbar_arrive(empty0 + 8 * s);  // this warp's part of the stage is in registers
-
+      float vn0 = 0.0f, vn1 = 0.0f;
+      // Register load u of the slot's tile (the whole tile when not wide;
+      // else 64 dims, one block of the query operand, kSub of them a
+      // piece): wait for its piece, take the fragments into registers, free
+      // the stage after its last load, run the wgmmas of its k-steps. The
+      // accumulators carry across the loads. A wide load waits for its
+      // wgmmas before the registers are loaded again: two register sets
+      // with a group left in flight across the loop (wait_group 1) gave
+      // some queries wrong products (K1, D = 144 to 960, B >= 100, H100).
+      uint32_t a[KSR][4];
+      for (int u = 0; u < nsub; ++u) {
+        const int piece = slot * nch + u / kSub, s = piece % p.stages, j = u % kSub;
+        if (j == 0) mbar_wait(full0 + 8 * s, (piece / p.stages) & 1);
+        if (u == 0) vn0 = vn_ring[s * kWT + r0], vn1 = vn_ring[s * kWT + r1];
+        const Elem* st = reinterpret_cast<const Elem*>(ring + s * kTileBytes) + j * 64;
+        const int pitch = kWide ? kCE : D;
+        load_a<KSR>(a, st + r0 * pitch, st + r1 * pitch, t);
+        // Free the stage only after the last of its loads (K2 loads an int8
+        // stage twice): freed before the second had read it, the stage's
+        // next piece landed in those 64 dims first (wrong K2 scores at
+        // D = 768 and 896, B >= 100, on the H100).
+        if (j == kSub - 1) {   // this warp's part of the stage is in registers
+          __syncwarp();
+          if (lane == 0) mbar_arrive(empty0 + 8 * s);
+        }
 #ifdef LONGBOW_PROBE_NO_MMA
 #pragma unroll
-      for (int ks = 0; ks < KS; ++ks)
-        acc[ks] = __uint_as_float(a[ks][0] ^ a[ks][1] ^ a[ks][2] ^ a[ks][3]);
+        for (int ks = 0; ks < KSR; ++ks)
+          acc[ks] = __uint_as_float(a[ks][0] ^ a[ks][1] ^ a[ks][2] ^ a[ks][3]);
 #else
-      wgmma_fence();
+        const uint64_t desc = desc0 + ((u * kQBlockBytes) >> 4);
+        wgmma_fence();
 #pragma unroll
-      for (int ks = 0; ks < KS; ++ks)
-        wgmma_rs(acc, a[ks], desc0 + (((ks / 4) * kQBlockBytes + (ks % 4) * 32) >> 4), ks > 0);
-      wgmma_commit();
+        for (int ks = 0; ks < KSR; ++ks)
+          wgmma_rs(acc, a[ks], desc + (((ks / 4) * kQBlockBytes + (ks % 4) * 32) >> 4),
+                   u > 0 || ks > 0);
+        wgmma_commit();
+        if (kWide) wgmma_wait_all();
 #endif
+      }
 
       // qn (+ the tile's group term) per query; the revisited tile 0 has
       // its own copy, its ring slot long refilled
@@ -869,25 +956,72 @@ __global__ void __launch_bounds__(kWThreads, 1) scan_wgmma_kernel(const WScanArg
   }
 }
 
-// Shared memory of a block of `nq` queries with `stages` stages and `cap`
-// slots per query.
-inline int wscan_smem(int row_bytes, int ks, int nq, int stages, int cap, int has_gt) {
-  return 1024 + (ks + 3) / 4 * nq * 128 + stages * (kWT * row_bytes + kWT * 4) +
+// Shared memory of a block of `nq` queries with `q_blocks` 64-dim blocks
+// of them, `stages` ring stages of `stage_bytes` (and 128 row terms each)
+// and `cap` slots per query.
+inline int wscan_smem(int q_blocks, int nq, int stages, int stage_bytes, int cap, int has_gt) {
+  return 1024 + q_blocks * nq * 128 + stages * (stage_bytes + kWT * 4) +
          (has_gt ? 2 * kWGtTiles * nq * 4 : 0) + nq * cap * 8 + nq * 24 + 8 +
          (2 * kWMaxStages + 4) * 8;
 }
 
+// cuTensorMapEncodeTiled from the driver, looked up once (no -lcuda)
+inline PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault,
+                                     &found);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
+#endif
+    return found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(f)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// The chunked loop's tensor map over rows [N, D]: boxes of 128 rows x
+// 128 bytes, no swizzle, zeros out of bounds. Returns 0 or -3.
+template <class Elem>
+int encode_rows_map(CUtensorMap* map, const void* rows, int N, int D) {
+  const PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
+  if (encode == nullptr) return -3;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(N > 0 ? N : 1)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(D) * sizeof(Elem)};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(kWPieceRow / sizeof(Elem)),
+                             static_cast<cuuint32_t>(kWT)};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult r = encode(
+      map, sizeof(Elem) == 1 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+      const_cast<void*>(rows), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : -3;
+}
+
 // Choose stages and cap and launch. Returns a cudaError_t, -1 when the
-// shape is not one of this variant's, -2 when shared memory is too small.
+// shape is not one of this variant's, -2 when shared memory is too small,
+// -3 when the chunked loop's tensor map cannot be made.
 template <class Elem, int KS, int NQ>
-int wscan_launch(WScanArgs a, int device, int S, cudaStream_t stream) {
+int wscan_launch(WScanArgs a, int D, int device, int S, cudaStream_t stream) {
+  constexpr bool kWide = KS == kWWide;
   float guard = kGuard;   // ordered_bits(kGuard) on the host: a positive float
   std::memcpy(&a.split_guard, &guard, sizeof(guard));
   a.split_guard |= 0x80000000u;
   int max_smem = 0;
   cudaError_t e = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   if (e != cudaSuccess) return e;
-  const int row_bytes = KS * 16 * static_cast<int>(sizeof(Elem));
+  const int chunk_dims = kWPieceRow / static_cast<int>(sizeof(Elem));
+  a.Dp = kWide ? (D + chunk_dims - 1) / chunk_dims * chunk_dims : D;
+  const int q_blocks = (a.Dp / 16 + 3) / 4;
+  const int stage_bytes = kWide ? kWPiece : kWT * D * static_cast<int>(sizeof(Elem));
+  if (kWide) {
+    const int err = encode_rows_map<Elem>(&a.rows_map, a.rows, a.N, D);
+    if (err != 0) return err;
+  }
   // the roomiest buffers that leave a ring of four stages, else of three
   // (measured at 10,240,000 x 96, B = 1,000: 128 slots and 4 stages beat
   // 112 and 5, which beat 96 and 6; a sort retires cap - K appends); a
@@ -897,15 +1031,15 @@ int wscan_launch(WScanArgs a, int device, int S, cudaStream_t stream) {
   for (int want = 4; want >= 3 && !found; --want) {
     a.stages = 0;
     for (int cap = kWCapMost; cap >= a.K + 16 && a.stages < want; cap -= 8) {
-      const int fixed = wscan_smem(row_bytes, KS, NQ, 0, cap, a.gt_kind != 0);
-      const int stages = (max_smem - fixed) / (kWT * row_bytes + kWT * 4);
+      const int fixed = wscan_smem(q_blocks, NQ, 0, stage_bytes, cap, a.gt_kind != 0);
+      const int stages = (max_smem - fixed) / (stage_bytes + kWT * 4);
       a.cap = cap;
       a.stages = stages < kWMaxStages ? stages : kWMaxStages;
     }
     found = a.stages >= want;
   }
   if (!found) return -2;
-  const int smem = wscan_smem(row_bytes, KS, NQ, a.stages, a.cap, a.gt_kind != 0);
+  const int smem = wscan_smem(q_blocks, NQ, a.stages, stage_bytes, a.cap, a.gt_kind != 0);
   auto kern = scan_wgmma_kernel<Elem, KS, NQ>;
   e = allow_smem(reinterpret_cast<const void*>(kern), device, smem);
   if (e != cudaSuccess) return e;
@@ -915,29 +1049,34 @@ int wscan_launch(WScanArgs a, int device, int S, cudaStream_t stream) {
 }
 
 template <class Elem, int KS>
-int wscan_width(const WScanArgs& a, int nq, int device, int S, cudaStream_t stream) {
+int wscan_width(const WScanArgs& a, int D, int nq, int device, int S, cudaStream_t stream) {
   switch (nq) {
-    case 16: return wscan_launch<Elem, KS, 16>(a, device, S, stream);
-    case 32: return wscan_launch<Elem, KS, 32>(a, device, S, stream);
-    case 64: return wscan_launch<Elem, KS, 64>(a, device, S, stream);
-    case 128: return wscan_launch<Elem, KS, 128>(a, device, S, stream);
+    case 16: return wscan_launch<Elem, KS, 16>(a, D, device, S, stream);
+    case 32: return wscan_launch<Elem, KS, 32>(a, D, device, S, stream);
+    case 64: return wscan_launch<Elem, KS, 64>(a, D, device, S, stream);
+    case 128: return wscan_launch<Elem, KS, 128>(a, D, device, S, stream);
     default: return -1;
   }
 }
 
-// D must be 64, 96 or 128 and nq 16, 32, 64 or 128 (the instantiated
-// widths).
+// D must be a multiple of 16 from 64 to kWMaxDim (64, 96 and 128 stage
+// whole tiles, every other width runs the chunked loop) and nq 16, 32, 64
+// or 128 (the instantiated widths).
 template <class Elem>
 int wscan_dispatch(const WScanArgs& a, int D, int nq, int device, int S, cudaStream_t stream) {
-  if (a.K < 1 || a.K > kWMaxK || a.rows_per_split % kWT != 0 || S < 1 || S > kWMaxSplits)
+  if (a.K < 1 || a.K > kWMaxK || a.rows_per_split % kWT != 0 || S < 1 || S > kWMaxSplits ||
+      D % 16 != 0 || D < 64 || D > kWMaxDim)
     return -1;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return e;
+#ifdef LONGBOW_PROBE_CHUNKED   // timing probe: every width through the chunked loop
+  return wscan_width<Elem, kWWide>(a, D, nq, device, S, stream);
+#endif
   switch (D) {
-    case 64: return wscan_width<Elem, 4>(a, nq, device, S, stream);
-    case 96: return wscan_width<Elem, 6>(a, nq, device, S, stream);
-    case 128: return wscan_width<Elem, 8>(a, nq, device, S, stream);
-    default: return -1;
+    case 64: return wscan_width<Elem, 4>(a, D, nq, device, S, stream);
+    case 96: return wscan_width<Elem, 6>(a, D, nq, device, S, stream);
+    case 128: return wscan_width<Elem, 8>(a, D, nq, device, S, stream);
+    default: return wscan_width<Elem, kWWide>(a, D, nq, device, S, stream);
   }
 }
 

@@ -271,6 +271,15 @@ def insert_batch(
 # ---------------------------------------------------------------------------
 
 
+def pad_columns(vectors: torch.Tensor, multiple: int = 16) -> torch.Tensor:
+    """The rows with zero columns up to the next multiple of `multiple`
+    (the rows themselves when D is one already): no dot product and no
+    norm changes. A dot graph's MIPS column makes D = 129, which the
+    wgmma ring of K1 does not take; at 144 it does."""
+    pad = -vectors.shape[1] % multiple
+    return torch.nn.functional.pad(vectors, (0, pad)) if pad else vectors
+
+
 def _chunked_self_knn(
     vectors: torch.Tensor,
     norms_sq: torch.Tensor,
@@ -284,14 +293,17 @@ def _chunked_self_knn(
     where n_pad rounds n up to chunk_b (rows past n repeat row n - 1).
 
     A bf16 block on a CUDA device with k + 1 <= 64 goes through the fused
-    scan (kernel K1, SELF_KNN_QUERIES queries per launch; the kernel
-    raises if it cannot run, there is no way back to the plain path).
-    Everything else is a chunked distance matrix and a stable top-k."""
+    scan (kernel K1, SELF_KNN_QUERIES queries per launch, on the rows
+    padded by pad_columns; the kernel raises if it cannot run, there is
+    no way back to the plain path). Everything else is a chunked distance
+    matrix and a stable top-k."""
     use_fused = (
         vectors.device.type == "cuda"
         and vectors.dtype == torch.bfloat16
         and k + 1 <= SELF_KNN_MAX_K
     )
+    if use_fused:
+        vectors = pad_columns(vectors)
     n_pad = -(-n // chunk_b) * chunk_b
     dev = vectors.device
     cap = vectors.shape[0]

@@ -40,7 +40,13 @@ WGMMA_QUERIES = WGMMA_WIDTHS[-1]  # the widest block, which larger batches are c
 WGMMA_TILE = 128     # corpus rows per tile (and per padded row-term block)
 WGMMA_MAX_K = 64
 WGMMA_MAX_SPLITS = 256  # splits of a query whose shared bound the kernel keeps
-WGMMA_DIMS = (64, 96, 128)  # the widths the wgmma variants are built for
+WGMMA_DIMS = (64, 96, 128)  # the widths whose tiles the wgmma ring stages whole
+# every other multiple of 16 from 64 to WGMMA_MAX_DIM runs its chunked loop:
+# a ring stage is 128 rows x WGMMA_CHUNK_BYTES of them (64 bf16 or 128 int8
+# dims), the queries zero-padded to whole chunks (wgmma_layout)
+WGMMA_MAX_DIM = 1024
+WGMMA_CHUNK_BYTES = 128
+WGMMA_SMEM = 232_448  # shared memory an H100 block may use (the widths that fit: wgmma_max_width)
 KERNEL_NAMES = ("fused_scan", "fused_codes_scan")  # K1, K2
 # Where the wgmma variant takes over, by kernel: (rows, queries) pairs, the
 # variant serving a shape with at least that many rows and queries for some
@@ -60,6 +66,21 @@ WGMMA_FROM = {
 # with the ring's 128-query blocks at 65 to 128 queries (1M x 128, k = 10,
 # B = 128: 0.654 against 0.665 ms, kernels alone, the same card): mma.sync.
 WGMMA_SMALL_K, WGMMA_SMALL_K_BATCHES = 16, (65, 128)
+# The chunked loop's crossovers (the widths past WGMMA_DIMS), in the same
+# form, read off tools/probe_scan_variants.py --dims --grid (kernels alone,
+# median of 20) on an NVIDIA H100 80GB HBM3 at 700 W: K1 at D = 144 and 960
+# and K2 at D = 768 took the ring at every batch from 131,072 rows (K1 960,
+# B = 1: 0.107 against 0.149 ms; D = 144, B = 64: 0.307 against 0.308) and
+# at 32,768 rows from B = 256 (K1 960: 0.361 against 0.590), where below it
+# mma.sync's smaller blocks won (K1 960 at B = 64: 0.214 against 0.331).
+WGMMA_FROM_WIDE = {
+    "fused_scan": ((131_072, 1), (32_768, 256)),
+    "fused_codes_scan": ((131_072, 1), (32_768, 256)),
+}
+
+
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
 
 
 def ordered_bits(x: float) -> int:
@@ -72,34 +93,80 @@ def ordered_bits(x: float) -> int:
 
 def wgmma_takes(b: int, d: int, k: int, aligned: bool) -> bool:
     """Whether the wgmma variants can run a shape at all: any batch,
-    K <= 64, D of 64, 96 or 128 and 16-byte aligned rows."""
-    return b >= 1 and k <= WGMMA_MAX_K and d in WGMMA_DIMS and aligned
+    K <= 64, D a multiple of 16 from 64 to WGMMA_MAX_DIM and 16-byte
+    aligned rows."""
+    return (b >= 1 and k <= WGMMA_MAX_K and d % 16 == 0
+            and WGMMA_DIMS[0] <= d <= WGMMA_MAX_DIM and aligned)
 
 
-def wgmma_width(b: int) -> int:
+def wgmma_chunked(d: int) -> bool:
+    """Whether the wgmma ring runs width `d` by its chunked loop (every
+    width past 64 but the whole-tile ones, WGMMA_DIMS)."""
+    return d > WGMMA_DIMS[0] and d not in WGMMA_DIMS
+
+
+def wgmma_padded_dim(d: int, elem_bytes: int) -> int:
+    """The query operand's width: D, or for the chunked loop D padded to
+    whole chunks of WGMMA_CHUNK_BYTES of a row (64 bf16 or 128 int8 dims)."""
+    if not wgmma_chunked(d):
+        return d
+    chunk = WGMMA_CHUNK_BYTES // elem_bytes
+    return _ceil_div(d, chunk) * chunk
+
+
+def _wgmma_smem(nq: int, dp: int, stages: int = 3, cap: int = WGMMA_MAX_K + 16) -> int:
+    """csrc/scan_wgmma.cuh's wscan_smem for a chunked launch of `nq`
+    queries of width `dp`, with a group term (the largest it can be)."""
+    return (1024 + dp // 64 * nq * 128 + stages * (WGMMA_TILE * WGMMA_CHUNK_BYTES + WGMMA_TILE * 4)
+            + 2 * 8 * nq * 4 + nq * cap * 8 + nq * 24 + 8 + (2 * 8 + 4) * 8)
+
+
+def wgmma_max_width(d: int, elem_bytes: int = 2) -> int:
+    """The widest query block of a wgmma launch at width `d`: any for the
+    whole-tile widths; for the chunked loop, whose queries stay resident in
+    shared memory, the widest that leaves a ring of three stages and
+    WGMMA_MAX_K + 16 candidate slots a query (128 up to D = 320, 64 up to
+    1,024)."""
+    if not wgmma_chunked(d):
+        return WGMMA_QUERIES
+    dp = wgmma_padded_dim(d, elem_bytes)
+    fits = [w for w in WGMMA_WIDTHS if _wgmma_smem(w, dp) <= WGMMA_SMEM]
+    if not fits:
+        raise ValueError(f"no wgmma query block fits D={d}")
+    return fits[-1]
+
+
+def wgmma_width(b: int, d: int = 128, elem_bytes: int = 2) -> int:
     """Queries per block of a wgmma launch: the narrowest width that holds
-    the batch, else blocks of WGMMA_QUERIES."""
-    return next((w for w in WGMMA_WIDTHS if w >= b), WGMMA_QUERIES)
+    the batch, else blocks of the widest one that fits width `d`
+    (wgmma_max_width)."""
+    most = wgmma_max_width(d, elem_bytes)
+    return next((w for w in WGMMA_WIDTHS if w >= b and w <= most), most)
 
 
 def scan_variant(b: int, n: int, d: int, k: int, aligned: bool,
                  kernel: str = "fused_scan") -> str:
     """Which variant of a fused scan serves a call: "wgmma" (the
-    producer/consumer ring of csrc/scan_wgmma.cuh, wgmma_width(B) queries
-    a block) for the shapes it takes (wgmma_takes) at the sizes where it
-    measured faster (WGMMA_FROM, WGMMA_SMALL_K), else "mma" (the mma.sync kernel, which
-    takes every shape: k up to 512, any D, unaligned rows). A pure
+    producer/consumer ring of csrc/scan_wgmma.cuh, wgmma_width(B, D)
+    queries a block) for the shapes it takes (wgmma_takes) at the sizes
+    where it measured faster (WGMMA_FROM and WGMMA_SMALL_K for the
+    whole-tile widths, WGMMA_FROM_WIDE for the chunked loop), else "mma"
+    (the mma.sync kernel, which takes every shape: k up to 512, any D,
+    unaligned rows). A pure
     function of the shape, the alignment and the kernel ("fused_scan",
     K1, or "fused_codes_scan", K2)."""
     if kernel not in KERNEL_NAMES:
         raise ValueError(f"kernel must be one of {KERNEL_NAMES}, got {kernel!r}")
-    lo, hi = WGMMA_SMALL_K_BATCHES
-    if k <= WGMMA_SMALL_K and lo <= b <= hi:
+    if not wgmma_takes(b, d, k, aligned):
         return "mma"
-    if wgmma_takes(b, d, k, aligned) and any(n >= rows and b >= queries
-                                              for rows, queries in WGMMA_FROM[kernel]):
-        return "wgmma"
-    return "mma"
+    if wgmma_chunked(d):
+        sizes = WGMMA_FROM_WIDE[kernel]
+    else:
+        lo, hi = WGMMA_SMALL_K_BATCHES
+        if k <= WGMMA_SMALL_K and lo <= b <= hi:
+            return "mma"
+        sizes = WGMMA_FROM[kernel]
+    return "wgmma" if any(n >= rows and b >= queries for rows, queries in sizes) else "mma"
 
 
 def wgmma_k_order(d: int, elem_bytes: int) -> list[int]:
@@ -129,8 +196,20 @@ def wgmma_k_order(d: int, elem_bytes: int) -> list[int]:
     return order
 
 
-def _ceil_div(a: int, b: int) -> int:
-    return -(-a // b)
+
+def wgmma_layout(d: int, elem_bytes: int) -> list[int]:
+    """Column order of the query operand of a wgmma launch at width `d`:
+    position j of the operand holds column order[j] of the queries
+    zero-padded to wgmma_padded_dim(d). The whole-tile widths take
+    wgmma_k_order(d) (the rows' loads run over the whole row); the
+    chunked loop reads each chunk of a row with the loads of a
+    WGMMA_CHUNK_BYTES-byte row, so each chunk takes that order, shifted
+    to the chunk."""
+    if not wgmma_chunked(d):
+        return wgmma_k_order(d, elem_bytes)
+    chunk = WGMMA_CHUNK_BYTES // elem_bytes
+    one = wgmma_k_order(chunk, elem_bytes)
+    return [c + j for c in range(0, wgmma_padded_dim(d, elem_bytes), chunk) for j in one]
 
 
 def wgmma_plan(b: int, n: int, sms: int, tile_multiple: int = 1,
@@ -162,9 +241,14 @@ def pad_row_term(vn: torch.Tensor) -> torch.Tensor:
 
 def wgmma_operands(q: torch.Tensor, vn: torch.Tensor, elem_bytes: int) -> tuple:
     """The host-side inputs of a wgmma launch, the same for every query
-    block width: the queries [B, D] with their columns in wgmma_k_order
-    and the row term padded with MASKED to whole tiles."""
-    return q.index_select(1, _k_order_on(q.shape[1], elem_bytes, q.device)), pad_row_term(vn)
+    block width: the queries [B, D] zero-padded to wgmma_padded_dim and
+    their columns in wgmma_layout, and the row term padded with MASKED to
+    whole tiles."""
+    d = q.shape[1]
+    pad = wgmma_padded_dim(d, elem_bytes) - d
+    if pad:
+        q = torch.nn.functional.pad(q, (0, pad))
+    return q.index_select(1, _k_order_on(d, elem_bytes, q.device)), pad_row_term(vn)
 
 
 def _merge_splits(out_d, out_i, k, clamp_zero):
@@ -176,13 +260,13 @@ def _merge_splits(out_d, out_i, k, clamp_zero):
     return _finish(d_all, i_all, clamp_zero)
 
 
-_K_ORDER: dict = {}  # (D, element bytes, device) -> wgmma_k_order as a device tensor
+_K_ORDER: dict = {}  # (D, element bytes, device) -> wgmma_layout as a device tensor
 
 
 def _k_order_on(d: int, elem_bytes: int, device: torch.device) -> torch.Tensor:
     key = (d, elem_bytes, device)
     if key not in _K_ORDER:
-        _K_ORDER[key] = torch.tensor(wgmma_k_order(d, elem_bytes), device=device)
+        _K_ORDER[key] = torch.tensor(wgmma_layout(d, elem_bytes), device=device)
     return _K_ORDER[key]
 
 
@@ -351,7 +435,7 @@ def flat_launcher(kernel, variant, corpus, qc, qn, vn, k, l2):
         keep = (corpus, qc, qn, vn, out_d, out_i)
         return _go(lib.longbow_fused_scan, args, keep, "fused_scan"), out_d, out_i
     qp, vnp = wgmma_operands(qc, vn, 2)
-    nq = wgmma_width(b)
+    nq = wgmma_width(b, d, 2)
     s, rows_per_split = wgmma_plan(b, n, _sm_count(corpus.device), nq=nq)
     out_d = torch.empty((b, s, k), dtype=torch.float32, device=corpus.device)
     out_i = torch.empty((b, s, k), dtype=torch.int32, device=corpus.device)
@@ -518,7 +602,7 @@ def codes_launcher(kernel, variant, codes, qs, qn, vn, gt, k):
         keep = (codes, qs, qn, vn, gt, out_d, out_i)
         return _go(lib.longbow_fused_codes_scan, args, keep, "fused_codes_scan"), out_d, out_i
     qp, vnp = wgmma_operands(qs, vn, 1)
-    nq = wgmma_width(b)
+    nq = wgmma_width(b, d, 1)
     s, rows_per_split = wgmma_plan(b, n, _sm_count(codes.device), 8 if gt is not None else 1,
                                    nq=nq)
     out_d = torch.empty((b, s, k), dtype=torch.float32, device=codes.device)

@@ -1,7 +1,8 @@
 """Where a tile's time goes in both variants of kernel K2, and in K1's
 mma.sync variant at small batches.
 
-    python3 -m longbow_tpu_torch.tools.probe_scan_stages [--wgmma-only | --k1 | --k1-ring]
+    python3 -m longbow_tpu_torch.tools.probe_scan_stages [--wgmma-only | --k1 [--dim D]
+        [--batches 1,48] | --k1-ring]
 
 Builds `csrc/fused_codes_scan.cu` several times, each with one or more
 LONGBOW_PROBE_* names set that compile a stage of the per-tile loop out
@@ -17,7 +18,9 @@ come first; with --wgmma-only the mma.sync builds are left out. With
 --k1 it builds `csrc/fused_scan.cu` instead (K1_BUILDS, K1_WGMMA_BUILDS)
 and splits both of its loops into copy, product, scoring and selection
 at B = 1 and B = 48 over 1,048,576 x 128 bf16 rows, k = 64, 1%
-tombstones: the single query and a Flight ticket group. With --k1-ring
+tombstones: the single query and a Flight ticket group (--dim and
+--batches change the width and the batches; a variant that does not take
+the width is left out). With --k1-ring
 it times K1's wgmma kernel alone (device time from torch.profiler) in
 builds without the warm start, with 2 consumer warpgroups and without
 appends, and counts its appends and sorts a launch with and without the
@@ -114,27 +117,30 @@ def tiles_per_block_and_us_per_tile(out_d, ms: float) -> dict:
     return {"splits": splits, "tiles_per_block": tiles, "as_is_us_per_tile": 1e3 * ms / tiles}
 
 
-def k1_stages(card: str) -> None:
-    """K1's two loops split by stage at the small batches' shapes."""
+def k1_stages(card: str, d: int = K1_D, batches: tuple = (1, 48)) -> None:
+    """K1's two loops split by stage at the small batches' shapes (or at
+    width `d` and `batches`)."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
-    rows = torch.randn((K1_N, K1_D), generator=g, device=dev).to(torch.bfloat16)
+    rows = torch.randn((K1_N, d), generator=g, device=dev).to(torch.bfloat16)
     norms = (rows.float() ** 2).sum(dim=1)
     valid = torch.rand((K1_N,), generator=g, device=dev) > 0.01
+    variants = [v for v in ("mma", "wgmma")
+                if v == "mma" or all(scan.wgmma_takes(b, d, 64, True) for b in batches)]
     builds = {(v, name): _kernels.Kernel(f"probe_k1_{v}_{name}", "csrc/fused_scan.cu",
                                          _kernels._bind_fused_scan, defines)
-              for v, table in (("mma", K1_BUILDS), ("wgmma", K1_WGMMA_BUILDS))
+              for v, table in (("mma", K1_BUILDS), ("wgmma", K1_WGMMA_BUILDS)) if v in variants
               for name, defines in table.items()}
     with ThreadPoolExecutor(max_workers=8) as ex:
         list(ex.map(_kernels.Kernel.lib, builds.values()))
     launch = {"mma": scan.launch_flat_mma, "wgmma": scan.launch_flat_wgmma}
-    for b in (1, 48):
-        q = torch.randn((b, K1_D), generator=g, device=dev)
+    for b in batches:
+        q = torch.randn((b, d), generator=g, device=dev)
         _, qc, qn, vn, l2 = scan._prepare(q, rows, norms, valid, 64, "l2", None, False, dev)
-        for variant in ("mma", "wgmma"):
-            row = {"shape": f"k1_b{b}_k64_1m_x_128", "variant": variant, "card": card}
+        for variant in variants:
+            row = {"shape": f"k1_b{b}_k64_1m_x_{d}", "variant": variant, "card": card}
             if variant == "wgmma":
-                row["nq"] = scan.wgmma_width(b)
+                row["nq"] = scan.wgmma_width(b, d)
             for (v, name), kern in builds.items():
                 if v == variant:
                     row[name + "_ms"] = time_ms(
@@ -196,7 +202,10 @@ def main() -> None:
         capture_output=True, text=True, check=True).stdout.strip()
     print(card, flush=True)
     if "--k1" in sys.argv:
-        return k1_stages(card)
+        d = int(sys.argv[sys.argv.index("--dim") + 1]) if "--dim" in sys.argv else K1_D
+        batches = ((1, 48) if "--batches" not in sys.argv else
+                   tuple(int(x) for x in sys.argv[sys.argv.index("--batches") + 1].split(",")))
+        return k1_stages(card, d, batches)
     if "--k1-ring" in sys.argv:
         return k1_ring(card)
     dev = torch.device("cuda")

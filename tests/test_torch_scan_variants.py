@@ -41,9 +41,12 @@ RTOL, ATOL = 1e-3, 1e-2
 EPS32 = float(np.finfo(np.float32).eps)
 
 
-def _ring_measured_faster(kernel: str, b: int, n: int, k: int = 64) -> bool:
+def _ring_measured_faster(kernel: str, b: int, n: int, k: int = 64, d: int = 128) -> bool:
     """The sizes where the wgmma ring measured faster than mma.sync
-    (ops/scan.py's WGMMA_FROM and WGMMA_SMALL_K, written out)."""
+    (ops/scan.py's WGMMA_FROM and WGMMA_SMALL_K for the whole-tile widths,
+    WGMMA_FROM_WIDE for the chunked loop's, written out)."""
+    if d not in (64, 96, 128):
+        return n >= 131_072 or (n >= 32_768 and b >= 256)
     if k <= 16 and 65 <= b <= 128:
         return False
     if kernel == "fused_scan":
@@ -56,11 +59,12 @@ def _ring_measured_faster(kernel: str, b: int, n: int, k: int = 64) -> bool:
 @pytest.mark.parametrize("k", [10, 64, 65, 512])
 @pytest.mark.parametrize("b", [1, 5, 16, 17, 48, 128, 1000])
 def test_variant_is_a_pure_function_of_the_shape(b, k, d, aligned):
-    takes = k <= 64 and d in (64, 96, 128) and aligned
+    # whole tiles at D = 64, 96, 128; the chunked loop at other multiples of 16
+    takes = k <= 64 and d % 16 == 0 and 64 <= d <= 1024 and aligned
     assert wgmma_takes(b, d, k, aligned) == takes
     for kernel in ("fused_scan", "fused_codes_scan"):
         for n in (32_768, 131_072, 262_144, 1_048_576, 10_240_000):
-            want = "wgmma" if takes and _ring_measured_faster(kernel, b, n, k) else "mma"
+            want = "wgmma" if takes and _ring_measured_faster(kernel, b, n, k, d) else "mma"
             assert scan_variant(b, n, d, k, aligned, kernel) == want
             assert scan_variant(b, n, d, k, aligned, kernel) == want   # the same again
     # the served small shapes take the wgmma ring: one query, the
