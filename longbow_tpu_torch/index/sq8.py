@@ -46,6 +46,7 @@ from longbow_tpu_torch.ops.distance import (
 )
 from longbow_tpu_torch.ops.kmeans import kmeans_init, lloyd, nearest_center
 from longbow_tpu_torch.ops.scan import GROUP, fused_codes_search
+from longbow_tpu_torch.utils.tracing import span
 
 MIN_CAPACITY = 4096
 # sq8r main-region capacity quantum (longbow_tpu's kernel tile multiple,
@@ -517,11 +518,12 @@ def _sq8r_search(
     _sq8r_packed, without the int32 packing). -> (dist [B, k], ext ids
     [B, k])."""
     full_f32_matmul()
-    scale, lo_eff = _affine(lo, hi)
-    qf = normalize_rows(q) if normalize else q.float()
-    qc = qf @ centers.T                      # [B, C], f32: feeds the exact re-rank
-    qn = (qf * qf).sum(dim=1, keepdim=True)
-    q_lo = qf @ lo_eff[:, None]
+    with span("longbow.sq8r.prep"):
+        scale, lo_eff = _affine(lo, hi)
+        qf = normalize_rows(q) if normalize else q.float()
+        qc = qf @ centers.T                      # [B, C], f32: feeds the exact re-rank
+        qn = (qf * qf).sum(dim=1, keepdim=True)
+        q_lo = qf @ lo_eff[:, None]
     pool = max(POOL, k)
 
     def region_mask(ext, valid):
@@ -548,35 +550,39 @@ def _sq8r_search(
     parts_d, parts_e = [], []
     m_cap = m_codes.shape[0]
     if m_cap:
-        mv = region_mask(m_ext, m_valid)
-        if fused:
-            gt = group_term(qc, m_gcid)
-            dm, im = fused_codes_search(
-                qf * scale, qn[:, 0] - 2.0 * q_lo[:, 0], m_codes, m_norms, mv, pool,
-                group_term=gt, device=device,
-            )
-        else:
-            m_cid = m_gcid[torch.arange(m_cap, device=m_codes.device) // GROUP]
-            ad, ai = _region_scores(
-                m_codes, m_cid, m_norms, mv, (qf * scale).to(torch.bfloat16), q_lo, qc, qn,
-                metric, pool, SCAN_CHUNK,
-            )
-            dm, pos = torch.topk(ad, min(pool, ad.shape[1]), dim=1, largest=False)
-            im = torch.gather(ai, 1, pos)
-        ed, ec = rerank(dm, im, m_codes, m_norms, lambda i: m_gcid[i // GROUP], m_ext)
+        with span("longbow.sq8r.main"):
+            mv = region_mask(m_ext, m_valid)
+            if fused:
+                gt = group_term(qc, m_gcid)
+                dm, im = fused_codes_search(
+                    qf * scale, qn[:, 0] - 2.0 * q_lo[:, 0], m_codes, m_norms, mv, pool,
+                    group_term=gt, device=device,
+                )
+            else:
+                m_cid = m_gcid[torch.arange(m_cap, device=m_codes.device) // GROUP]
+                ad, ai = _region_scores(
+                    m_codes, m_cid, m_norms, mv, (qf * scale).to(torch.bfloat16), q_lo, qc, qn,
+                    metric, pool, SCAN_CHUNK,
+                )
+                dm, pos = torch.topk(ad, min(pool, ad.shape[1]), dim=1, largest=False)
+                im = torch.gather(ai, 1, pos)
+            ed, ec = rerank(dm, im, m_codes, m_norms, lambda i: m_gcid[i // GROUP], m_ext)
         parts_d.append(ed)
         parts_e.append(ec)
     if has_delta and d_codes.shape[0]:
-        dv = region_mask(d_ext, d_valid)
-        ad, ai = _region_scores(
-            d_codes, d_cid, d_norms, dv, (qf * scale).to(torch.bfloat16), q_lo, qc, qn,
-            metric, pool, SCAN_CHUNK,
-        )
-        dd, pos = torch.topk(ad, min(pool, ad.shape[1]), dim=1, largest=False)
-        ed, ec = rerank(dd, torch.gather(ai, 1, pos), d_codes, d_norms, lambda i: d_cid[i], d_ext)
+        with span("longbow.sq8r.delta"):
+            dv = region_mask(d_ext, d_valid)
+            ad, ai = _region_scores(
+                d_codes, d_cid, d_norms, dv, (qf * scale).to(torch.bfloat16), q_lo, qc, qn,
+                metric, pool, SCAN_CHUNK,
+            )
+            dd, pos = torch.topk(ad, min(pool, ad.shape[1]), dim=1, largest=False)
+            ed, ec = rerank(dd, torch.gather(ai, 1, pos), d_codes, d_norms,
+                            lambda i: d_cid[i], d_ext)
         parts_d.append(ed)
         parts_e.append(ec)
-    return _best(torch.cat(parts_d, dim=1), torch.cat(parts_e, dim=1), k)
+    with span("longbow.sq8r.merge"):
+        return _best(torch.cat(parts_d, dim=1), torch.cat(parts_e, dim=1), k)
 
 
 class SQ8ResidualIndex(_AffineCodes):
@@ -769,8 +775,9 @@ class SQ8ResidualIndex(_AffineCodes):
                     k, metric, normalize, fused, has_delta, self.device,
                 ))
         count_dispatch("pallas_sq8r_fused" if fused else "xla", fused and self.m_codes.is_cuda)
-        d = torch.cat([o[0] for o in outs]).cpu().numpy()
-        i = torch.cat([o[1] for o in outs]).cpu().numpy()
+        with span("longbow.index.to_host"):
+            d = torch.cat([o[0] for o in outs]).cpu().numpy()
+            i = torch.cat([o[1] for o in outs]).cpu().numpy()
         if normalize:
             d = cosine_report(d)
         return d, i

@@ -512,6 +512,10 @@ class MetricsRegistry:
         - /debug/pprof/profile?seconds=5 wall-clock stack samples,
                                          collapsed-stack text
         - /debug/pprof/threads           one stack per live thread
+        - /debug/trace?seconds=5         torch.profiler's device trace with
+                                         the program's spans
+                                         (``utils/tracing.device_trace``),
+                                         Chrome trace JSON for Perfetto
 
         ``close()`` stops it."""
         import json as _json
@@ -558,6 +562,19 @@ class MetricsRegistry:
                             f"{k} {v}" for k, v in snapshot_stacks().items()
                         ).encode()
                         self._send(body, "text/plain; charset=utf-8")
+                    elif u.path == "/debug/trace":
+                        import tempfile
+                        from pathlib import Path
+
+                        from longbow_tpu_torch.utils.tracing import device_trace
+
+                        q = parse_qs(u.query)
+                        secs = min(float(q.get("seconds", ["5"])[0]), 60.0)
+                        with tempfile.TemporaryDirectory(prefix="longbow-trace-") as d:
+                            with device_trace(d):
+                                time.sleep(secs)
+                            body = (Path(d) / "trace.json").read_bytes()
+                        self._send(body, "application/json")
                     else:
                         self._send(b"not found", "text/plain", 404)
                 except Exception as e:  # never kill the mux thread

@@ -26,17 +26,20 @@ from typing import Optional
 import numpy as np
 
 from longbow_tpu_torch.metrics import get_registry
+from longbow_tpu_torch.utils import tracing
 
 log = logging.getLogger("longbow.coalescer")
 
 
 class _Future:
-    __slots__ = ("_ev", "_val", "_err")
+    __slots__ = ("_ev", "_val", "_err", "enq")
 
     def __init__(self):
         self._ev = threading.Event()
         self._val = None
         self._err = None
+        # (thread, perf_counter_ns) where the request was queued, while traced
+        self.enq = None
 
     def set(self, val) -> None:
         self._val = val
@@ -143,6 +146,8 @@ class SearchCoalescer:
         fut = _Future()
         with self._count_mu:
             self.requests += 1
+        if tracing.recording():
+            fut.enq = (threading.get_native_id(), time.perf_counter_ns())
         self._qs[hash(dataset) % len(self._qs)].put(
             (dataset, q, k, filters, ef_search, exact, use_cache, fut)
         )
@@ -162,7 +167,8 @@ class SearchCoalescer:
 
     def _loop(self, _q: queue.Queue) -> None:
         while not self._stop.is_set():
-            item = _q.get()
+            with tracing.span("longbow.coalescer.idle"):
+                item = _q.get()
             if item is None:
                 continue
             batch = [item]
@@ -222,6 +228,12 @@ class SearchCoalescer:
                 self._run(chunk)
 
     def _run(self, items: list) -> None:
+        if tracing.recording():
+            now = time.perf_counter_ns()
+            for it in items:
+                if it[7].enq is not None:
+                    thread, t0 = it[7].enq
+                    tracing.interval("longbow.coalescer.queue", t0, now, thread=thread)
         dataset, _, k, filters, ef, exact, _, _ = items[0]
         try:
             qs = (

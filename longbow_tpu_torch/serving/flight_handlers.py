@@ -60,6 +60,7 @@ from longbow_tpu_torch.serving.security import (
 from longbow_tpu_torch.storage.arrow_ipc import Table
 from longbow_tpu_torch.store.compaction import MemoryPressureError
 from longbow_tpu_torch.utils.query_cache import QueryCache
+from longbow_tpu_torch.utils.tracing import span
 from longbow_tpu_torch.wire_types import METRIC_METADATA_KEY, NATIVE_VECTOR_DTYPES
 
 _RESERVED = {"id", "vector", "timestamp"}
@@ -642,31 +643,32 @@ class FlightHandlers:
         """A bidirectional stream. command: the descriptor's command (None
         for a path descriptor, whose path names an ingest); writer: begin /
         write_batch / write_metadata."""
-        self._admit("DoExchange", peer)
-        self.metrics.inc("longbow_do_exchange_calls_total")
-        t0 = time.perf_counter()
-        try:
-            cmd: Optional[dict] = {}
-            if command is not None:
-                try:
-                    cmd = json.loads(command or b"{}")
-                except ValueError:
-                    cmd = None
-                if not isinstance(cmd, dict):
-                    # any other command acks each message (do_exchange.go:186-260)
-                    return self._exchange_legacy_ack(reader, writer)
-            elif path:
-                cmd = {"protocol": "ingest", "dataset": path}
-            proto = cmd.get("protocol", "ingest")
-            if proto == "ingest":
-                return self._exchange_ingest(cmd, reader, writer)
-            if proto in ("search", "VectorSearch"):
-                return self._exchange_search(cmd, reader, writer)
-            return self._exchange_legacy_ack(reader, writer)
-        finally:
-            self.metrics.observe("longbow_do_exchange_duration_seconds",
-                                 time.perf_counter() - t0)
-            self._release("DoExchange")
+        with span("longbow.edge.exchange"):
+            self._admit("DoExchange", peer)
+            self.metrics.inc("longbow_do_exchange_calls_total")
+            t0 = time.perf_counter()
+            try:
+                cmd: Optional[dict] = {}
+                if command is not None:
+                    try:
+                        cmd = json.loads(command or b"{}")
+                    except ValueError:
+                        cmd = None
+                    if not isinstance(cmd, dict):
+                        # any other command acks each message (do_exchange.go:186-260)
+                        return self._exchange_legacy_ack(reader, writer)
+                elif path:
+                    cmd = {"protocol": "ingest", "dataset": path}
+                proto = cmd.get("protocol", "ingest")
+                if proto == "ingest":
+                    return self._exchange_ingest(cmd, reader, writer)
+                if proto in ("search", "VectorSearch"):
+                    return self._exchange_search(cmd, reader, writer)
+                return self._exchange_legacy_ack(reader, writer)
+            finally:
+                self.metrics.observe("longbow_do_exchange_duration_seconds",
+                                     time.perf_counter() - t0)
+                self._release("DoExchange")
 
     def _exchange_legacy_ack(self, reader, writer) -> None:
         writer.begin(Table({}))
@@ -750,7 +752,8 @@ class FlightHandlers:
             tbl = chunk.data
             if tbl is None or tbl.num_rows == 0:
                 continue
-            qv = _vectors(tbl)
+            with span("longbow.edge.decode"):
+                qv = _vectors(tbl)
             try:
                 if text_query and 0.0 <= hy_alpha < 1.0:
                     ids, scores, ok = self.store.hybrid_search(
@@ -773,19 +776,20 @@ class FlightHandlers:
                     dataset, qv, k, raw_filters=cmd.get("filters"), local=(ids, scores, ok),
                     metric=ds_metric, consistency=consistency, hybrid=hy,
                 )
-            qi, ji = np.nonzero(np.asarray(ok))
-            id_vals = ids[qi, ji]
-            if str_ids:
-                id_arr = np.empty(len(id_vals), object)
-                id_arr[:] = [str(v) for v in id_vals]
-            else:
-                id_arr = np.asarray([int(v) for v in id_vals], np.int64)
-            writer.write_batch(Table(
-                {"batch_index": np.full(len(qi), bi, np.int32),
-                 "query_index": qi.astype(np.int32), "id": id_arr,
-                 "score": np.asarray(scores)[qi, ji].astype(np.float32)},
-                {METRIC_METADATA_KEY: metric},
-            ))
+            with span("longbow.edge.encode"):
+                qi, ji = np.nonzero(np.asarray(ok))
+                id_vals = ids[qi, ji]
+                if str_ids:
+                    id_arr = np.empty(len(id_vals), object)
+                    id_arr[:] = [str(v) for v in id_vals]
+                else:
+                    id_arr = np.asarray([int(v) for v in id_vals], np.int64)
+                writer.write_batch(Table(
+                    {"batch_index": np.full(len(qi), bi, np.int32),
+                     "query_index": qi.astype(np.int32), "id": id_arr,
+                     "score": np.asarray(scores)[qi, ji].astype(np.float32)},
+                    {METRIC_METADATA_KEY: metric},
+                ))
             bi += 1
 
     # -- DoAction (reference: store_actions.go:29, servers.go:157) ------

@@ -25,6 +25,7 @@ from longbow_tpu_torch.metrics import get_registry
 from longbow_tpu_torch.ops.distance import MASKED_GUARD, Metric
 from longbow_tpu_torch.query.filters import ColumnStore, FilterCache
 from longbow_tpu_torch.query.parser import Filter
+from longbow_tpu_torch.utils.tracing import span
 
 # string columns indexed into BM25 for hybrid search (the reference
 # indexes document text fed through its BM25 pipeline)
@@ -365,17 +366,18 @@ class Dataset:
                 get_registry().histogram("longbow_tpu_kernel_compile_seconds").observe(dt)
             except Exception:
                 pass
-        ok = (d < float(MASKED_GUARD)) & (r >= 0) & (r < len(r2i))
-        scores = -d if self.metric == Metric.DOT else d
-        ids = np.empty(r.shape, dtype=object)
-        hit_b, hit_j = np.nonzero(ok)
-        found = [r2i[x] for x in r[hit_b, hit_j].tolist()]
-        vals = np.empty(len(found), dtype=object)
-        vals[:] = found
-        ids[hit_b, hit_j] = vals
-        dead = np.array([v is None for v in found], dtype=bool)
-        if dead.any():  # rows whose id was deleted meanwhile
-            ok[hit_b[dead], hit_j[dead]] = False
+        with span("longbow.dataset.answer"):
+            ok = (d < float(MASKED_GUARD)) & (r >= 0) & (r < len(r2i))
+            scores = -d if self.metric == Metric.DOT else d
+            ids = np.empty(r.shape, dtype=object)
+            hit_b, hit_j = np.nonzero(ok)
+            found = [r2i[x] for x in r[hit_b, hit_j].tolist()]
+            vals = np.empty(len(found), dtype=object)
+            vals[:] = found
+            ids[hit_b, hit_j] = vals
+            dead = np.array([v is None for v in found], dtype=bool)
+            if dead.any():  # rows whose id was deleted meanwhile
+                ok[hit_b[dead], hit_j[dead]] = False
         return ids, scores, ok
 
     def row_ids_array(self) -> np.ndarray:

@@ -27,6 +27,7 @@ from longbow_tpu_torch.metrics import get_registry
 from longbow_tpu_torch.ops.distance import Metric
 from longbow_tpu_torch.store.dataset import Dataset
 from longbow_tpu_torch.utils.query_cache import QueryCache
+from longbow_tpu_torch.utils.tracing import span
 from longbow_tpu_torch.wire_types import NATIVE_VECTOR_DTYPES
 
 
@@ -355,68 +356,69 @@ class VectorStore:
         """-> (ids [B, k] object, scores [B, k] f32, ok [B, k] bool),
         the DoGet search path. Results are cached by dataset, query
         bytes and parameters until the next mutation or the TTL."""
-        reg = get_registry()
-        queries = np.atleast_2d(np.asarray(queries, dtype=np.float32))
-        key = None
-        if use_cache:
-            key = QueryCache.hash_query(
-                dataset, queries.tobytes(), k, filters, ef_search, exact
-            )
-            hit = self.query_cache.get(key)
-            if hit is not None:
-                try:
-                    # a cache hit is a read too (dataset TTL)
-                    self.get(dataset).touch()
-                except KeyError:
-                    pass
-                if self.eviction is not None:
-                    found = [i for i in hit[0].ravel() if i is not None]
-                    if found:
-                        self.eviction.record_access(found)
-                return hit
-        ds = self.get(dataset)
-        kind = ds.index.kind
-        graph_search = not exact and kind not in ("flat", "mesh_flat")
-        n_shards = getattr(ds.index, "n_shards", 0)
-        if n_shards > 1:
-            # one logical search fans out over every shard (the reference
-            # counts per-shard splits, hnsw_parallel.go)
-            reg.inc("longbow_hnsw_parallel_search_splits_total", n_shards, dataset=dataset)
-        if graph_search:
-            reg.inc("longbow_hnsw_searches_total")
-            reg.gauge("longbow_hnsw_active_readers", ("dataset",)).labels(dataset=dataset).inc()
-        else:
-            reg.inc("longbow_bruteforce_searches_total")
-        reg.gauge("longbow_active_search_contexts").inc()
-        t0 = time.perf_counter()
-        try:
-            out = ds.search(queries, k, filters=filters, ef_search=ef_search, exact=exact)
-        finally:
-            reg.gauge("longbow_active_search_contexts").dec()
+        with span("longbow.store.search"):
+            reg = get_registry()
+            queries = np.atleast_2d(np.asarray(queries, dtype=np.float32))
+            key = None
+            if use_cache:
+                key = QueryCache.hash_query(
+                    dataset, queries.tobytes(), k, filters, ef_search, exact
+                )
+                hit = self.query_cache.get(key)
+                if hit is not None:
+                    try:
+                        # a cache hit is a read too (dataset TTL)
+                        self.get(dataset).touch()
+                    except KeyError:
+                        pass
+                    if self.eviction is not None:
+                        found = [i for i in hit[0].ravel() if i is not None]
+                        if found:
+                            self.eviction.record_access(found)
+                    return hit
+            ds = self.get(dataset)
+            kind = ds.index.kind
+            graph_search = not exact and kind not in ("flat", "mesh_flat")
+            n_shards = getattr(ds.index, "n_shards", 0)
+            if n_shards > 1:
+                # one logical search fans out over every shard (the reference
+                # counts per-shard splits, hnsw_parallel.go)
+                reg.inc("longbow_hnsw_parallel_search_splits_total", n_shards, dataset=dataset)
             if graph_search:
-                reg.gauge("longbow_hnsw_active_readers", ("dataset",)).labels(
-                    dataset=dataset
-                ).dec()
-        if graph_search:
-            # traversal work per query, as the reference estimates it: the
-            # beam gathers up to 2 * ef * m_max candidate rows, each one
-            # distance
-            cfg = getattr(getattr(ds.index, "_graph", None) or ds.index, "config", None)
-            if cfg is not None:
-                ef = ef_search or cfg.ef_search
-                visited = 2 * ef * (cfg.search_m_max or cfg.m_max)
-                reg.observe("longbow_hnsw_nodes_visited", visited, dataset=dataset)
-                reg.inc("longbow_hnsw_distance_calculations_total",
-                        visited * queries.shape[0])
-        reg.observe("longbow_vector_search_latency_seconds", time.perf_counter() - t0,
-                    dataset=dataset)
-        if key is not None:
-            self.query_cache.put(key, out)
-        if self.eviction is not None:
-            found = [i for i in out[0].ravel() if i is not None]
-            if found:
-                self.eviction.record_access(found)
-        return out
+                reg.inc("longbow_hnsw_searches_total")
+                reg.gauge("longbow_hnsw_active_readers", ("dataset",)).labels(dataset=dataset).inc()
+            else:
+                reg.inc("longbow_bruteforce_searches_total")
+            reg.gauge("longbow_active_search_contexts").inc()
+            t0 = time.perf_counter()
+            try:
+                out = ds.search(queries, k, filters=filters, ef_search=ef_search, exact=exact)
+            finally:
+                reg.gauge("longbow_active_search_contexts").dec()
+                if graph_search:
+                    reg.gauge("longbow_hnsw_active_readers", ("dataset",)).labels(
+                        dataset=dataset
+                    ).dec()
+            if graph_search:
+                # traversal work per query, as the reference estimates it: the
+                # beam gathers up to 2 * ef * m_max candidate rows, each one
+                # distance
+                cfg = getattr(getattr(ds.index, "_graph", None) or ds.index, "config", None)
+                if cfg is not None:
+                    ef = ef_search or cfg.ef_search
+                    visited = 2 * ef * (cfg.search_m_max or cfg.m_max)
+                    reg.observe("longbow_hnsw_nodes_visited", visited, dataset=dataset)
+                    reg.inc("longbow_hnsw_distance_calculations_total",
+                            visited * queries.shape[0])
+            reg.observe("longbow_vector_search_latency_seconds", time.perf_counter() - t0,
+                        dataset=dataset)
+            if key is not None:
+                self.query_cache.put(key, out)
+            if self.eviction is not None:
+                found = [i for i in out[0].ravel() if i is not None]
+                if found:
+                    self.eviction.record_access(found)
+            return out
 
     def delete(self, dataset: str, ids, *, timestamp=None, replicated: bool = False,
                _log: bool = True) -> int:
