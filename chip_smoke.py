@@ -383,6 +383,9 @@ DEVICE = "cuda"
 # kernel vs plain: f32 sums are taken in another order, so distances agree
 # to this tolerance and no better
 RTOL, ATOL = 1e-3, 1e-2
+# sq8r's delta pool, K2 over its view against the plain chunked scan: the
+# same f32 terms summed in another order
+DELTA_RTOL = 1e-4
 # phases 5 and 17's random codes: the affine lo = -4, hi = 4 in every dim
 CODES_SCALE = 8.0 / 255.0
 CODES_LO_EFF = -4.0 + 128.0 * CODES_SCALE
@@ -1181,14 +1184,70 @@ def phase_quantized_store():
     return out, inner, deep_queries
 
 
+def sq8r_delta_pool_check(inner, queries) -> dict:
+    """The 10M sq8r index's delta pool through K2 over its cluster-grouped
+    view against the plain chunked scan's pool on the same query terms
+    (index/sq8.py::delta_pool), with 6.1's deletes in the delta: the K2
+    route launches K2 once and the plain route not at all (counts reset
+    just before, restored after); the sorted coarse distances agree to
+    DELTA_RTOL; each pool holds every candidate of the other that lies
+    below the plain pool's last distance by more than DELTA_RTOL of it
+    (the two sum the same f32 terms in another order, so a near tie may
+    swap); and no candidate is a deleted or padding row."""
+    from longbow_tpu_torch.index import sq8
+    from longbow_tpu_torch.ops._kernels import FUSED_CODES_SCAN
+    from longbow_tpu_torch.ops.distance import Metric
+
+    with inner._mu:
+        view = inner._delta_view()
+    if view is None:
+        fail("sq8r 10M x 96: the delta took the plain route, not K2 over its view")
+    terms = sq8.query_terms(torch.from_numpy(queries).to(DEVICE), inner.centers, inner.lo,
+                            inner.hi, False)
+    region = (inner.d_codes, inner.d_cid, inner.d_norms, inner.d_valid, Metric.L2, sq8.POOL,
+              inner.device)
+    held = hold_counts(FUSED_CODES_SCAN)
+    FUSED_CODES_SCAN.launches, FUSED_CODES_SCAN.by_variant = 0, {}
+    kd, ks = sq8.delta_pool(terms, view, *region)
+    k2_launches = FUSED_CODES_SCAN.launches
+    pd, ps = sq8.delta_pool(terms, None, *region)
+    plain_launches = FUSED_CODES_SCAN.launches - k2_launches
+    restore_counts(FUSED_CODES_SCAN, held)
+    if (k2_launches, plain_launches) != (1, 0):
+        fail(f"sq8r delta pool: K2 launched {k2_launches} times on the view's route and "
+             f"{plain_launches} on the plain route, not once and never")
+    torch.cuda.synchronize()
+    kd, ks, pd, ps = (t.cpu().numpy() for t in (kd, ks, pd, ps))
+    live = inner.d_valid.cpu().numpy()
+    name = f"sq8r delta pool B={len(queries)} delta={inner.d_count} view={view.codes.shape[0]}"
+    if not (((ks >= 0) & (ks < inner.d_count)).all() and live[ks].all()):
+        fail(f"{name}: the K2 route returned a deleted or padding row")
+    rel = np.abs(kd - pd) / np.maximum(np.abs(pd), 1e-30)
+    if rel.max() > DELTA_RTOL:
+        fail(f"{name}: coarse distances differ by {rel.max()} relative > {DELTA_RTOL}")
+    edge = pd[:, -1:] * (1 - DELTA_RTOL)
+    for i in range(len(queries)):
+        if not (np.isin(ps[i][pd[i] < edge[i]], ks[i]).all()
+                and np.isin(ks[i][kd[i] < edge[i]], ps[i]).all()):
+            fail(f"{name}: query {i}'s pools differ below their last distance")
+    out = {"case": name, "max_rel_dist": float(rel.max()), "k2_launches": k2_launches,
+           "deleted_in_delta": int(inner.d_count - live[:inner.d_count].sum())}
+    emit({"sq8r_delta_pool_check": out})
+    return out
+
+
 def sq8r_stages(inner, queries, reps: int = 5) -> dict:
     """Device time of the 10M sq8r index search of 1,000 queries, stage by
-    stage (CUDA events): the search as served, the same search with the
-    delta region's scan off (so the delta scan and its re-rank are the
-    difference), K2 alone on the arguments that search passed it, and
-    the group-term gather."""
+    stage (CUDA events): the search as served; the same search with the
+    delta region's scan off (so the delta's route, K2 over its view, and
+    its re-rank are the difference); K2 alone on the arguments that search
+    passed it for the main region and for the delta's view; the main
+    region's group-term gather; the view's build; and the plain delta
+    pool that the view replaced."""
     from longbow_tpu_torch.index import sq8
+    from longbow_tpu_torch.ops.distance import Metric
 
+    check = sq8r_delta_pool_check(inner, queries)
     total = time_ms(lambda: inner.search(queries, 10), reps)
     main = time_ms(lambda: inner._search(queries, 10, None, has_delta=False), reps)
     calls = []
@@ -1203,16 +1262,29 @@ def sq8r_stages(inner, queries, reps: int = 5) -> dict:
         inner.search(queries, 10)
     finally:
         sq8.fused_codes_search = real
-    if len(calls) != 1:
-        fail(f"sq8r search of {len(queries)} queries launched K2 {len(calls)} times, not once")
-    args, kw = calls[0]
-    k2 = time_ms(lambda: real(*args, **kw), reps)
+    on_main = [c for c in calls if c[0][2] is inner.m_codes]
+    if len(calls) != 2 or len(on_main) != 1:
+        fail(f"sq8r search of {len(queries)} queries launched K2 {len(calls)} times, "
+             f"{len(on_main)} on the main region: not once there and once on the delta's view")
+    on_view = next(c for c in calls if c[0][2] is not inner.m_codes)
+    k2_main = time_ms(lambda: real(*on_main[0][0], **on_main[0][1]), reps)
+    k2_view = time_ms(lambda: real(*on_view[0], **on_view[1]), reps)
     qc = torch.from_numpy(queries).to(DEVICE) @ inner.centers.T
     gather = time_ms(lambda: sq8.group_term(qc, inner.m_gcid), reps)
-    out = {"search_ms": total, "main_region_ms": main, "delta_scan_and_rerank_ms": total - main,
-           "k2_ms": k2, "gt_gather_ms": gather,
+    region = (inner.d_codes, inner.d_cid, inner.d_norms, inner.d_valid, inner.n_clusters)
+    build = time_ms(lambda: sq8.delta_view(
+        *region, sq8.delta_view_rows(inner.d_cid, inner.d_valid, inner.n_clusters)), reps)
+    terms = sq8.query_terms(torch.from_numpy(queries).to(DEVICE), inner.centers, inner.lo,
+                            inner.hi, False)
+    plain = time_ms(lambda: sq8.delta_pool(
+        terms, None, inner.d_codes, inner.d_cid, inner.d_norms, inner.d_valid, Metric.L2,
+        sq8.POOL, inner.device), reps)
+    out = {"search_ms": total, "main_region_ms": main, "delta_route_and_rerank_ms": total - main,
+           "k2_main_ms": k2_main, "k2_delta_view_ms": k2_view, "gt_gather_ms": gather,
+           "delta_view_build_ms": build, "delta_plain_pool_ms": plain,
+           "view_rows": on_view[0][2].shape[0], "delta_capacity": inner.d_codes.shape[0],
            "main_rest_ms (upload, qc, folds, main re-rank, merge, copy out)":
-               main - k2 - gather}
+               main - k2_main - gather, "delta_pool_check": check}
     emit({"sq8r_10m_stages": out})
     return out
 

@@ -18,21 +18,24 @@ SQ8ResidualIndex ("sq8r") stores v - center(cluster(v)) under one global
 affine, plus a cluster id per row, in two regions: a MAIN region grouped
 by cluster, where each 128-row group holds one cluster so that the
 -2 q.center term rides K2 as a per-group input, and an append-order
-DELTA region scanned in plain torch ops and merged. A relayout on the
-device folds the delta into main once it passes a quarter of main.
-External row ids stay stable across relayouts through a host slot map.
+DELTA region, merged. A fused search scans the delta with K2 too,
+through a cluster-grouped view of its live rows built at the first such
+search after an add (a delta whose view would be mostly padding, dot
+and k > 64 scan it in plain torch ops). A relayout on the device folds
+the delta into main once it passes a quarter of main. External row ids
+stay stable across relayouts through a host slot map.
 """
 from __future__ import annotations
 
 import math
 import threading
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from longbow_tpu_torch.device import resolve_device
-from longbow_tpu_torch.metrics.registry import count_dispatch
+from longbow_tpu_torch.metrics.registry import count, count_dispatch
 from longbow_tpu_torch.ops.distance import (
     MASKED,
     MASKED_GUARD,
@@ -59,6 +62,23 @@ POOL = 64
 # bound the [B, pool, D] re-rank block and the [B, chunk] score block
 QUERY_CHUNK = 4096
 SCAN_CHUNK = 131072
+# A fused search scans sq8r's delta with K2 over its view when the view
+# holds at most DELTA_VIEW_MAX times the rows of the delta's capacity,
+# which the plain chunked scan reads whole. The view pads each cluster to
+# 128 rows, so the clusters the delta touches set its size, not its rows
+# (4,096 rows in 1,024 clusters: 116,736). A view row costs K2 a small
+# part of what a capacity row costs the plain scan, and K2 carries
+# 0.2-1 ms more of fixed work. Read off tools/probe_sq8r_delta.py (D = 96,
+# 1% deleted; device ms of a search with no main region, the view built
+# beforehand; 112 points at 1,024, 4,096 and 16,384 clusters, 1 to 2,000
+# queries) on an NVIDIA H100 80GB HBM3 at 700 W: at 15.8 times or less K2
+# lost no search by more than 0.5 ms and won from 1,000 queries by up to
+# 46 ms (16,384 clusters, 524,288 rows, 4.0 times, 2,000 queries: 6.59
+# against 52.85 ms); from 28.5 times the plain scan won every search of
+# 64 queries or fewer and lost by at most 1.4 ms above. A put between
+# searches also costs K2 the view's build (1.2-2.7 ms to 1,048,576 rows,
+# 11.7 at 2,500,000), which the rule leaves out.
+DELTA_VIEW_MAX = 16
 
 
 def _quantize(vecs: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
@@ -499,6 +519,87 @@ def _region_scores(codes, cid, norms, valid, qs16, q_lo, qc, qn, metric, pool, c
     return _chunked_topk(score, cap, min(pool, chunk), chunk)
 
 
+class DeltaView(NamedTuple):
+    """The delta region's live rows laid out as the main region is, for
+    K2: each cluster padded to a GROUP multiple, so that every 128-row
+    group holds one cluster. slot: each position's delta slot (-1 on
+    padding)."""
+
+    codes: torch.Tensor  # [G * GROUP, D] int8
+    norms: torch.Tensor  # [G * GROUP] f32
+    gcid: torch.Tensor   # [G] int64, the cluster of each group
+    slot: torch.Tensor   # [G * GROUP] int64
+
+
+def delta_view_rows(d_cid, d_valid, n_clusters: int) -> int:
+    """Rows of the delta's view: each cluster's live rows padded to a
+    GROUP multiple, the groups to a multiple of 8, so that K2 reads each
+    query's f32 group term 16 bytes at a time."""
+    none = d_cid[:0]
+    total = _cluster_padded_total(none, d_valid[:0], d_cid, d_valid, n_clusters)
+    return pad_to(max(total, GROUP), 8 * GROUP)
+
+
+def delta_view(d_codes, d_cid, d_norms, d_valid, n_clusters: int, rows: int) -> DeltaView:
+    """_relayout of the delta with an empty main region and the delta's
+    slots in place of external ids, into `rows` rows (delta_view_rows).
+    Rows deleted before the build are left out; a later delete reaches
+    the view through its slots."""
+    dev = d_codes.device
+    cap = d_codes.shape[0]
+    none = torch.zeros((0,), dtype=torch.int64, device=dev)
+    codes, gcid, norms, _, slot, _ = _relayout(
+        d_codes[:0], none, d_norms[:0], d_valid[:0], none,
+        d_codes, d_cid, d_norms, d_valid, torch.arange(cap, device=dev),
+        n_clusters, rows, cap,
+    )
+    return DeltaView(codes, norms, gcid, slot)
+
+
+class QueryTerms(NamedTuple):
+    """A query batch's terms in an sq8r search, all f32: the affine
+    (a code c dequantizes to c * scale + lo_eff), the queries (normalized
+    for cosine), q.centers [B, C], |q|^2 [B, 1] and q.lo_eff [B, 1]."""
+
+    scale: torch.Tensor
+    lo_eff: torch.Tensor
+    qf: torch.Tensor
+    qc: torch.Tensor
+    qn: torch.Tensor
+    q_lo: torch.Tensor
+
+
+def query_terms(q, centers, lo, hi, normalize: bool) -> QueryTerms:
+    scale, lo_eff = _affine(lo, hi)
+    qf = normalize_rows(q) if normalize else q.float()
+    qc = qf @ centers.T                      # [B, C], f32: feeds the exact re-rank
+    return QueryTerms(scale, lo_eff, qf, qc, (qf * qf).sum(dim=1, keepdim=True),
+                      qf @ lo_eff[:, None])
+
+
+def delta_pool(t: QueryTerms, view: Optional[DeltaView], d_codes, d_cid, d_norms, dv,
+               metric: str, pool: int, device):
+    """The delta region's candidates: (coarse distances [B, pool], delta
+    slots [B, pool]), masked ones (MASKED, any slot). With a view (l2, pool
+    <= 64): K2 over it, its f32 group term the plain scan's cluster term,
+    so that only the order of the f32 sum differs (the main region's term
+    is bf16); else the plain chunked scan over the delta's capacity. dv:
+    the delta's validity with the filter folded in."""
+    if view is not None:
+        vv = dv[view.slot.clamp_min(0)] & (view.slot >= 0)
+        dd, pos = fused_codes_search(
+            t.qf * t.scale, t.qn[:, 0] - 2.0 * t.q_lo[:, 0], view.codes, view.norms, vv, pool,
+            group_term=-2.0 * t.qc[:, view.gcid], device=device,
+        )
+        return dd, view.slot[pos.clamp_min(0).long()]
+    ad, ai = _region_scores(
+        d_codes, d_cid, d_norms, dv, (t.qf * t.scale).to(torch.bfloat16), t.q_lo, t.qc, t.qn,
+        metric, pool, SCAN_CHUNK,
+    )
+    dd, pos = torch.topk(ad, min(pool, ad.shape[1]), dim=1, largest=False)
+    return dd, torch.gather(ai, 1, pos)
+
+
 def group_term(qc: torch.Tensor, m_gcid: torch.Tensor) -> torch.Tensor:
     """K2's per-group cluster term -2 q.center(group), [B, groups] bf16,
     from qc = q @ centers.T [B, C]."""
@@ -511,19 +612,18 @@ def _sq8r_search(
     d_codes, d_cid, d_norms, d_valid, d_ext,
     centers, lo, hi, ext_mask,
     k: int, metric: str, normalize: bool, fused: bool, has_delta: bool, device,
+    view: Optional[DeltaView] = None,
 ):
     """Main-region scan (K2 with the per-group cluster term, or the plain
-    chunked scan), delta-region scan, an exact dequantized re-rank per
-    region, and the merge into external ids (longbow_tpu's
+    chunked scan), delta-region scan (K2 over `view` with an f32 group
+    term when given, else the plain chunked scan), an exact dequantized
+    re-rank per region, and the merge into external ids (longbow_tpu's
     _sq8r_packed, without the int32 packing). -> (dist [B, k], ext ids
     [B, k])."""
     full_f32_matmul()
     with span("longbow.sq8r.prep"):
-        scale, lo_eff = _affine(lo, hi)
-        qf = normalize_rows(q) if normalize else q.float()
-        qc = qf @ centers.T                      # [B, C], f32: feeds the exact re-rank
-        qn = (qf * qf).sum(dim=1, keepdim=True)
-        q_lo = qf @ lo_eff[:, None]
+        terms = query_terms(q, centers, lo, hi, normalize)
+    scale, lo_eff, qf, qc, qn, q_lo = terms
     pool = max(POOL, k)
 
     def region_mask(ext, valid):
@@ -571,14 +671,10 @@ def _sq8r_search(
         parts_e.append(ec)
     if has_delta and d_codes.shape[0]:
         with span("longbow.sq8r.delta"):
-            dv = region_mask(d_ext, d_valid)
-            ad, ai = _region_scores(
-                d_codes, d_cid, d_norms, dv, (qf * scale).to(torch.bfloat16), q_lo, qc, qn,
-                metric, pool, SCAN_CHUNK,
-            )
-            dd, pos = torch.topk(ad, min(pool, ad.shape[1]), dim=1, largest=False)
-            ed, ec = rerank(dd, torch.gather(ai, 1, pos), d_codes, d_norms,
-                            lambda i: d_cid[i], d_ext)
+            dd, di = delta_pool(terms, view, d_codes, d_cid, d_norms,
+                                region_mask(d_ext, d_valid), metric, pool, device)
+            ed, ec = rerank(dd, di, d_codes, d_norms, lambda i: d_cid[i], d_ext)
+        count("longbow_sq8r_delta_scans_total", route="plain" if view is None else "k2")
         parts_d.append(ed)
         parts_e.append(ec)
     with span("longbow.sq8r.merge"):
@@ -617,6 +713,11 @@ class SQ8ResidualIndex(_AffineCodes):
         self.d_valid: Optional[torch.Tensor] = None
         self.d_ext: Optional[torch.Tensor] = None
         self.d_count = 0
+        # the delta's route for fused searches: decided, and its DeltaView
+        # built where K2 takes it, at the first such search after an add;
+        # undone by the add that changes the delta and by a fold
+        self._d_routed = False
+        self._d_view: Optional[DeltaView] = None
         self.m_live = 0
         # delta folds into main past max(rebuild_min, m_live / 4)
         # (tests lower rebuild_min to exercise relayouts at toy sizes)
@@ -661,7 +762,7 @@ class SQ8ResidualIndex(_AffineCodes):
         return _tensor_bytes(
             self.m_codes, self.m_gcid, self.m_norms, self.m_valid, self.m_ext,
             self.d_codes, self.d_cid, self.d_norms, self.d_valid, self.d_ext,
-            self.centers, self.lo, self.hi,
+            self.centers, self.lo, self.hi, *(self._d_view or ()),
         )
 
     # -- training -----------------------------------------------------
@@ -703,6 +804,7 @@ class SQ8ResidualIndex(_AffineCodes):
             )
             self._slot[ext] = -2 - (self.d_count + np.arange(n))
             self.d_count += n
+            self._d_routed, self._d_view = False, None
             self.count += n
             if self.d_count >= max(self.rebuild_min, self.m_live // 4):
                 self._rebuild_layout()
@@ -728,6 +830,7 @@ class SQ8ResidualIndex(_AffineCodes):
         self.m_live = int((inv_np >= 0).sum())
         self.d_codes = self.d_cid = self.d_norms = self.d_valid = self.d_ext = None
         self.d_count = 0
+        self._d_routed, self._d_view = False, None
         self._delta_grow(1)
 
     def delete_rows(self, rows) -> None:
@@ -766,13 +869,15 @@ class SQ8ResidualIndex(_AffineCodes):
             mask = torch.as_tensor(filter_mask, device=self.device).bool()
         outs = []
         with self._mu:
+            has_delta = has_delta and self.d_count > 0
+            view = self._delta_view() if fused and has_delta else None
             for off in range(0, q.shape[0], QUERY_CHUNK):
                 outs.append(_sq8r_search(
                     q[off:off + QUERY_CHUNK],
                     self.m_codes, self.m_gcid, self.m_norms, self.m_valid, self.m_ext,
                     self.d_codes, self.d_cid, self.d_norms, self.d_valid, self.d_ext,
                     self.centers, self.lo, self.hi, mask,
-                    k, metric, normalize, fused, has_delta, self.device,
+                    k, metric, normalize, fused, has_delta, self.device, view,
                 ))
         count_dispatch("pallas_sq8r_fused" if fused else "xla", fused and self.m_codes.is_cuda)
         with span("longbow.index.to_host"):
@@ -781,6 +886,21 @@ class SQ8ResidualIndex(_AffineCodes):
         if normalize:
             d = cosine_report(d)
         return d, i
+
+    def _delta_view(self) -> Optional[DeltaView]:
+        """The delta's DeltaView for a fused search, or None where the
+        plain chunked scan serves it (DELTA_VIEW_MAX): decided, and the
+        view built, at the first fused search after an add changed the
+        delta. The caller holds self._mu."""
+        if not self._d_routed:
+            with span("longbow.sq8r.delta_view"):
+                rows = delta_view_rows(self.d_cid, self.d_valid, self.n_clusters)
+                if rows <= DELTA_VIEW_MAX * self.d_codes.shape[0]:
+                    self._d_view = delta_view(self.d_codes, self.d_cid, self.d_norms,
+                                              self.d_valid, self.n_clusters, rows)
+                    count("longbow_sq8r_delta_views_total")
+            self._d_routed = True
+        return self._d_view
 
     # -- reads --------------------------------------------------------
 

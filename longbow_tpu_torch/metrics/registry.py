@@ -52,9 +52,14 @@ def count_dispatch(reference_label: str, on_card: bool = False) -> None:
     under dispatch_label(). Only the registry call is guarded: a metric
     never fails a search, and a kernel's failure is never swallowed here
     (the search has already returned)."""
-    label = dispatch_label(reference_label, on_card)
+    count("longbow_simd_dispatch_total", implementation=dispatch_label(reference_label, on_card))
+
+
+def count(name: str, **labels) -> None:
+    """One more of the counter `name` with `labels`; a metric never fails
+    the caller."""
     try:
-        get_registry().inc("longbow_simd_dispatch_total", implementation=label)
+        get_registry().inc(name, **labels)
     except Exception:
         pass
 
@@ -220,10 +225,15 @@ _CATALOG: dict[str, tuple[str, tuple[str, ...]]] = {
 # each time a wrapper launches a hand-written kernel (ops/_kernels.py
 # Kernel.count_launch), so another process can read a node's launches, and
 # longbow_kernel_variant_launches_total{kernel,variant} splits them by the
-# variant launched ("mma" or "wgmma").
+# variant launched ("mma" or "wgmma"). sq8r's delta region:
+# longbow_sq8r_delta_scans_total{route} counts the scans of a non-empty delta
+# by route ("k2", through its cluster-grouped view, or "plain"), and
+# longbow_sq8r_delta_views_total the views built.
 PORT_METRICS: dict[str, tuple[str, tuple[str, ...]]] = {
     "longbow_kernel_launches_total": (_C, ("kernel",)),
     "longbow_kernel_variant_launches_total": (_C, ("kernel", "variant")),
+    "longbow_sq8r_delta_scans_total": (_C, ("route",)),
+    "longbow_sq8r_delta_views_total": (_C, ()),
 }
 
 

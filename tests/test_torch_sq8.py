@@ -27,6 +27,7 @@ from longbow_tpu.index.sq8 import SQ8Index as JaxSQ8
 from longbow_tpu.index.sq8 import SQ8ResidualIndex as JaxSQ8R
 from longbow_tpu.index.sq8 import _quantize as jax_quantize
 from longbow_tpu.store.vector_store import VectorStore as JaxStore
+from longbow_tpu_torch.index import sq8
 from longbow_tpu_torch.index.factory import import_index, make_index
 from longbow_tpu_torch.index.sq8 import (
     GROUP,
@@ -35,7 +36,9 @@ from longbow_tpu_torch.index.sq8 import (
     _quantize,
     interleave_stride,
 )
-from longbow_tpu_torch.ops.distance import MASKED, Metric
+from longbow_tpu_torch.metrics import registry
+from longbow_tpu_torch.metrics.registry import get_registry
+from longbow_tpu_torch.ops.distance import MASKED, Metric, cosine_report
 from longbow_tpu_torch.query.parser import Filter
 from longbow_tpu_torch.store.vector_store import VectorStore
 
@@ -513,3 +516,203 @@ def test_empty_and_masked_results_are_canonical():
     d, i = idx.search(np.eye(8, dtype=np.float32)[:1], 5)
     assert set(i[0][:2]) == {6, 7} and (i[0][2:] == -1).all()
     assert (d[0][2:] == np.float32(MASKED)).all()
+
+
+# -- the delta region through K2 and its cluster-grouped view -------------
+
+
+def _plain_delta(idx, q, k, filter_mask=None):
+    """The same search with the delta scanned by the plain chunked scan
+    (_region_scores), as dot and k > 64 scan it."""
+    normalize = idx.metric == Metric.COSINE
+    mask = None if filter_mask is None else torch.as_tensor(filter_mask).bool()
+    d, i = sq8._sq8r_search(
+        torch.as_tensor(q, dtype=torch.float32),
+        idx.m_codes, idx.m_gcid, idx.m_norms, idx.m_valid, idx.m_ext,
+        idx.d_codes, idx.d_cid, idx.d_norms, idx.d_valid, idx.d_ext,
+        idx.centers, idx.lo, idx.hi, mask,
+        k, Metric.L2 if normalize else idx.metric, normalize, True, idx.d_count > 0, CPU,
+    )
+    d = d.numpy()
+    return (cosine_report(d) if normalize else d), i.numpy()
+
+
+def _same_answers(want, got):
+    """Distances to rtol 1e-5, and the same id in every slot whose
+    distance ties with neither neighbour."""
+    (dw, iw), (dg, ig) = want, got
+    np.testing.assert_allclose(dg, dw, rtol=1e-5, atol=1e-6)
+    d = dw.astype(np.float64)
+    apart = np.diff(d, axis=1) > 1e-5 * np.abs(d[:, 1:]) + 1e-6
+    untied = np.ones(d.shape, bool)
+    untied[:, 1:] &= apart
+    untied[:, :-1] &= apart
+    np.testing.assert_array_equal(ig[untied], iw[untied])
+
+
+def _delta_counts() -> dict:
+    """longbow_sq8r_delta_scans_total by route and the views built."""
+    reg = get_registry()
+    out = {"k2": 0.0, "plain": 0.0, "views": 0.0}
+    for name, key in (("longbow_sq8r_delta_scans_total", None),
+                      ("longbow_sq8r_delta_views_total", "views")):
+        for sample, pairs, value in reg._metrics[name].samples():
+            if sample.endswith("_total"):
+                out[key or dict(pairs)["route"]] = value
+    return out
+
+
+def _check_view(idx):
+    """Every group of the delta's view holds one cluster, and its slots
+    are the delta's live rows at its build, each once."""
+    view = idx._d_view
+    slot = view.slot.numpy()
+    real = slot >= 0
+    assert view.codes.shape[0] == len(slot) == view.gcid.shape[0] * GROUP
+    np.testing.assert_array_equal(idx.d_cid.numpy()[slot[real]],
+                                  view.gcid.numpy()[np.nonzero(real)[0] // GROUP])
+    np.testing.assert_array_equal(view.codes.numpy()[real], idx.d_codes.numpy()[slot[real]])
+    assert len(set(slot[real].tolist())) == real.sum()
+
+
+@pytest.mark.parametrize("metric", [Metric.L2, Metric.COSINE])
+@pytest.mark.parametrize("case", ["delta_only", "with_main", "delete_after_build", "filter",
+                                  "add_after_search", "fold"])
+def test_sq8r_delta_k2_route_matches_plain(metric, case, monkeypatch):
+    """A fused search scans the delta with K2 over its cluster-grouped
+    view (on the CPU, K2's plain version): the same answers as the plain
+    chunked scan, no padding position or deleted row returned, one view
+    built per add that changed the delta, none kept across a fold. In 8
+    clusters the view is at most 3,072 rows, within the rule for a delta
+    of 4,096 rows' capacity."""
+    monkeypatch.setattr(registry, "_global", registry.MetricsRegistry())
+    rng = np.random.default_rng(31)
+    v = _clustered(4000, 16, n_centers=8, seed=32)
+    idx = SQ8ResidualIndex(16, metric, n_clusters=8, device=CPU)
+    idx.rebuild_min = 10_000 if case == "delta_only" else 1024
+    idx.add(v[:1500] if case != "delta_only" else v[:2500])
+    if case != "delta_only":
+        idx.add(v[1500:2500])
+    assert idx.d_count and bool(idx.m_live) == (case != "delta_only")
+    q = v[rng.choice(2500, 24, replace=False)] + 0.3 * rng.standard_normal(
+        (24, 16)).astype(np.float32)
+    mask = None
+    if case == "filter":
+        mask = np.zeros(idx.capacity, bool)
+        mask[rng.choice(2500, 900, replace=False)] = True
+    got = idx.search(q, 10, filter_mask=mask)
+    assert _delta_counts() == {"k2": 1, "plain": 0, "views": 1}
+    _same_answers(_plain_delta(idx, q, 10, mask), got)  # one "plain" scan more
+    _check_view(idx)
+    dead = np.empty(0, np.int64)
+    if case == "delete_after_build":
+        # rows each query found in the delta, deleted with the view built
+        dead = np.unique(got[1][got[1] >= 1500])
+        idx.delete_rows(dead)
+    elif case == "add_after_search":
+        idx.add(v[2500:2520])
+    elif case == "fold":  # as an add past the fold rule does
+        idx._rebuild_layout()
+        assert idx.d_count == 0 and idx._d_view is None
+    got = idx.search(q, 10, filter_mask=mask)
+    counts = _delta_counts()
+    _same_answers(_plain_delta(idx, q, 10, mask), got)
+    ids = got[1][got[1] >= 0]
+    allowed = np.ones(idx.count, bool) if mask is None else mask[:idx.count].copy()
+    allowed[dead] = False
+    assert allowed[ids].all()
+    assert (got[1] >= 0).sum() == 24 * min(10, allowed.sum())
+    if case == "fold":  # no delta left to scan
+        assert counts == {"k2": 1, "plain": 1, "views": 1}
+        return
+    _check_view(idx)
+    assert counts == {"k2": 2, "plain": 1, "views": 2 if case == "add_after_search" else 1}
+    if case == "add_after_search":
+        _, i = idx.search(v[2500:2510], 1)
+        assert i[:, 0].tolist() == list(range(2500, 2510))
+
+
+@pytest.mark.parametrize("metric, k", [(Metric.DOT, 10), (Metric.L2, 100)])
+def test_sq8r_delta_plain_route_off_the_fused_gate(metric, k, monkeypatch):
+    """Dot and k > 64 scan the delta in plain ops: no view is built and
+    the scans count under route "plain"."""
+    monkeypatch.setattr(registry, "_global", registry.MetricsRegistry())
+    v = _clustered(2000, 16, n_centers=8, seed=33)
+    idx = SQ8ResidualIndex(16, metric, n_clusters=8, device=CPU)
+    idx.rebuild_min = 1024
+    idx.add(v[:1200])
+    idx.add(v[1200:])
+    idx.search(v[:5], k)
+    assert idx._d_view is None
+    assert _delta_counts() == {"k2": 0, "plain": 1, "views": 0}
+
+
+def _many_cluster_delta(rows: int, n_clusters: int = 1024):
+    """An sq8r index trained into `n_clusters` clusters on 8 rows a
+    cluster, then given `rows` rows of the same recipe, all in its delta."""
+    v = _clustered(8 * n_clusters + rows, 16, n_centers=n_clusters, seed=34)
+    idx = SQ8ResidualIndex(16, n_clusters=n_clusters, device=CPU)
+    idx.train(v[:8 * n_clusters])
+    idx.rebuild_min = 2 * rows
+    idx.add(v[8 * n_clusters:])
+    assert idx.n_clusters == n_clusters and idx.d_count == rows
+    return idx, v[8 * n_clusters:]
+
+
+@pytest.mark.parametrize("rows, n_clusters, route", [
+    (2_500, 8, "k2"),        # a view of 3,072 rows at most, capacity 4,096
+    (2_000, 1024, "plain"),  # some 880 clusters of 2 rows: a view of ~113,000, capacity 4,096
+    (9_000, 1024, "k2"),     # a view of 131,072 rows at most, capacity 16,384
+])
+def test_sq8r_delta_route_rule(rows, n_clusters, route, monkeypatch):
+    """DELTA_VIEW_MAX: K2 takes the delta while its view holds at most 16
+    times the rows of the delta's capacity, whatever the batch; the route
+    is decided once after an add, and both routes answer alike."""
+    monkeypatch.setattr(registry, "_global", registry.MetricsRegistry())
+    idx, v = _many_cluster_delta(rows, n_clusters)
+    want = sq8.delta_view_rows(idx.d_cid, idx.d_valid, idx.n_clusters)
+    assert (want <= sq8.DELTA_VIEW_MAX * idx.d_codes.shape[0]) == (route == "k2")
+    q = v[:40] + 0.1
+    for b in (1, 40):
+        got = idx.search(q[:b], 10)
+        _same_answers(_plain_delta(idx, q[:b], 10), got)
+    assert (idx._d_view is None) == (route == "plain")
+    if route == "k2":
+        assert idx._d_view.codes.shape[0] == want
+        _check_view(idx)
+    assert _delta_counts() == {"k2": 2 * (route == "k2"), "plain": 2 + 2 * (route == "plain"),
+                               "views": int(route == "k2")}
+
+
+def test_sq8r_small_delta_takes_the_plain_route(monkeypatch):
+    """A delta whose view would be mostly padding (2,000 rows over 1,024
+    clusters) builds no view and is scanned in plain ops, with the same
+    answers as K2 over the view."""
+    monkeypatch.setattr(registry, "_global", registry.MetricsRegistry())
+    idx, v = _many_cluster_delta(2_000)
+    got = idx.search(v[:5], 10)
+    assert idx._d_view is None
+    assert _delta_counts() == {"k2": 0, "plain": 1, "views": 0}
+    monkeypatch.setattr(sq8, "DELTA_VIEW_MAX", 64)
+    idx.add(v[:1] + 100.0)  # far from every query; the route is decided anew
+    _same_answers(got, idx.search(v[:5], 10))
+    assert _delta_counts() == {"k2": 1, "plain": 1, "views": 1}
+
+
+def test_sq8r_delta_counts_reads_a_window(monkeypatch):
+    """tools/sq8r_delta_counts: the two counters' samples, and their
+    growth between two readings (a sample first written in between grew
+    from 0)."""
+    from longbow_tpu_torch.tools import sq8r_delta_counts as tool
+
+    monkeypatch.setattr(registry, "_global", registry.MetricsRegistry())
+    registry.count("longbow_sq8r_delta_scans_total", route="k2")
+    start = tool.readings()
+    for _ in range(3):
+        registry.count("longbow_sq8r_delta_scans_total", route="k2")
+    registry.count("longbow_sq8r_delta_scans_total", route="plain")
+    registry.count("longbow_sq8r_delta_views_total")
+    k2, plain = ('longbow_sq8r_delta_scans_total{"route": "%s"}' % r for r in ("k2", "plain"))
+    views = "longbow_sq8r_delta_views_total{}"
+    assert start == {k2: 1.0, views: 0.0}
+    assert tool.window(start, tool.readings()) == {k2: 3.0, plain: 1.0, views: 1.0}
