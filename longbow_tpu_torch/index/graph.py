@@ -15,6 +15,11 @@ Counterpart of longbow_tpu/index/graph.py, in plain PyTorch:
   condition is one host read per iteration.
 - Filtered search keeps traversal unfiltered and feeds a separate result
   set only with eligible rows.
+- Spans (utils/tracing.py): `longbow.hnsw.entry` (the entry scan),
+  `longbow.hnsw.beam` (the loop; B, ef, iterations) and
+  `longbow.hnsw.extract` (deferred extraction). `stats` takes the loop's
+  counts; `count_searches` writes them to the registry once the caller
+  has its answer on the host.
 
 Every top-k here is `stable_topk` (ties in index order): MASKED padding
 and ids gathered twice tie constantly, and the order among ties reaches
@@ -22,12 +27,15 @@ the result.
 """
 from __future__ import annotations
 
+import time
 from typing import NamedTuple, Optional
 
 import torch
 
+from longbow_tpu_torch.metrics.registry import get_registry
 from longbow_tpu_torch.ops.distance import MASKED
 from longbow_tpu_torch.ops.topk import later_duplicate, stable_topk
+from longbow_tpu_torch.utils import tracing
 
 INVALID = -1
 
@@ -186,7 +194,9 @@ def beam_search(
     final beam equals the tracked result set whenever the beam holds
     >= k valid rows. m_used > 0 traverses only each node's first m_used
     edges (a column slice: a view, no copy). stats, when given, receives
-    {"iters": loop iterations run}."""
+    {"iters": loop iterations run, "distances": a device scalar, the
+    neighbour distances the loop computed for real (its nbr_ok slots),
+    summed without a host read}."""
     nbrs = state.nbrs
     if 0 < m_used < nbrs.shape[1]:
         nbrs = nbrs[:, :m_used]
@@ -213,23 +223,29 @@ def beam_search(
         return torch.full_like(d, MASKED)
 
     # ---- init beam from the entry scan ----
-    n_entry = min(e, sample_rows.shape[0])
-    ed, er = entry_candidates(state, qf, qn, sample_rows, n_entry)
-    pad = e - n_entry
-    beam_d = torch.cat([ed, torch.full((b, pad), MASKED, device=dev)], dim=1)
-    beam_i = torch.cat([er, torch.full((b, pad), -1, dtype=torch.int64, device=dev)], dim=1)
-    expanded = torch.zeros((b, e), dtype=torch.bool, device=dev)
+    with tracing.span("longbow.hnsw.entry"):
+        n_entry = min(e, sample_rows.shape[0])
+        ed, er = entry_candidates(state, qf, qn, sample_rows, n_entry)
+        pad = e - n_entry
+        beam_d = torch.cat([ed, torch.full((b, pad), MASKED, device=dev)], dim=1)
+        beam_i = torch.cat([er, torch.full((b, pad), -1, dtype=torch.int64, device=dev)], dim=1)
+        expanded = torch.zeros((b, e), dtype=torch.bool, device=dev)
 
-    if track_results:
-        # result set: entries eligible for return. Taken from the padded
-        # beam, so a sample smaller than k still gives k slots.
-        short = max(k - e, 0)
-        bd0 = torch.cat([beam_d, torch.full((b, short), MASKED, device=dev)], dim=1)
-        bi0 = torch.cat([beam_i, torch.full((b, short), -1, dtype=torch.int64, device=dev)], dim=1)
-        ok0 = res_mask[bi0.clamp_min(0)] & (bi0 >= 0)
-        res_d, pos = stable_topk(torch.where(ok0, bd0, masked_d(bd0)), k)
-        res_i = torch.where(res_d < MASKED, bi0.gather(1, pos), -1)
+        if track_results:
+            # result set: entries eligible for return. Taken from the padded
+            # beam, so a sample smaller than k still gives k slots.
+            short = max(k - e, 0)
+            bd0 = torch.cat([beam_d, torch.full((b, short), MASKED, device=dev)], dim=1)
+            bi0 = torch.cat([beam_i, torch.full((b, short), -1, dtype=torch.int64, device=dev)],
+                            dim=1)
+            ok0 = res_mask[bi0.clamp_min(0)] & (bi0 >= 0)
+            res_d, pos = stable_topk(torch.where(ok0, bd0, masked_d(bd0)), k)
+            res_i = torch.where(res_d < MASKED, bi0.gather(1, pos), -1)
 
+    # each iteration's real neighbour slots, counted by one reduction after
+    # the loop: no launch inside it
+    real_slots = [] if stats is not None else None
+    t_beam = time.perf_counter_ns() if tracing.recording() else 0
     visited = torch.full((b, ring_size), -1, dtype=torch.int64, device=dev)
     cols = torch.arange(e, device=dev)[None, :]
     it = 0
@@ -255,6 +271,8 @@ def beam_search(
         dup_beam = (nbr[:, :, None] == beam_i[:, None, :]).any(dim=2)
         dup_ring = (nbr[:, :, None] == visited[:, None, :]).any(dim=2)
         nbr_ok = (nbr >= 0) & ~dup_beam & ~dup_ring
+        if real_slots is not None:
+            real_slots.append(nbr_ok)
 
         nd = _gather_dist(state, qf, qn, nbr)
         nd = torch.where(nbr_ok, nd, masked_d(nd))
@@ -287,8 +305,13 @@ def beam_search(
         visited = torch.cat([visited[:, ex:], exp_row], dim=1)
         it += 1
 
+    if t_beam:
+        tracing.interval("longbow.hnsw.beam", t_beam, time.perf_counter_ns(),
+                         B=b, ef=e, iterations=it)
     if stats is not None:
         stats["iters"] = it
+        stats["distances"] = (torch.stack(real_slots).sum() if real_slots
+                              else torch.zeros((), dtype=torch.int64, device=dev))
     if track_results:
         return res_d, res_i.int()
 
@@ -296,8 +319,27 @@ def beam_search(
     # Duplicates from one gather can survive in the beam (the loop dedups
     # neighbours against beam and ring, not within a gather): drop all but
     # the first occurrence.
-    ok = res_mask[beam_i.clamp_min(0)] & (beam_i >= 0)
-    fd = torch.where(ok & ~later_duplicate(beam_i), beam_d, masked_d(beam_d))
-    res_d, pos = stable_topk(fd, k)
-    res_i = torch.where(res_d < MASKED, beam_i.gather(1, pos), -1)
+    with tracing.span("longbow.hnsw.extract"):
+        ok = res_mask[beam_i.clamp_min(0)] & (beam_i >= 0)
+        fd = torch.where(ok & ~later_duplicate(beam_i), beam_d, masked_d(beam_d))
+        res_d, pos = stable_topk(fd, k)
+        res_i = torch.where(res_d < MASKED, beam_i.gather(1, pos), -1)
     return res_d, res_i.int()
+
+
+def count_searches(calls: list, queries: int) -> None:
+    """Write the loop counts of one search's beam_search calls (their
+    `stats` dicts: the first call and each ef retry) of `queries` queries
+    each: longbow_hnsw_searches_total (a call), _queries_total,
+    _beam_iterations_total and _distance_calculations_total. Called once
+    the answer is on the host, so reading the device's count waits for
+    nothing; a metric never fails the search."""
+    distances = sum(int(s["distances"]) for s in calls)
+    try:
+        reg = get_registry()
+        reg.inc("longbow_hnsw_searches_total", len(calls))
+        reg.inc("longbow_hnsw_queries_total", queries * len(calls))
+        reg.inc("longbow_hnsw_beam_iterations_total", sum(s["iters"] for s in calls))
+        reg.inc("longbow_hnsw_distance_calculations_total", distances)
+    except Exception:
+        pass

@@ -24,7 +24,13 @@ import torch
 
 from longbow_tpu_torch.device import resolve_device
 from longbow_tpu_torch.index.flat import dtype_name, storage_dtype
-from longbow_tpu_torch.index.graph import beam_search, gather_vectors_f32, graph_init, pq_decode
+from longbow_tpu_torch.index.graph import (
+    beam_search,
+    count_searches,
+    gather_vectors_f32,
+    graph_init,
+    pq_decode,
+)
 from longbow_tpu_torch.index.graph_build import (
     build_stage_timer,
     bulk_build_clustered,
@@ -45,6 +51,7 @@ from longbow_tpu_torch.ops.distance import (
     squared_norms,
     tombstone_rows,
 )
+from longbow_tpu_torch.utils.tracing import span
 
 # capacity granularity is a multiple of the bulk build's block (8192):
 # otherwise bulk_build_rp's padded row count lands past the capacity and
@@ -165,7 +172,7 @@ class HNSWIndex:
         self._sample_dirty = True
         self._sample_rows = torch.zeros((1,), dtype=torch.int64, device=self.device)
         self._mu = threading.RLock()
-        # loop iterations of the last beam search (a measurement hook)
+        # loop iterations of the last beam search call (a measurement hook)
         self.last_search_iters = 0
 
     # ------------------------------------------------------------------
@@ -465,7 +472,10 @@ class HNSWIndex:
         retried with ef * 5 (adaptive_ef_retries times).
 
         The batch is searched as it is given: the loop stops batch-wide,
-        so the answers of one query can depend on the others beside it."""
+        so the answers of one query can depend on the others beside it.
+        Spans: beam_search's, `longbow.hnsw.retry` around an ef retry and
+        `longbow.index.to_host` around the answer's copy; the loop counts
+        go to the registry after the copy (graph.count_searches)."""
         q = self._queries(queries)
         normalize = self.metric == Metric.COSINE
         cfg = self.config
@@ -480,12 +490,12 @@ class HNSWIndex:
             # exact whenever the beam holds >= k valid rows, so it is
             # gated on no filter and light tombstoning
             track = eligible is not None or (self._dead * 10 > 3 * max(self.count, 1))
-            stats: dict = {}
             kw = dict(
                 eligible=eligible, normalize=normalize, track_results=track,
-                expand_per_iter=cfg.search_expand, m_used=cfg.search_m_max, stats=stats,
+                expand_per_iter=cfg.search_expand, m_used=cfg.search_m_max,
             )
-            d, r = beam_search(self.state, q, self._sample_rows, pool_k, ef, **kw)
+            calls = [{}]  # each beam_search call's loop counts
+            d, r = beam_search(self.state, q, self._sample_rows, pool_k, ef, stats=calls[0], **kw)
             # the retry needs a host read to see fill-ness: skipped when
             # under-fill is implausible (no filter and the corpus dwarfs
             # ef: the entry scan alone yields >= k valid rows)
@@ -495,13 +505,21 @@ class HNSWIndex:
                     if filled or ef >= self.count:
                         break
                     ef = ef * 5
-                    d, r = beam_search(self.state, q, self._sample_rows, pool_k, ef, **kw)
-            self.last_search_iters = stats["iters"]
+                    calls.append({})
+                    with span("longbow.hnsw.retry", ef=ef):
+                        d, r = beam_search(self.state, q, self._sample_rows, pool_k, ef,
+                                           stats=calls[-1], **kw)
+            self.last_search_iters = calls[-1]["iters"]
+        with span("longbow.index.to_host"):
+            if rerank:
+                qh, dh, rh = q.cpu().numpy(), d.cpu().numpy(), r.cpu().numpy()
+            else:
+                out = self._report(q, d), r.cpu().numpy()
+        count_searches(calls, q.shape[0])
         if rerank:
-            d, r = self._pq_host_rerank(q.cpu().numpy(), d.cpu().numpy(), r.cpu().numpy(), k,
-                                        normalize)
+            d, r = self._pq_host_rerank(qh, dh, rh, k, normalize)
             return (cosine_report(d) if normalize else d), r
-        return self._report(q, d), r.cpu().numpy()
+        return out
 
     # ------------------------------------------------------------------
 

@@ -228,12 +228,19 @@ _CATALOG: dict[str, tuple[str, tuple[str, ...]]] = {
 # variant launched ("mma" or "wgmma"). sq8r's delta region:
 # longbow_sq8r_delta_scans_total{route} counts the scans of a non-empty delta
 # by route ("k2", through its cluster-grouped view, or "plain"), and
-# longbow_sq8r_delta_views_total the views built.
+# longbow_sq8r_delta_views_total the views built. The graph loop
+# (index/graph.py count_searches), beside the catalog's
+# longbow_hnsw_searches_total (a beam_search call) and
+# longbow_hnsw_distance_calculations_total (the neighbour distances it
+# computed): longbow_hnsw_beam_iterations_total counts its iterations (one
+# host read each) and longbow_hnsw_queries_total the queries it searched.
 PORT_METRICS: dict[str, tuple[str, tuple[str, ...]]] = {
     "longbow_kernel_launches_total": (_C, ("kernel",)),
     "longbow_kernel_variant_launches_total": (_C, ("kernel", "variant")),
     "longbow_sq8r_delta_scans_total": (_C, ("route",)),
     "longbow_sq8r_delta_views_total": (_C, ()),
+    "longbow_hnsw_beam_iterations_total": (_C, ()),
+    "longbow_hnsw_queries_total": (_C, ()),
 }
 
 

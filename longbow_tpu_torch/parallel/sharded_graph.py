@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from longbow_tpu_torch.index.flat import FlatIndex, dtype_name, storage_dtype
-from longbow_tpu_torch.index.graph import beam_search
+from longbow_tpu_torch.index.graph import beam_search, count_searches
 from longbow_tpu_torch.index.hnsw import HNSWConfig, HNSWIndex
 from longbow_tpu_torch.metrics import get_registry
 from longbow_tpu_torch.ops.distance import MASKED, MASKED_GUARD, Metric, cosine_report
@@ -186,19 +186,21 @@ class ShardedGraphIndex:
         track = len(self._deleted) * 10 > 3 * max(self.count, 1)
         qt = torch.from_numpy(q)
         first = self.mesh.devices[0]
-        ds, rs = [], []
+        ds, rs, calls = [], [], []
         for j, (shard, dev) in enumerate(zip(shards, self.mesh.devices)):
+            calls.append({})
             with shard._mu:
                 d, r = beam_search(
                     shard.state, qt.to(dev), samples[j], k, ef, normalize=normalize,
                     track_results=track, expand_per_iter=self.config.search_expand,
-                    m_used=self.config.search_m_max,
+                    m_used=self.config.search_m_max, stats=calls[-1],
                 )
             ds.append(d.to(first))
             rs.append(torch.where(d < MASKED_GUARD, r.long() * self.n_shards + j, -1).to(first))
         d, corpus_rows = merge_shards(ds, rs, k)
         d = d.cpu().numpy()
         corpus_rows = corpus_rows.cpu().numpy()
+        count_searches(calls, q.shape[0])
         if self.metric == Metric.DOT:
             # augmented l2 -> the raw inner product, reported as -ip
             qn = np.sum(q.astype(np.float64) ** 2, axis=1)[:, None]

@@ -385,7 +385,6 @@ class VectorStore:
                 # counts per-shard splits, hnsw_parallel.go)
                 reg.inc("longbow_hnsw_parallel_search_splits_total", n_shards, dataset=dataset)
             if graph_search:
-                reg.inc("longbow_hnsw_searches_total")
                 reg.gauge("longbow_hnsw_active_readers", ("dataset",)).labels(dataset=dataset).inc()
             else:
                 reg.inc("longbow_bruteforce_searches_total")
@@ -401,15 +400,14 @@ class VectorStore:
                     ).dec()
             if graph_search:
                 # traversal work per query, as the reference estimates it: the
-                # beam gathers up to 2 * ef * m_max candidate rows, each one
-                # distance
+                # beam gathers up to 2 * ef * m_max candidate rows. The graph
+                # loop counts its searches and real distances itself
+                # (index/graph.py count_searches)
                 cfg = getattr(getattr(ds.index, "_graph", None) or ds.index, "config", None)
                 if cfg is not None:
                     ef = ef_search or cfg.ef_search
                     visited = 2 * ef * (cfg.search_m_max or cfg.m_max)
                     reg.observe("longbow_hnsw_nodes_visited", visited, dataset=dataset)
-                    reg.inc("longbow_hnsw_distance_calculations_total",
-                            visited * queries.shape[0])
             reg.observe("longbow_vector_search_latency_seconds", time.perf_counter() - t0,
                         dataset=dataset)
             if key is not None:

@@ -93,6 +93,10 @@ _TIMED = ("longbow_tpu_kernel_compile_seconds",)
 # into whichever registry is global), never by this sequence, which logs
 # nothing
 _WAL_THREAD = ("longbow_wal_adaptive_interval_ms", "longbow_wal_write_rate_per_second")
+# the port's graph loop counts its own calls and real neighbour distances
+# (index/graph.py count_searches); the reference's store counts every
+# search of a non-flat kind and estimates 2 * ef * m_max distances a query
+_GRAPH_LOOP = ("longbow_hnsw_searches_total", "longbow_hnsw_distance_calculations_total")
 
 
 def test_store_calls_give_the_same_samples_and_counts(fresh_registries):
@@ -100,10 +104,17 @@ def test_store_calls_give_the_same_samples_and_counts(fresh_registries):
     _sequence(VectorStore(device="cpu"))
     want = _samples(generate_latest(jax_registry.get_registry().registry).decode())
     got = _samples(registry.get_registry().text().decode())
-    # this package's own metrics are outside the reference's catalog; the
-    # one without labels shows from its declaration, at 0 here (no sq8r)
-    assert got.pop(("longbow_sq8r_delta_views_total", ())) == 0
+    # this package's own metrics are outside the reference's catalog; those
+    # without labels show from their declaration, at 0 here (no sq8r, no
+    # graph)
+    for name in ("longbow_sq8r_delta_views_total", "longbow_hnsw_beam_iterations_total",
+                 "longbow_hnsw_queries_total"):
+        assert got.pop((name, ())) == 0
     assert not any(name in registry.PORT_METRICS for name, _ in got)
+    assert want[("longbow_hnsw_searches_total", ())] == 2  # the sq8 searches
+    for name in _GRAPH_LOOP:  # the sequence runs no graph search
+        assert got.pop((name, ())) == 0
+        want.pop((name, ()))
 
     def mapped(key):
         name, labels = key
