@@ -128,7 +128,6 @@ def _reset_empty(dataset) -> None:
     dataset.columns = ColumnStore(dataset.index.capacity, device=dataset.device)
     dataset._id_to_row = {}
     dataset._row_to_id = []
-    dataset._row_ids_np = None
     dataset.filter_cache.invalidate()
 
 
@@ -222,7 +221,6 @@ def _compact_concurrent(dataset) -> dict:
         dataset.columns = new_columns
         dataset._id_to_row = new_i2r
         dataset._row_to_id = new_r2i
-        dataset._row_ids_np = None
         dataset.filter_cache.invalidate()
     return {
         "reclaimed_rows": dead,

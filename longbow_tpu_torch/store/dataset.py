@@ -22,6 +22,7 @@ from longbow_tpu_torch.hybrid.bm25 import BM25Index
 from longbow_tpu_torch.hybrid.graph_store import DiskGraphStore, GraphStore
 from longbow_tpu_torch.index.factory import make_index
 from longbow_tpu_torch.metrics import get_registry
+from longbow_tpu_torch.metrics.registry import count
 from longbow_tpu_torch.ops.distance import MASKED_GUARD, Metric
 from longbow_tpu_torch.query.filters import ColumnStore, FilterCache
 from longbow_tpu_torch.query.parser import Filter
@@ -40,6 +41,47 @@ _METRIC_ALIASES = {
     "dot_product": Metric.DOT,
     "dot": Metric.DOT,
 }
+
+
+class _RowIds:
+    """A numpy mirror of a row -> id list (`src`): `ids` holds the list's
+    objects by row (None for a dead row) and `live` whether a row holds
+    one, over the list's length `n`; past it both grow by doubling. Built
+    once from its list, then kept by each put and delete with one
+    vectorized write, so that a search's answer is a gather."""
+
+    def __init__(self, src: list):
+        n = len(src)
+        self.src = src
+        self.n = n
+        # None throughout; at least one slot, since an answer gathers row 0
+        # in place of a miss
+        self.ids = np.empty(max(16, n), dtype=object)
+        self.ids[:n] = src
+        self.live = np.zeros(len(self.ids), dtype=bool)
+        self.live[:n] = np.not_equal(self.ids[:n], None)
+
+    def set(self, rows: np.ndarray, keys: list, n: int) -> None:
+        """Rows `rows` now hold `keys`; the list is `n` long."""
+        if n > len(self.ids):
+            cap = max(n, 2 * len(self.ids))
+            ids = np.empty(cap, dtype=object)
+            ids[: self.n] = self.ids[: self.n]
+            live = np.zeros(cap, dtype=bool)
+            live[: self.n] = self.live[: self.n]
+            self.ids, self.live = ids, live
+        self.n = max(self.n, n)
+        vals = np.empty(len(keys), dtype=object)
+        vals[:] = keys
+        self.ids[rows] = vals
+        self.live[rows] = True
+
+    def clear(self, rows: list) -> None:
+        """Rows `rows` are dead."""
+        rows = np.asarray(rows, dtype=np.int64)
+        rows = rows[rows < self.n]
+        self.ids[rows] = None
+        self.live[rows] = False
 
 
 class Dataset:
@@ -78,7 +120,7 @@ class Dataset:
         # primary index: user id -> internal row
         self._id_to_row: dict = {}
         self._row_to_id: list = []
-        self._row_ids_np: Optional[np.ndarray] = None  # lazy cache
+        self._rows = _RowIds(self._row_to_id)  # see _row_ids
         # LWW timestamps for conflict resolution (reference: lww.go:8)
         self._lww: dict = {}
         self.bm25 = BM25Index()
@@ -165,6 +207,7 @@ class Dataset:
         with self._lock:
             lww = self._lww
             idr = self._id_to_row
+            row_ids = self._row_ids()
             # LWW stale-drop + in-batch dedupe (newest occurrence wins)
             keep = np.ones(n, dtype=bool)
             seen: dict = {}
@@ -217,7 +260,7 @@ class Dataset:
                 for r in stale_rows:
                     if r < len(self._row_to_id):
                         self._row_to_id[r] = None
-                self._row_ids_np = None
+                row_ids.clear(stale_rows)
 
             rows = self.index.add(vectors)
             self.columns.append(columns or {}, n, self.index.capacity, rows=rows)
@@ -243,7 +286,7 @@ class Dataset:
             r2i = self._row_to_id
             for r, k in zip(rows_list, keys):
                 r2i[r] = k
-            self._row_ids_np = None
+            row_ids.set(rows, keys, len(r2i))
             self.filter_cache.invalidate()
 
     @staticmethod
@@ -291,7 +334,7 @@ class Dataset:
                         self._row_to_id[row] = None
             if rows:
                 self.index.delete_rows(np.asarray(rows))
-                self._row_ids_np = None
+                self._row_ids().clear(rows)
                 self.filter_cache.invalidate()
             return n
 
@@ -338,7 +381,7 @@ class Dataset:
         self.touch()
         with self._lock:
             idx = self.index
-            r2i = self._row_to_id
+            row_ids = self._row_ids()  # the mirror of idx's rows
             cols = self.columns
         mask, version = self.filter_cache.get_or_eval_versioned(cols, filters or [])
         mask = self._fit(mask, idx)
@@ -367,25 +410,34 @@ class Dataset:
             except Exception:
                 pass
         with span("longbow.dataset.answer"):
-            ok = (d < float(MASKED_GUARD)) & (r >= 0) & (r < len(r2i))
+            ok = (d < float(MASKED_GUARD)) & (r >= 0)
+            # read after the search: a row put meanwhile has its id, and a
+            # row deleted meanwhile is not live
+            with self._lock:
+                ok &= r < row_ids.n
+                rs = np.where(ok, r, 0)
+                ok &= row_ids.live[rs]
+                ids = row_ids.ids[rs]
+            ids[~ok] = None
             scores = -d if self.metric == Metric.DOT else d
-            ids = np.empty(r.shape, dtype=object)
-            hit_b, hit_j = np.nonzero(ok)
-            found = [r2i[x] for x in r[hit_b, hit_j].tolist()]
-            vals = np.empty(len(found), dtype=object)
-            vals[:] = found
-            ids[hit_b, hit_j] = vals
-            dead = np.array([v is None for v in found], dtype=bool)
-            if dead.any():  # rows whose id was deleted meanwhile
-                ok[hit_b[dead], hit_j[dead]] = False
         return ids, scores, ok
 
+    def _row_ids(self) -> _RowIds:
+        """The mirror of _row_to_id; under self._lock. A compaction or a
+        snapshot's load replaces the list, and the mirror is then built
+        anew, once (O(rows), counted by
+        longbow_dataset_row_ids_rebuilds_total)."""
+        if self._rows.src is not self._row_to_id:
+            self._rows = _RowIds(self._row_to_id)
+            count("longbow_dataset_row_ids_rebuilds_total", dataset=self.name)
+        return self._rows
+
     def row_ids_array(self) -> np.ndarray:
-        """row -> user id as an object ndarray (None = dead row), cached
-        until the next mutation."""
-        if self._row_ids_np is None or len(self._row_ids_np) != len(self._row_to_id):
-            self._row_ids_np = np.asarray(self._row_to_id, dtype=object)
-        return self._row_ids_np
+        """row -> user id as an object ndarray (None = dead row): a view
+        of the mirror, which later puts and deletes write."""
+        with self._lock:
+            row_ids = self._row_ids()
+            return row_ids.ids[: row_ids.n]
 
     def graph_heuristic(self):
         """Embedding-distance heuristic for A* graph navigation. Vector

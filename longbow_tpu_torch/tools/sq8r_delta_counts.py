@@ -1,7 +1,9 @@
 """sq8r's delta counters over a benchmark cell's traced window:
 portbench/spansplit.py's run, unchanged, with
-longbow_sq8r_delta_scans_total{route} and longbow_sq8r_delta_views_total
-read from the port's registry as the device trace starts and stops.
+longbow_sq8r_delta_scans_total{route}, longbow_sq8r_delta_views_total and
+longbow_dataset_row_ids_rebuilds_total{dataset} (the store's row -> id
+mirror built from its row map) read from the port's registry as the
+device trace starts and stops.
 
     python3 -m longbow_tpu_torch.tools.sq8r_delta_counts [--bench portbench] \\
         -- --workload <cell> --seed <n> --seconds <s>
@@ -10,7 +12,7 @@ from a checkout's root, on a card (the arguments after `--` are
 spansplit's). The cell's server runs in this process, so its registry is
 this one. Prints spansplit's line, then one line {"counters": ...} with
 each counter's samples at the trace's start and stop, the difference
-between them (the window's scans by route and views built) and the
+between them (the window's scans by route, views and mirror builds) and the
 samples at the end.
 """
 from __future__ import annotations
@@ -22,11 +24,12 @@ from pathlib import Path
 
 from longbow_tpu_torch.metrics.registry import PORT_METRICS, get_registry
 
-NAMES = ("longbow_sq8r_delta_scans_total", "longbow_sq8r_delta_views_total")
+NAMES = ("longbow_sq8r_delta_scans_total", "longbow_sq8r_delta_views_total",
+         "longbow_dataset_row_ids_rebuilds_total")
 
 
 def readings() -> dict:
-    """{sample name and labels: value} of the two counters now."""
+    """{sample name and labels: value} of the counters now."""
     out = {}
     for name in NAMES:
         for sample, pairs, value in get_registry().counter(name, PORT_METRICS[name][1]).samples():
