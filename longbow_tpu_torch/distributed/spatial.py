@@ -49,9 +49,7 @@ def dataset_region(ds, sample: int = 4096) -> dict:
     timer and must not queue device work beside the serving path
     (get_vectors reads the index's host rows)."""
     with ds._lock:
-        rows = np.fromiter(
-            ds._id_to_row.values(), np.int64, len(ds._id_to_row)
-        )
+        rows = ds.live_rows()[1]
         idx = ds.index
     if rows.size == 0:
         return {"centroid": [], "radius": 0.0, "n": 0}

@@ -234,10 +234,6 @@ _CATALOG: dict[str, tuple[str, tuple[str, ...]]] = {
 # longbow_hnsw_distance_calculations_total (the neighbour distances it
 # computed): longbow_hnsw_beam_iterations_total counts its iterations (one
 # host read each) and longbow_hnsw_queries_total the queries it searched.
-# longbow_dataset_row_ids_rebuilds_total{dataset} counts the builds of a
-# dataset's row -> id mirror from its row map (store/dataset.py _row_ids),
-# each O(rows): one after a compaction or a snapshot's load, none a
-# search, put or delete.
 PORT_METRICS: dict[str, tuple[str, tuple[str, ...]]] = {
     "longbow_kernel_launches_total": (_C, ("kernel",)),
     "longbow_kernel_variant_launches_total": (_C, ("kernel", "variant")),
@@ -245,7 +241,6 @@ PORT_METRICS: dict[str, tuple[str, tuple[str, ...]]] = {
     "longbow_sq8r_delta_views_total": (_C, ()),
     "longbow_hnsw_beam_iterations_total": (_C, ()),
     "longbow_hnsw_queries_total": (_C, ()),
-    "longbow_dataset_row_ids_rebuilds_total": (_C, ("dataset",)),
 }
 
 

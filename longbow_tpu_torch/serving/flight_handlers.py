@@ -24,7 +24,6 @@ cluster's actions. With `cluster=None` the node serves alone.
 """
 from __future__ import annotations
 
-import itertools
 import json
 import os
 import queue
@@ -166,12 +165,16 @@ def _nbytes(tbl: Table) -> int:
     return total
 
 
-def _ids_column(ids: list) -> np.ndarray:
-    if ids and isinstance(ids[0], str):
+def _ids_column(ids, str_ids: Optional[bool]) -> np.ndarray:
+    """The wire's id column: objects for string ids (Dataset.str_ids), else
+    int64; None, where no local dataset holds an id, reads the ids."""
+    if str_ids is None:
+        str_ids = len(ids) > 0 and isinstance(ids[0], str)
+    if str_ids:
         out = np.empty(len(ids), object)
-        out[:] = ids
+        out[:] = [str(v) for v in ids]
         return out
-    return np.asarray([int(i) for i in ids], np.int64)
+    return np.asarray([int(v) for v in ids], np.int64)
 
 
 def _no_answer(qv: np.ndarray, k: int):
@@ -487,7 +490,7 @@ class FlightHandlers:
         bi, ji = np.nonzero(np.asarray(ok))
         out_ids = ids[bi, ji].tolist()
         cols = {
-            "id": _ids_column(out_ids),
+            "id": _ids_column(out_ids, ds.str_ids if ds is not None else None),
             "score": np.asarray(scores)[bi, ji].astype(np.float32),
             "query_index": bi.astype(np.int32),
         }
@@ -519,7 +522,7 @@ class FlightHandlers:
         format (reference: requests.go:19,34): "f32" (the default), "f16",
         or "quantized" (per-row symmetric int8 with its scale max|v|/127
         in a vector_scale column)."""
-        rows = [ds._id_to_row.get(_key(i)) for i in out_ids]
+        rows = [ds.row_of(i) for i in out_ids]
         have = np.asarray([r is not None for r in rows])
         vecs = ds.get_vectors_by_rows(np.asarray([r if r is not None else 0 for r in rows]))
         vecs = np.where(have[:, None], vecs, 0.0).astype(np.float32)
@@ -540,15 +543,10 @@ class FlightHandlers:
         ds.touch()  # a scan is an access (dataset TTL)
         n = ds.live_count
         limit = tq.limit if tq.limit > 0 else n
-        items = ds._id_to_row
         # the (ids, rows) pairs, the index and the columns in ONE critical
         # section: a compaction between them renumbers the rows
         with ds._lock:
-            str_ids = bool(items) and isinstance(next(iter(items)), str)
-            take = len(items) if tq.filters or limit >= n else min(limit, len(items))
-            id_dtype = object if str_ids else np.int64
-            rows_all = np.fromiter(itertools.islice(items.values(), take), np.int64, take)
-            id_all = np.fromiter(itertools.islice(items.keys(), take), id_dtype, take)
+            id_all, rows_all = ds.live_rows(None if tq.filters or limit >= n else limit)
             idx = ds.index
             columns_snap = ds.columns
         if tq.filters:
@@ -564,7 +562,7 @@ class FlightHandlers:
         # scans return the stored dtype); everything else streams f32
         wire_f16 = getattr(ds, "dtype", None) == torch.float16
         vec_dtype = np.float16 if wire_f16 else np.float32
-        schema = Table({"id": np.empty(0, id_dtype), "vector": np.zeros((0, ds.dim), vec_dtype),
+        schema = Table({"id": np.empty(0, id_all.dtype), "vector": np.zeros((0, ds.dim), vec_dtype),
                         **{c: cols[c][:0] for c in col_names}})
         rows_per = max(1, self.SCAN_CHUNK_BYTES // max(ds.dim * np.dtype(vec_dtype).itemsize, 1))
         if npairs == 0:
@@ -735,7 +733,7 @@ class FlightHandlers:
         try:
             ds = self.store.get(dataset)
             metric = ds_metric = ds.metric
-            str_ids = isinstance(next(iter(ds._id_to_row), None), str)
+            str_ids = bool(ds.str_ids)
         except KeyError:
             pass
         # the DoGet rule: peers' hops set local_only, a client's batch
@@ -778,15 +776,9 @@ class FlightHandlers:
                 )
             with span("longbow.edge.encode"):
                 qi, ji = np.nonzero(np.asarray(ok))
-                id_vals = ids[qi, ji]
-                if str_ids:
-                    id_arr = np.empty(len(id_vals), object)
-                    id_arr[:] = [str(v) for v in id_vals]
-                else:
-                    id_arr = np.asarray([int(v) for v in id_vals], np.int64)
                 writer.write_batch(Table(
                     {"batch_index": np.full(len(qi), bi, np.int32),
-                     "query_index": qi.astype(np.int32), "id": id_arr,
+                     "query_index": qi.astype(np.int32), "id": _ids_column(ids[qi, ji], str_ids),
                      "score": np.asarray(scores)[qi, ji].astype(np.float32)},
                     {METRIC_METADATA_KEY: metric},
                 ))

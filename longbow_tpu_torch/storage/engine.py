@@ -271,9 +271,7 @@ class StorageEngine:
             "index_state": state,
             "aux": aux,
             "json": {
-                "row_to_id": [_json_scalar(u) for u in ds._row_to_id],
-                # the whole LWW map, deletion markers included
-                "lww": [[_json_scalar(k), ts] for k, ts in ds._lww.items()],
+                **ds.export_ids(),
                 "str_dicts": cols["str_dicts"],
                 "col_count": cols["count"],
             },
@@ -342,7 +340,7 @@ class StorageEngine:
                                     index_params=meta.get("index_params"))
                 # no row is left, but the tombstones are: a peer's stale
                 # put or delta must still lose to them
-                store.get(name)._lww = {k: ts for k, ts in blob["json"].get("lww", [])}
+                store.get(name).import_ids({"lww": blob["json"].get("lww", [])})
             ds = store.get(name)
             if blob["bm25"]:
                 ds.bm25 = BM25Index.import_state(blob["bm25"])

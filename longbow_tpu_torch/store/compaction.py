@@ -126,8 +126,7 @@ def _reset_empty(dataset) -> None:
     bytes come back."""
     dataset.index = _fresh_index(dataset)
     dataset.columns = ColumnStore(dataset.index.capacity, device=dataset.device)
-    dataset._id_to_row = {}
-    dataset._row_to_id = []
+    dataset._set_ids({}, 0)
     dataset.filter_cache.invalidate()
 
 
@@ -180,10 +179,7 @@ def _compact_concurrent(dataset) -> dict:
     new_columns = ColumnStore(new_index.capacity, device=dataset.device)
     new_columns.append(live_cols, len(ids), new_index.capacity, rows=new_rows)
     new_i2r = {uid: int(r) for uid, r in zip(ids, new_rows.tolist())}
-    top = int(np.max(new_rows)) if len(new_rows) else -1
-    new_r2i: list = [None] * (top + 1)
-    for uid, r in zip(ids, new_rows.tolist()):
-        new_r2i[r] = uid
+    top = int(np.max(new_rows)) if len(new_rows) else -1  # the new index's last row
 
     # ---- phase 3 (locked): reconcile what landed during the build, then
     # swap. Deletes (and the stale version of every re-put id) leave the
@@ -198,8 +194,6 @@ def _compact_concurrent(dataset) -> dict:
             nr = new_i2r.pop(uid, None)
             if nr is not None:
                 drop_new_rows.append(nr)
-                if nr < len(new_r2i):
-                    new_r2i[nr] = None
         if drop_new_rows:
             new_index.delete_rows(np.asarray(drop_new_rows))
         changed = [uid for uid, row in cur.items() if snap_map.get(uid) != row]
@@ -211,16 +205,11 @@ def _compact_concurrent(dataset) -> dict:
             nr2 = new_index.add(vecs2)
             new_columns.append(cols2, len(changed), new_index.capacity, rows=nr2)
             nr2_list = nr2.tolist()
-            need = max(nr2_list) + 1 - len(new_r2i)
-            if need > 0:
-                new_r2i.extend([None] * need)
-            for uid, r in zip(changed, nr2_list):
-                new_i2r[uid] = int(r)
-                new_r2i[int(r)] = uid
+            top = max(top, max(nr2_list))
+            new_i2r.update(zip(changed, nr2_list))
         dataset.index = new_index
         dataset.columns = new_columns
-        dataset._id_to_row = new_i2r
-        dataset._row_to_id = new_r2i
+        dataset._set_ids(new_i2r, top + 1)
         dataset.filter_cache.invalidate()
     return {
         "reclaimed_rows": dead,
@@ -266,14 +255,14 @@ class EvictionManager:
         with dataset._lock:  # ingest mutates these dicts concurrently
             if self.ttl_s is not None:
                 for uid, ts in dataset._lww.items():
-                    if uid in dataset._id_to_row and now - ts > self.ttl_s:
+                    if now - ts > self.ttl_s and dataset.row_of(uid) is not None:
                         victims.append(uid)
             ttl_n = len(victims)
             if self.max_rows is not None:
                 over = dataset.live_count - len(victims) - self.max_rows
                 if over > 0:
                     vs = set(victims)
-                    pool = [u for u in dataset._id_to_row if u not in vs]
+                    pool = [u for u in dataset.live_rows()[0].tolist() if u not in vs]
                     if self.policy == "lru":
                         pool.sort(key=lambda u: self._last_access.get(u, 0.0))
                     else:
@@ -421,9 +410,9 @@ class MemoryBackpressureController:
 
     def _coldest_rows(self, ds, k: int) -> list:
         # the id set is copied under the dataset lock: this runs on the
-        # worker thread while ingest mutates _id_to_row and _lww
+        # worker thread while ingest mutates it and _lww
         with ds._lock:
-            ids = list(ds._id_to_row)
+            ids = ds.live_rows()[0].tolist()
             lww = dict(ds._lww)
         if self.eviction is not None and self.eviction._last_access:
             ids.sort(key=lambda u: self.eviction._last_access.get(u, 0.0))

@@ -22,7 +22,6 @@ from longbow_tpu_torch.hybrid.bm25 import BM25Index
 from longbow_tpu_torch.hybrid.graph_store import DiskGraphStore, GraphStore
 from longbow_tpu_torch.index.factory import make_index
 from longbow_tpu_torch.metrics import get_registry
-from longbow_tpu_torch.metrics.registry import count
 from longbow_tpu_torch.ops.distance import MASKED_GUARD, Metric
 from longbow_tpu_torch.query.filters import ColumnStore, FilterCache
 from longbow_tpu_torch.query.parser import Filter
@@ -44,25 +43,22 @@ _METRIC_ALIASES = {
 
 
 class _RowIds:
-    """A numpy mirror of a row -> id list (`src`): `ids` holds the list's
-    objects by row (None for a dead row) and `live` whether a row holds
-    one, over the list's length `n`; past it both grow by doubling. Built
-    once from its list, then kept by each put and delete with one
-    vectorized write, so that a search's answer is a gather."""
+    """A dataset's row -> id map: `ids` holds each row's user id by row
+    (None for a dead row) and `live` whether a row holds one, over `n`
+    rows; past `n` both grow by doubling. Each put and delete writes it
+    with one vectorized write, so that a search's answer is a gather."""
 
-    def __init__(self, src: list):
-        n = len(src)
-        self.src = src
+    def __init__(self, ids=(), rows=(), n: int = 0):
+        """`ids[j]` at row `rows[j]`, of `n` rows."""
         self.n = n
         # None throughout; at least one slot, since an answer gathers row 0
         # in place of a miss
         self.ids = np.empty(max(16, n), dtype=object)
-        self.ids[:n] = src
         self.live = np.zeros(len(self.ids), dtype=bool)
-        self.live[:n] = np.not_equal(self.ids[:n], None)
+        self.set(np.asarray(rows, dtype=np.int64), ids, n)
 
-    def set(self, rows: np.ndarray, keys: list, n: int) -> None:
-        """Rows `rows` now hold `keys`; the list is `n` long."""
+    def set(self, rows: np.ndarray, keys, n: int) -> None:
+        """Rows `rows` now hold `keys`; the map covers at least `n` rows."""
         if n > len(self.ids):
             cap = max(n, 2 * len(self.ids))
             ids = np.empty(cap, dtype=object)
@@ -117,10 +113,10 @@ class Dataset:
         )
         self.columns = ColumnStore(self.index.capacity, device=self.device)
         self.filter_cache = FilterCache()
-        # primary index: user id -> internal row
+        # primary index: user id -> internal row, and its inverse; only this class writes them
         self._id_to_row: dict = {}
-        self._row_to_id: list = []
-        self._rows = _RowIds(self._row_to_id)  # see _row_ids
+        self._rows = _RowIds()
+        self._str_ids: Optional[bool] = None  # see str_ids
         # LWW timestamps for conflict resolution (reference: lww.go:8)
         self._lww: dict = {}
         self.bm25 = BM25Index()
@@ -207,7 +203,7 @@ class Dataset:
         with self._lock:
             lww = self._lww
             idr = self._id_to_row
-            row_ids = self._row_ids()
+            row_ids = self._rows
             # LWW stale-drop + in-batch dedupe (newest occurrence wins)
             keep = np.ones(n, dtype=bool)
             seen: dict = {}
@@ -257,9 +253,6 @@ class Dataset:
             stale_rows = [idr[k] for k in keys if k in idr]
             if stale_rows:
                 self.index.delete_rows(np.asarray(stale_rows))
-                for r in stale_rows:
-                    if r < len(self._row_to_id):
-                        self._row_to_id[r] = None
                 row_ids.clear(stale_rows)
 
             rows = self.index.add(vectors)
@@ -272,21 +265,9 @@ class Dataset:
                             self.bm25.add(keys[j], str(vals[j]))
                         break
             rows_list = rows.tolist()
-            if ts_list is None:
-                for k, r in zip(keys, rows_list):
-                    idr[k] = r
-                    lww[k] = ts
-            else:
-                for k, r, tj in zip(keys, rows_list, ts_list):
-                    idr[k] = r
-                    lww[k] = tj
-            need = max(rows_list) + 1 - len(self._row_to_id)
-            if need > 0:
-                self._row_to_id.extend([None] * need)
-            r2i = self._row_to_id
-            for r, k in zip(rows_list, keys):
-                r2i[r] = k
-            row_ids.set(rows, keys, len(r2i))
+            idr.update(zip(keys, rows_list))
+            lww.update(zip(keys, itertools.repeat(ts) if ts_list is None else ts_list))
+            row_ids.set(rows, keys, max(rows_list) + 1)
             self.filter_cache.invalidate()
 
     @staticmethod
@@ -330,11 +311,9 @@ class Dataset:
                 if row is not None:
                     rows.append(row)
                     self.bm25.remove(key)
-                    if row < len(self._row_to_id):
-                        self._row_to_id[row] = None
             if rows:
                 self.index.delete_rows(np.asarray(rows))
-                self._row_ids().clear(rows)
+                self._rows.clear(rows)
                 self.filter_cache.invalidate()
             return n
 
@@ -381,7 +360,7 @@ class Dataset:
         self.touch()
         with self._lock:
             idx = self.index
-            row_ids = self._row_ids()  # the mirror of idx's rows
+            row_ids = self._rows  # the ids of idx's rows
             cols = self.columns
         mask, version = self.filter_cache.get_or_eval_versioned(cols, filters or [])
         mask = self._fit(mask, idx)
@@ -422,22 +401,64 @@ class Dataset:
             scores = -d if self.metric == Metric.DOT else d
         return ids, scores, ok
 
-    def _row_ids(self) -> _RowIds:
-        """The mirror of _row_to_id; under self._lock. A compaction or a
-        snapshot's load replaces the list, and the mirror is then built
-        anew, once (O(rows), counted by
-        longbow_dataset_row_ids_rebuilds_total)."""
-        if self._rows.src is not self._row_to_id:
-            self._rows = _RowIds(self._row_to_id)
-            count("longbow_dataset_row_ids_rebuilds_total", dataset=self.name)
-        return self._rows
-
     def row_ids_array(self) -> np.ndarray:
         """row -> user id as an object ndarray (None = dead row): a view
-        of the mirror, which later puts and deletes write."""
+        of the map, which later puts and deletes write."""
         with self._lock:
-            row_ids = self._row_ids()
-            return row_ids.ids[: row_ids.n]
+            return self._rows.ids[: self._rows.n]
+
+    def row_of(self, uid) -> Optional[int]:
+        """The row that holds user id `uid`, or None."""
+        return self._id_to_row.get(self._key(np.asarray(uid)))
+
+    def live_rows(self, limit: Optional[int] = None) -> tuple[np.ndarray, np.ndarray]:
+        """(ids, rows) of the first `limit` (default: all) live rows in the
+        id map's order; ids are objects for string ids, else int64. A caller
+        that reads the index with them holds the lock across both."""
+        with self._lock:
+            items = self._id_to_row
+            take = len(items) if limit is None else min(limit, len(items))
+            id_dtype = object if self.str_ids else np.int64
+            rows = np.fromiter(itertools.islice(items.values(), take), np.int64, take)
+            ids = np.fromiter(itertools.islice(items.keys(), take), id_dtype, take)
+        return ids, rows
+
+    @property
+    def str_ids(self) -> Optional[bool]:
+        """Whether the user ids are strings, decided once from the first id
+        the dataset holds; None while it holds none."""
+        if self._str_ids is None:
+            with self._lock:
+                first = next(iter(self._id_to_row), None)
+            if first is not None:
+                self._str_ids = isinstance(first, str)
+        return self._str_ids
+
+    def _set_ids(self, id_to_row: dict, n: int, lww: Optional[dict] = None) -> None:
+        """Installs a whole id state: `id_to_row`, the row map built from
+        it over `n` rows, and `lww` where given. Under self._lock."""
+        self._id_to_row = id_to_row
+        self._rows = _RowIds(list(id_to_row), list(id_to_row.values()), n)
+        if lww is not None:
+            self._lww = lww
+
+    def export_ids(self) -> dict:
+        """The id state in the snapshot's layout: `row_to_id` (the user id
+        of each row, None for a dead one) and `lww` (every [id, time],
+        deletion markers included)."""
+        with self._lock:
+            return {
+                "row_to_id": [self._key(u) for u in self.row_ids_array().tolist()],
+                "lww": [[self._key(k), ts] for k, ts in self._lww.items()],
+            }
+
+    def import_ids(self, js: dict) -> None:
+        """The id state of a snapshot's `row_to_id` and `lww` (export_ids'
+        layout, and longbow_tpu's); an absent key reads as empty."""
+        r2i = js.get("row_to_id", [])
+        i2r = {uid: r for r, uid in enumerate(r2i) if uid is not None}
+        with self._lock:
+            self._set_ids(i2r, len(r2i), dict(js.get("lww", [])))
 
     def graph_heuristic(self):
         """Embedding-distance heuristic for A* graph navigation. Vector
@@ -447,7 +468,7 @@ class Dataset:
         def vec(uid):
             v = cache.get(uid)
             if v is None:
-                row = self._id_to_row.get(self._key(np.asarray(uid)))
+                row = self.row_of(uid)
                 if row is None:
                     return None
                 if len(cache) > 256:
@@ -468,7 +489,7 @@ class Dataset:
         """Search with the stored vector of `uid` (the VectorSearchByID
         action)."""
         t0 = time.perf_counter()
-        row = self._id_to_row.get(self._key(np.asarray(uid)))
+        row = self.row_of(uid)
         if row is None:
             raise KeyError(f"id {uid!r} not found in {self.name!r}")
         vec = self.index.get_vectors(np.asarray([row]))
@@ -539,7 +560,7 @@ class Dataset:
                 hts = have_ts.get(uid)
                 if hts is not None and ts <= hts:
                     continue  # the puller is current for this row
-                row = self._id_to_row.get(uid)
+                row = self.row_of(uid)
                 if row is None:
                     dead.append(uid)
                     dead_ts.append(ts)

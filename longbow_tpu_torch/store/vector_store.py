@@ -212,9 +212,7 @@ class VectorStore:
             ds.index.capacity,
             device=self.device,
         )
-        ds._row_to_id = list(js.get("row_to_id", []))
-        ds._id_to_row = {uid: r for r, uid in enumerate(ds._row_to_id) if uid is not None}
-        ds._lww = {k: ts for k, ts in js.get("lww", [])}
+        ds.import_ids(js)
         with self._lock:
             self._datasets[name] = ds
             ns = name.split("/", 1)[0] if "/" in name else "default"

@@ -1,9 +1,7 @@
 """sq8r's delta counters over a benchmark cell's traced window:
 portbench/spansplit.py's run, unchanged, with
-longbow_sq8r_delta_scans_total{route}, longbow_sq8r_delta_views_total and
-longbow_dataset_row_ids_rebuilds_total{dataset} (the store's row -> id
-mirror built from its row map) read from the port's registry as the
-device trace starts and stops.
+longbow_sq8r_delta_scans_total{route} and longbow_sq8r_delta_views_total
+read from the port's registry as the device trace starts and stops.
 
     python3 -m longbow_tpu_torch.tools.sq8r_delta_counts [--bench portbench] \\
         -- --workload <cell> --seed <n> --seconds <s>
@@ -12,8 +10,8 @@ from a checkout's root, on a card (the arguments after `--` are
 spansplit's). The cell's server runs in this process, so its registry is
 this one. Prints spansplit's line, then one line {"counters": ...} with
 each counter's samples at the trace's start and stop, the difference
-between them (the window's scans by route, views and mirror builds) and the
-samples at the end.
+between them (the window's scans by route and views) and the samples at
+the end.
 """
 from __future__ import annotations
 
@@ -24,8 +22,7 @@ from pathlib import Path
 
 from longbow_tpu_torch.metrics.registry import PORT_METRICS, get_registry
 
-NAMES = ("longbow_sq8r_delta_scans_total", "longbow_sq8r_delta_views_total",
-         "longbow_dataset_row_ids_rebuilds_total")
+NAMES = ("longbow_sq8r_delta_scans_total", "longbow_sq8r_delta_views_total")
 
 
 def readings() -> dict:

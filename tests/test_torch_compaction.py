@@ -375,7 +375,7 @@ def test_upsert_clears_stale_row_slot_for_sparse_filters():
     ds = store.get("up")
     old_row = ds._id_to_row[3]
     store.put("up", np.asarray([3]), v[3:4], columns={"color": np.asarray(["blue"])})
-    assert ds._row_to_id[old_row] is None
+    assert ds.row_ids_array()[old_row] is None
     ids, _, ok = store.search("up", v[3], 10, filters=[Filter("color", "=", "red")],
                               use_cache=False)
     assert 3 not in [i for i in ids[0] if i is not None]
@@ -484,7 +484,7 @@ def test_compaction_reconciles_concurrent_mutations(monkeypatch):
         near, _, ok = ds.search(v[301][None], 1)
         assert near[0, 0] != 301
         for uid, row in ds._id_to_row.items():
-            assert ds._row_to_id[row] == uid
+            assert ds.row_ids_array()[row] == uid
         out.pop("seconds")
         return out, sorted(ds._id_to_row), tag_ids[tag_ok].tolist(), near.tolist()
 

@@ -956,7 +956,7 @@ def _state(store):
         # a delete's marker takes the time of its replay (delete frames
         # carry no timestamp, in either package): compare its key only
         "lww": {k: (ts if k in ds._id_to_row else "deleted") for k, ts in ds._lww.items()},
-        "row_to_id": list(ds._row_to_id),
+        "row_to_id": ds.row_ids_array().tolist(),
         # every match, by id: equal scores may rank in any order
         "bm25": sorted(ds.bm25.search("w3 doc7", 10_000)),
         "edges": store.traverse_graph("d", 2, 12),

@@ -1,19 +1,20 @@
 """The port's search answer, rows to user ids, against a plain per-hit
-reference; and the numpy mirror of the row -> id map it is gathered from,
-kept by puts and deletes and built anew only after a compaction or a
-snapshot's load."""
+reference; the row -> id map it is gathered from, written by puts and
+deletes and installed whole only by a compaction or a snapshot's load,
+always the exact inverse of the id -> row map; and the snapshot layout of
+a dataset's ids (Dataset.export_ids / import_ids)."""
+import json
+
 import numpy as np
 import pytest
 import torch
 
-from longbow_tpu_torch.metrics import registry
 from longbow_tpu_torch.ops.distance import MASKED_GUARD, Metric
 from longbow_tpu_torch.query.parser import Filter
 from longbow_tpu_torch.store.compaction import compact_dataset
 from longbow_tpu_torch.store.vector_store import VectorStore
 
 D = 16
-REBUILDS = "longbow_dataset_row_ids_rebuilds_total"
 
 
 def _ids_of(id_kind):
@@ -24,15 +25,15 @@ def _ids_of(id_kind):
 
 def _reference(ds, d, r):
     """The answer one hit at a time: a row that is in range and holds an id
-    (read after the index search) answers with that id, every other slot
-    with None and not ok."""
-    r2i = ds._row_to_id
+    (read after the index search, from the id -> row map) answers with that
+    id, every other slot with None and not ok."""
+    r2i = {row: uid for uid, row in ds._id_to_row.items()}
     ids = np.empty(r.shape, dtype=object)
     ok = np.zeros(r.shape, dtype=bool)
     for b in range(r.shape[0]):
         for j in range(r.shape[1]):
             row = int(r[b, j])
-            if d[b, j] < MASKED_GUARD and 0 <= row < len(r2i) and r2i[row] is not None:
+            if d[b, j] < MASKED_GUARD and row in r2i:
                 ids[b, j] = r2i[row]
                 ok[b, j] = True
     return ids, (-d if ds.metric == Metric.DOT else d), ok
@@ -97,7 +98,7 @@ def test_answer_matches_per_hit_reference(monkeypatch, id_kind, kind):
     gone = []
 
     def delete_first_hit(r):
-        uid = ds._row_to_id[int(r[0, 0])]
+        uid = ds.row_ids_array()[int(r[0, 0])]
         gone.append(uid)
         ds.delete(np.asarray([uid], dtype=object if id_kind == "str" else np.int64))
 
@@ -107,34 +108,33 @@ def test_answer_matches_per_hit_reference(monkeypatch, id_kind, kind):
     _assert_same(got, _reference(ds, *seen[-1]))
 
 
-def _rebuilds(name) -> float:
-    for sample, pairs, value in registry.get_registry()._metrics[REBUILDS].samples():
-        if sample.endswith("_total") and dict(pairs)["dataset"] == name:
-            return value
-    return 0.0
-
-
 def _assert_mirror(ds):
-    """The mirror holds the row -> id list's own objects, `live` where a row
-    holds one, and nothing past the list's length."""
-    m, r2i = ds._rows, ds._row_to_id
-    assert m.src is r2i and m.n == len(r2i)
-    assert all(a is b for a, b in zip(m.ids[: m.n].tolist(), r2i))
-    np.testing.assert_array_equal(m.live[: m.n], [u is not None for u in r2i])
-    assert not m.live[m.n:].any() and all(x is None for x in m.ids[m.n:])
+    """The row -> id map is the exact inverse of the id -> row map: each
+    live id at its row, `live` exactly there, None elsewhere, nothing past
+    `n`, and `n` the index's rows."""
+    m, i2r = ds._rows, ds._id_to_row
+    assert m.n == len(ds.index)
+    want = [None] * m.n
+    for uid, row in i2r.items():
+        want[row] = uid
     arr = ds.row_ids_array()
-    assert arr.dtype == object and arr.tolist() == r2i
+    assert arr.dtype == object and len(arr) == m.n
+    got = arr.tolist()
+    assert got == want and all(type(g) is type(w) for g, w in zip(got, want))
+    np.testing.assert_array_equal(m.live[: m.n], [u is not None for u in want])
+    assert int(m.live.sum()) == len(i2r)
+    assert not m.live[m.n:].any() and all(x is None for x in m.ids[m.n:])
 
 
 @pytest.mark.parametrize("id_kind", ["int", "str"])
-def test_mirror_follows_the_row_map(monkeypatch, tmp_path, id_kind):
-    monkeypatch.setattr(registry, "_global", registry.MetricsRegistry())
+def test_mirror_follows_the_row_map(tmp_path, id_kind):
     ids_of = _ids_of(id_kind)
     rng = np.random.default_rng(5)
     v = rng.standard_normal((400, D), dtype=np.float32)
     store = VectorStore(device="cpu", persist_dir=tmp_path, wal_sync="always")
     store.get_or_create("a", D, index_kind="flat")
     ds = store.get("a")
+    m0 = ds._rows
     store.put("a", ids_of(range(10)), v[:10])
     cap = len(ds._rows.ids)
     store.put("a", ids_of(range(10, 20)), v[10:20])  # past its capacity: doubled
@@ -149,33 +149,33 @@ def test_mirror_follows_the_row_map(monkeypatch, tmp_path, id_kind):
     store.put("a", ids_of(range(250, 300)), v[250:300])
     store.delete("a", ids_of(range(250, 260)))
     _assert_mirror(ds)
-    assert _rebuilds("a") == 0  # searches, puts and deletes build nothing
+    assert ds._rows is m0  # searches, puts and deletes write the one map
 
     compact_dataset(ds)
-    store.search("a", v[:2], 5, use_cache=False)
+    m1 = ds._rows
+    assert m1 is not m0  # installed whole, once
     _assert_mirror(ds)
-    assert _rebuilds("a") == 1
     for i in range(100):
         store.search("a", v[i: i + 2], 5, use_cache=False)
     store.put("a", ids_of(range(300, 320)), v[300:320])
     store.delete("a", ids_of(range(300, 305)))
     _assert_mirror(ds)
-    assert _rebuilds("a") == 1
+    assert ds._rows is m1
     live = sorted(ds._id_to_row, key=str)
 
     store.close()  # a snapshot, then the WAL closed
     store2 = VectorStore(device="cpu", persist_dir=tmp_path, wal_sync="always")
     ds2 = store2.get("a")
+    _assert_mirror(ds2)
+    m2 = ds2._rows
     for i in range(100):
         ids, _, ok = store2.search("a", v[i: i + 2], 5, use_cache=False)
         assert all(u in ds2._id_to_row for u in ids[ok])
-    _assert_mirror(ds2)
     assert sorted(ds2._id_to_row, key=str) == live
-    assert _rebuilds("a") == 2  # one for the compaction, one for the load
     store2.put("a", ids_of(range(320, 330)), v[320:330])
     store2.delete("a", ids_of(range(320, 322)))
     _assert_mirror(ds2)
-    assert _rebuilds("a") == 2
+    assert ds2._rows is m2
     store2.close()
 
 
@@ -230,3 +230,71 @@ def test_mirror_under_concurrent_puts_deletes_and_searches():
     assert not bad
     _assert_mirror(ds)
     assert len(ds._id_to_row) == 64 + n_writers * 40 * 7
+
+
+# a dataset's id keys in state.json, as the snapshot layout before
+# Dataset.export_ids wrote them (row_to_id, then lww) after _id_scenario's
+# writes: int ids after deletes and upserts; string ids after a
+# compaction and later writes; int ids, every row deleted, then compacted
+# (an empty index, recovered through get_or_create and the lww map alone)
+WRITTEN_IDS = {
+    "int": '{"row_to_id": [0, null, null, 3, null, 5, 6, null, 8, null, 10, 11, 2, 7, 20], '
+           '"lww": [[0, 100.5], [1, 200.25], [2, 300.0], [3, 103.5], [4, 200.25], '
+           '[5, 105.5], [6, 106.5], [7, 300.0], [8, 108.5], [9, 200.25], [10, 110.5], '
+           '[11, 111.5], [20, 300.0]]}',
+    "str-compacted": '{"row_to_id": ["doc-0", "doc-2", null, null, "doc-6", "doc-7", '
+                     '"doc-8", "doc-10", "doc-11", "doc-20", "doc-21", "doc-3"], '
+                     '"lww": [["doc-0", 100.5], ["doc-1", 200.25], ["doc-2", 300.0], '
+                     '["doc-3", 400.0], ["doc-4", 200.25], ["doc-5", 401.0], '
+                     '["doc-6", 106.5], ["doc-7", 300.0], ["doc-8", 108.5], '
+                     '["doc-9", 200.25], ["doc-10", 110.5], ["doc-11", 111.5], '
+                     '["doc-20", 300.0], ["doc-21", 400.0]]}',
+    "emptied": '{"row_to_id": [], "lww": [[1, 60.0]]}',
+}
+
+
+def _id_scenario(store, case):
+    ids_of = _ids_of("str" if case.startswith("str") else "int")
+    v = np.random.default_rng(3).standard_normal((40, 8), dtype=np.float32)
+    store.get_or_create("a", 8, index_kind="flat")
+    if case == "emptied":
+        store.put("a", ids_of([1]), v[:1], timestamp=50.0)
+        store.delete("a", ids_of([1]), timestamp=60.0)
+        compact_dataset(store.get("a"))
+        return
+    store.put("a", ids_of(range(12)), v[:12], timestamp=np.arange(12, dtype=np.float64) + 100.5)
+    store.delete("a", ids_of([1, 4, 9]), timestamp=200.25)
+    store.put("a", ids_of([2, 7, 20]), v[20:23], timestamp=300.0)
+    if case == "str-compacted":
+        compact_dataset(store.get("a"))
+        store.put("a", ids_of([21, 3]), v[23:25], timestamp=400.0)
+        store.delete("a", ids_of([5]), timestamp=401.0)
+
+
+@pytest.mark.parametrize("case", sorted(WRITTEN_IDS))
+def test_snapshot_ids_keep_their_layout(tmp_path, case):
+    """A snapshot's id keys are written as before, load into the id maps
+    and LWW map they were written from (the id -> row map in row order,
+    the row -> id map its exact inverse), and export back byte for byte."""
+    written = WRITTEN_IDS[case]
+    js = json.loads(written)
+    store = VectorStore(device="cpu", persist_dir=tmp_path, wal_sync="always")
+    _id_scenario(store, case)
+    assert json.dumps(store.get("a").export_ids()) == written
+    store.close()
+    state = tmp_path / "snapshot" / "a" / "state.json"
+    first = state.read_bytes()
+    on_disk = json.loads(first)
+    assert json.dumps({k: on_disk[k] for k in ("row_to_id", "lww")}) == written
+
+    store2 = VectorStore(device="cpu", persist_dir=tmp_path, wal_sync="always")
+    ds = store2.get("a")
+    want = [(uid, r) for r, uid in enumerate(js["row_to_id"]) if uid is not None]
+    assert list(ds._id_to_row.items()) == want
+    assert ds.row_ids_array().tolist() == js["row_to_id"]
+    assert list(ds._lww.items()) == [tuple(p) for p in js["lww"]]
+    if js["row_to_id"]:
+        _assert_mirror(ds)
+    assert json.dumps(ds.export_ids()) == written
+    store2.close()
+    assert state.read_bytes() == first

@@ -330,6 +330,38 @@ def test_port_sources_name_no_forbidden_import():
             assert bad in allowed or bad not in text, f"{path}: {bad.strip()}"
 
 
+def test_only_the_dataset_writes_its_id_state():
+    """No module of the port but store/dataset.py assigns, deletes or
+    setattr's a dataset's id state (_id_to_row, _lww, _rows): the others
+    go through Dataset's methods."""
+    import ast
+
+    fields = {"_id_to_row", "_lww", "_rows"}
+    bad = []
+    for path in sorted((REPO / "longbow_tpu_torch").rglob("*.py")):
+        rel = path.relative_to(REPO).as_posix()
+        if rel == "longbow_tpu_torch/store/dataset.py":
+            continue
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, (ast.Assign, ast.Delete)):
+                targets = node.targets
+            elif isinstance(node, (ast.AugAssign, ast.AnnAssign)):
+                targets = [node.target]
+            elif (isinstance(node, ast.Call) and isinstance(node.func, ast.Name)
+                  and node.func.id in ("setattr", "delattr") and len(node.args) >= 2
+                  and isinstance(node.args[1], ast.Constant)
+                  and node.args[1].value in fields):
+                bad.append(f"{rel}:{node.lineno}")
+                continue
+            else:
+                continue
+            for t in targets:
+                for sub in ast.walk(t):
+                    if isinstance(sub, ast.Attribute) and sub.attr in fields:
+                        bad.append(f"{rel}:{node.lineno}")
+    assert not bad, bad
+
+
 # the quantized kinds of this slice, with the params that reach the index
 NEW_KINDS = {
     "pq": {"pq_m": 8},
