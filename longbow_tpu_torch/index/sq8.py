@@ -49,6 +49,7 @@ from longbow_tpu_torch.ops.distance import (
 )
 from longbow_tpu_torch.ops.kmeans import kmeans_init, lloyd, nearest_center
 from longbow_tpu_torch.ops.scan import GROUP, fused_codes_search
+from longbow_tpu_torch.utils.launch import launched
 from longbow_tpu_torch.utils.tracing import span
 
 MIN_CAPACITY = 4096
@@ -119,6 +120,27 @@ def _tensor_bytes(*tensors) -> int:
 
 def _masked_result(b: int, k: int):
     return (np.full((b, k), MASKED, np.float32), np.full((b, k), -1, np.int64))
+
+
+def _queue_to_host(*ts: torch.Tensor):
+    """Queues the copies of `ts` to the host and returns a function that
+    waits for them -> [numpy arrays]. On a card: copies without a wait
+    into pinned memory and an event after them, so that the caller can
+    let the next search launch before it waits (an event's wait lets go
+    of the interpreter lock); on the CPU the arrays at once."""
+    if not ts[0].is_cuda:
+        out = [t.cpu().numpy() for t in ts]
+        return lambda: out
+    host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t, non_blocking=True)
+            for t in ts]
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(ts[0].device))
+
+    def wait():
+        done.synchronize()
+        # copied out, so that the answer holds no pinned memory
+        return [h.numpy().copy() for h in host]
+    return wait
 
 
 def _chunked_topk(score_chunk, n: int, k: int, chunk: int):
@@ -852,14 +874,28 @@ class SQ8ResidualIndex(_AffineCodes):
 
     def search(self, queries, k: int, *, filter_mask=None):
         """-> (dist [B, k] f32, external rows [B, k] int64) as numpy.
-        filter_mask: bool over EXTERNAL rows (bounds-checked)."""
+        filter_mask: bool over EXTERNAL rows (bounds-checked). Calls
+        utils/launch.py's launched() once, when the search's work and its
+        answer's copies are queued."""
         return self._search(queries, k, filter_mask, has_delta=self.d_count > 0)
+
+    def _query(self, queries) -> torch.Tensor:
+        """_AffineCodes._query; a host array goes to a card through pinned
+        memory without a wait, so that the upload queues behind the card's
+        earlier work where a pageable copy would wait for it to finish."""
+        if isinstance(queries, torch.Tensor) or self.device.type != "cuda":
+            return super()._query(queries)
+        a = np.atleast_2d(np.asarray(queries, np.float32))
+        host = torch.empty(a.shape, dtype=torch.float32, pin_memory=True)
+        host.numpy()[...] = a
+        return host.to(self.device, non_blocking=True)
 
     def _search(self, queries, k: int, filter_mask, *, has_delta: bool):
         """search, with the delta region's scan on or off (off times the
         main region alone)."""
         q = self._query(queries)
         if self.m_codes.shape[0] == 0 and self.d_count == 0:
+            launched()
             return _masked_result(q.shape[0], k)
         normalize = self.metric == Metric.COSINE
         metric = Metric.L2 if normalize else self.metric
@@ -881,8 +917,9 @@ class SQ8ResidualIndex(_AffineCodes):
                 ))
         count_dispatch("pallas_sq8r_fused" if fused else "xla", fused and self.m_codes.is_cuda)
         with span("longbow.index.to_host"):
-            d = torch.cat([o[0] for o in outs]).cpu().numpy()
-            i = torch.cat([o[1] for o in outs]).cpu().numpy()
+            answer = _queue_to_host(torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs]))
+            launched()  # the next search may queue behind this one's copies
+            d, i = answer()
         if normalize:
             d = cosine_report(d)
         return d, i

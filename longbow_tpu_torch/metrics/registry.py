@@ -234,6 +234,10 @@ _CATALOG: dict[str, tuple[str, tuple[str, ...]]] = {
 # longbow_hnsw_distance_calculations_total (the neighbour distances it
 # computed): longbow_hnsw_beam_iterations_total counts its iterations (one
 # host read each) and longbow_hnsw_queries_total the queries it searched.
+# The coalescer (serving/coalescer.py):
+# longbow_coalescer_overlapped_dispatches_total counts the store searches it
+# issued while another dispatch of the same shard, which had handed on the
+# launch turn, was still waiting on its answer.
 PORT_METRICS: dict[str, tuple[str, tuple[str, ...]]] = {
     "longbow_kernel_launches_total": (_C, ("kernel",)),
     "longbow_kernel_variant_launches_total": (_C, ("kernel", "variant")),
@@ -241,6 +245,7 @@ PORT_METRICS: dict[str, tuple[str, tuple[str, ...]]] = {
     "longbow_sq8r_delta_views_total": (_C, ()),
     "longbow_hnsw_beam_iterations_total": (_C, ()),
     "longbow_hnsw_queries_total": (_C, ()),
+    "longbow_coalescer_overlapped_dispatches_total": (_C, ()),
 }
 
 

@@ -106,9 +106,9 @@ def test_store_calls_give_the_same_samples_and_counts(fresh_registries):
     got = _samples(registry.get_registry().text().decode())
     # this package's own metrics are outside the reference's catalog; those
     # without labels show from their declaration, at 0 here (no sq8r, no
-    # graph)
+    # graph, no coalescer)
     for name in ("longbow_sq8r_delta_views_total", "longbow_hnsw_beam_iterations_total",
-                 "longbow_hnsw_queries_total"):
+                 "longbow_hnsw_queries_total", "longbow_coalescer_overlapped_dispatches_total"):
         assert got.pop((name, ())) == 0
     assert not any(name in registry.PORT_METRICS for name, _ in got)
     assert want[("longbow_hnsw_searches_total", ())] == 2  # the sq8 searches

@@ -108,6 +108,70 @@ def test_answer_matches_per_hit_reference(monkeypatch, id_kind, kind):
     _assert_same(got, _reference(ds, *seen[-1]))
 
 
+@pytest.mark.parametrize("id_kind", ["int", "str"])
+def test_sq8r_delete_at_the_launch_signal_is_not_ok(monkeypatch, id_kind):
+    """sq8r: a row deleted from inside the launch signal's listener, after
+    the index's search is queued and before its answer is read, is not ok."""
+    from longbow_tpu_torch.utils.launch import on_launched
+
+    ids_of = _ids_of(id_kind)
+    rng = np.random.default_rng(12)
+    v = rng.standard_normal((1200, D), dtype=np.float32)
+    store = VectorStore(device="cpu", dtype=torch.float32)
+    store.get_or_create("a", D, index_kind="sq8r")
+    store.put("a", ids_of(np.arange(600)), v[:600])
+    store.get("a").index._inner.rebuild_min = 512
+    store.put("a", ids_of(np.arange(600, 900)), v[600:900])  # folds into the main region
+    store.put("a", ids_of(np.arange(900, 1200)), v[900:])  # stays in the delta
+    ds = store.get("a")
+    assert ds.index._inner.d_count == 300
+    q = v[[3, 1000]] + 0.01
+    first = ds.search(q, 10)[0]
+    gone = np.array([first[0, 0], first[1, 0]])  # a main-region and a delta row
+    assert gone.tolist() == ids_of([3, 1000]).tolist()
+    seen = _recording(monkeypatch, ds)
+    with on_launched(lambda: ds.delete(gone)):
+        ids, scores, ok = got = ds.search(q, 10)
+    assert not ok[:, 0].any() and ids[0, 0] is None and ids[1, 0] is None
+    assert all(g not in ds._id_to_row for g in gone)
+    _assert_same(got, _reference(ds, *seen[-1]))
+
+
+def test_only_sq8r_signals_and_once_a_search():
+    """SQ8ResidualIndex._search calls the launch signal exactly once a
+    search (fused or not, with or without its delta, filtered, past one
+    query chunk, on an empty index); flat and sq8 searches never do."""
+    from longbow_tpu_torch.index import sq8
+    from longbow_tpu_torch.utils.launch import on_launched
+
+    rng = np.random.default_rng(13)
+    v = rng.standard_normal((1200, D), dtype=np.float32)
+    store = VectorStore(device="cpu", dtype=torch.float32)
+    for kind in ("sq8r", "flat", "sq8", "empty"):
+        store.get_or_create(kind, D, index_kind="sq8r" if kind == "empty" else kind)
+        if kind != "empty":
+            store.put(kind, np.arange(600), v[:600])
+    store.get("sq8r").index._inner.rebuild_min = 512
+    store.put("sq8r", np.arange(600, 900), v[600:900])  # folds into the main region
+    store.put("sq8r", np.arange(900, 1200), v[900:])  # stays in the delta
+    idx = store.get("sq8r").index._inner
+    assert idx.d_count == 300 and idx.m_live == 900
+    signals = []
+    with on_launched(lambda: signals.append(1)):
+        q = v[:4] + 0.01
+        for k in (10, 100):
+            idx.search(q, k)
+            idx._search(q, k, None, has_delta=False)
+        idx.search(q, 10, filter_mask=np.arange(1200) % 2 == 0)
+        idx.search(np.repeat(q, sq8.QUERY_CHUNK // 4 + 1, axis=0), 10)
+        store.search("sq8r", q, 10, use_cache=False)
+        store.search("empty", q, 10, use_cache=False)
+        assert len(signals) == 8
+        store.search("flat", q, 10, use_cache=False)
+        store.search("sq8", q, 10, use_cache=False)
+    assert len(signals) == 8
+
+
 def _assert_mirror(ds):
     """The row -> id map is the exact inverse of the id -> row map: each
     live id at its row, `live` exactly there, None elsewhere, nothing past

@@ -254,6 +254,207 @@ def test_coalescer_stress_counts_every_request():
         _same(res, vs.search("d", v[r:r + 1], 5, use_cache=False))
 
 
+def _answer(qs, k):
+    b = qs.shape[0]
+    return np.zeros((b, k), object), np.zeros((b, k), np.float32), np.ones((b, k), bool)
+
+
+def _wait_for(cond):
+    deadline = time.time() + WAIT
+    while not cond():
+        assert time.time() < deadline, "timed out"
+        time.sleep(0.005)
+
+
+def _callers(co, n):
+    """n threads, each one co.search of a single query on dataset "d" ->
+    (threads, {i: answer or error})."""
+    out = {}
+
+    def call(i):
+        try:
+            out[i] = co.search("d", np.full((1, 8), i, np.float32), 1, timeout=WAIT)
+        except Exception as e:  # the test reads it
+            out[i] = e
+
+    ts = [threading.Thread(target=call, args=(i,)) for i in range(n)]
+    for t in ts:
+        t.start()
+    return ts, out
+
+
+def test_launch_signal_lets_the_next_batch_launch():
+    """A store whose search signals its launch and then waits: the other
+    dispatch thread takes the turn and runs the next batch before the
+    first search returns, and every request that queued while the first
+    launched rides in that one batch."""
+    from longbow_tpu_torch.utils.launch import launched
+
+    entered, go_launch, release = threading.Event(), threading.Event(), threading.Event()
+    second = threading.Event()
+    calls = []
+
+    class Store:
+        def search(self, dataset, qs, k, **kw):
+            calls.append(qs.shape[0])
+            if len(calls) == 1:
+                entered.set()
+                go_launch.wait(WAIT)
+                launched()
+                release.wait(WAIT)
+            else:
+                launched()
+                second.set()
+            return _answer(qs, k)
+
+    co = SearchCoalescer(Store(), shards=1)
+    try:
+        first, got = _callers(co, 1)
+        assert entered.wait(WAIT)
+        more, got_more = _callers(co, 3)
+        _wait_for(lambda: co._q.qsize() == 3)  # queued while the first launches
+        go_launch.set()
+        assert second.wait(WAIT)
+        assert not release.is_set() and calls == [1, 3]
+        assert co.overlapped == 1 and co.dispatches == 2
+    finally:
+        release.set()
+        for t in first + more:
+            t.join(WAIT)
+        co.stop()
+    assert not any(t.is_alive() for t in first + more)
+    assert all(isinstance(r, tuple) for r in [*got.values(), *got_more.values()])
+
+
+def test_searches_without_a_signal_stay_serial():
+    """A store that never signals: the turn comes back only when its
+    search returns, so one search runs at a time and requests queued
+    meanwhile wait for it."""
+    entered, release = threading.Event(), threading.Event()
+    mu = threading.Lock()
+    calls, active, peak = [], [0], [0]
+
+    class Store:
+        def search(self, dataset, qs, k, **kw):
+            with mu:
+                calls.append(qs.shape[0])
+                active[0] += 1
+                peak[0] = max(peak[0], active[0])
+            if len(calls) == 1:
+                entered.set()
+                release.wait(WAIT)
+            with mu:
+                active[0] -= 1
+            return _answer(qs, k)
+
+    co = SearchCoalescer(Store(), shards=1)
+    try:
+        first, _ = _callers(co, 1)
+        assert entered.wait(WAIT)
+        more, got = _callers(co, 3)
+        _wait_for(lambda: co._q.qsize() == 3)
+        time.sleep(0.1)  # room for a second dispatch, were the turn free
+        assert calls == [1] and co._q.qsize() == 3
+    finally:
+        release.set()
+        for t in first + more:
+            t.join(WAIT)
+        co.stop()
+    assert not any(t.is_alive() for t in first + more) and len(got) == 3
+    assert calls == [1, 3] and peak[0] == 1 and co.overlapped == 0
+
+
+def test_overlapped_sq8r_answers_equal_one_search_a_request():
+    """Many callers on an sq8r dataset through the coalescer, each store
+    search held after its answer until the next has begun (so dispatches
+    overlap): every answer equals that request searched alone."""
+    import sys
+
+    vs = VectorStore(device="cpu")
+    v = _vecs(1500, 16, seed=3)
+    vs.get_or_create("s", 16, index_kind="sq8r")
+    vs.put("s", np.arange(600), v[:600])
+    vs.get("s").index._inner.rebuild_min = 512  # a main region and a delta
+    vs.put("s", np.arange(600, 1500), v[600:])
+    begun, searches = threading.Condition(), [0]
+
+    class Held:
+        def search(self, *a, **kw):
+            with begun:
+                searches[0] += 1
+                mine = searches[0]
+                begun.notify_all()
+            out = vs.search(*a, **kw)
+            with begun:  # until the next search has begun, or none is queued
+                begun.wait_for(lambda: searches[0] > mine, timeout=0.2)
+            return out
+
+    co = SearchCoalescer(Held(), shards=1)
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    got, errors = {}, []
+
+    def worker(i):
+        try:
+            for j in range(4):
+                r = (i * 37 + j * 11) % 1500
+                got[(i, j)] = (r, co.search("s", v[r:r + 1] + 0.01, 5, timeout=WAIT))
+        except Exception as e:  # the assertion below reports it
+            errors.append(e)
+
+    try:
+        ts = [threading.Thread(target=worker, args=(i,)) for i in range(32)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(WAIT * 3)
+    finally:
+        sys.setswitchinterval(old)
+        co.stop()
+    assert not errors and not any(t.is_alive() for t in ts) and len(got) == 128
+    assert co.overlapped >= 1
+    for r, res in got.values():
+        _same(res, vs.search("s", v[r:r + 1] + 0.01, 5, use_cache=False))
+
+
+def test_stop_with_two_dispatches_in_flight_orphans_nothing():
+    """Two dispatches in flight (each signalled, each waiting) and more
+    requests queued: stop fails the queued ones, the two in flight still
+    answer, and no caller is left to its timeout."""
+    from longbow_tpu_torch.utils.launch import launched
+
+    release = threading.Event()
+    calls = []
+
+    class Store:
+        def search(self, dataset, qs, k, **kw):
+            calls.append(qs.shape[0])
+            launched()
+            release.wait(WAIT)
+            return _answer(qs, k)
+
+    co = SearchCoalescer(Store(), shards=1)
+    first, got = _callers(co, 1)
+    _wait_for(lambda: len(calls) == 1)
+    second, got2 = _callers(co, 1)
+    _wait_for(lambda: len(calls) == 2)
+    queued, got3 = _callers(co, 3)
+    _wait_for(lambda: co._q.qsize() == 3)
+    stopper = threading.Thread(target=co.stop)
+    t0 = time.time()
+    stopper.start()
+    _wait_for(co._stop.is_set)
+    release.set()
+    for t in first + second + queued + [stopper]:
+        t.join(WAIT)
+    assert not any(t.is_alive() for t in first + second + queued + [stopper])
+    assert time.time() - t0 < 5.0
+    assert calls == [1, 1] and co.overlapped == 1
+    assert all(isinstance(r, tuple) for r in [*got.values(), *got2.values()])
+    assert len(got3) == 3
+    assert all(isinstance(r, RuntimeError) and "stopped" in str(r) for r in got3.values())
+
+
 # -- the ingest queue (tests/test_ingest.py:86-165, :273) ---------------------
 
 def test_ingest_queue_coalesces_same_dataset():

@@ -700,19 +700,31 @@ def test_sq8r_small_delta_takes_the_plain_route(monkeypatch):
 
 
 def test_sq8r_delta_counts_reads_a_window(monkeypatch):
-    """tools/sq8r_delta_counts: the two counters' samples, and their
-    growth between two readings (a sample first written in between grew
-    from 0)."""
+    """tools/sq8r_delta_counts: the delta's two counters', the coalescer's
+    overlap counter's and batch histogram's samples, their growth between
+    two readings (a sample first written in between grew from 0), and the
+    window's share of overlapped dispatches and mean batch."""
     from longbow_tpu_torch.tools import sq8r_delta_counts as tool
 
     monkeypatch.setattr(registry, "_global", registry.MetricsRegistry())
     registry.count("longbow_sq8r_delta_scans_total", route="k2")
+    registry.get_registry().observe(tool.BATCH, 7)
     start = tool.readings()
     for _ in range(3):
         registry.count("longbow_sq8r_delta_scans_total", route="k2")
     registry.count("longbow_sq8r_delta_scans_total", route="plain")
     registry.count("longbow_sq8r_delta_views_total")
+    for b in (1_000, 2_000, 3_000, 2_000):
+        registry.get_registry().observe(tool.BATCH, b)
+    for _ in range(3):
+        registry.count("longbow_coalescer_overlapped_dispatches_total")
     k2, plain = ('longbow_sq8r_delta_scans_total{"route": "%s"}' % r for r in ("k2", "plain"))
     views = "longbow_sq8r_delta_views_total{}"
-    assert start == {k2: 1.0, views: 0.0}
-    assert tool.window(start, tool.readings()) == {k2: 3.0, plain: 1.0, views: 1.0}
+    over = "longbow_coalescer_overlapped_dispatches_total{}"
+    n, total = tool.BATCH + "_count{}", tool.BATCH + "_sum{}"
+    assert start == {k2: 1.0, views: 0.0, over: 0.0, n: 1.0, total: 7.0}
+    win = tool.window(start, tool.readings())
+    assert win == {k2: 3.0, plain: 1.0, views: 1.0, over: 3.0, n: 4.0, total: 8_000.0}
+    assert tool.coalescer(win) == {"dispatches": 4.0, "overlapped_share": 0.75,
+                                   "mean_batch": 2_000.0}
+    assert tool.coalescer(tool.window(start, start)) == {}

@@ -325,6 +325,7 @@ def test_store_spans_agree_with_a_wrap_of_vector_store_search(recorder):
 
     store.search = timed
     co = SearchCoalescer(store, shards=1)
+    dispatchers = {t.native_id for t in co._ts}
     callers, per = 4, 6
     err: list = []
 
@@ -360,12 +361,15 @@ def test_store_spans_agree_with_a_wrap_of_vector_store_search(recorder):
         assert len(by[name]) >= len(stores), name
         assert all(any(_inside(r, s) for s in stores) for r in by[name]), name
     # the coalescer: a queue wait a request, on its caller's thread, and
-    # the dispatch thread's idle
+    # the dispatch threads' idle and waits for the launch turn
     queue = by["longbow.coalescer.queue"]
     assert len(queue) == callers * per
     assert {r[1] for r in queue} == {t.native_id for t in ths}
     assert all(r[2] <= r[3] for r in queue)
-    assert {r[1] for r in by["longbow.coalescer.idle"]} == {stores[0][1]}
+    assert {s[1] for s in stores} <= dispatchers
+    idle = {r[1] for r in by["longbow.coalescer.idle"]}
+    assert stores[0][1] in idle and idle <= dispatchers
+    assert {r[1] for r in by["longbow.coalescer.turn"]} == dispatchers
 
 
 def test_exchange_spans_wrap_the_edge_steps(recorder):
